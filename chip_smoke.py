@@ -7,13 +7,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``rtnr_tpu_torch/csrc`` (one nvcc per source,
    in parallel), with the build seconds;
-3. each kernel against its plain torch twin on the card at the main path's
+3. each kernel against its plain torch twin on the card at the main paths'
    shapes (5M-point synthetic scene, 1920x1080, full-width U-Net
    [64,128,256,512] with seeded random weights): K1+K2 bit-exact; K3 at
    all 18 conv shapes (pool, head and two-input variants included) and K4 at
    its 4 shapes within 2 bf16 ulp of the output's magnitude against the f32
    ``F.conv2d`` / ``F.conv_transpose2d`` twin (TF32 off);
-4. the main path: ``Renderer(...).compute_full`` for one warm-up frame,
+4. the differentiable raster at the same shape: K5 (``winners_f32``) and
+   the K2 ``float_sums`` expansion bit-exact against their twins; its count,
+   depth and sums equal to the serving raster's K1/K2 integer images; K5's
+   time beside ``torch.segment_reduce`` over the same segments; forward and
+   backward ms;
+5. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
    10 timed frames with the outputs left on the card and 3 with them copied
    to host numpy, with ms/frame, the staged projection / filter / U-Net ms
    (CUDA events), finiteness, the launch count of every kernel in that run
@@ -21,8 +26,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (device busy/idle share, top kernels), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
    against the same render on the CPU;
-5. one JSON ``kernels`` line (time, bound, plain twin and library times);
-6. the last line ``{"ok": true, "device": {...}}``.
+6. the training paths at full width (bf16 U-Net, batch 1, targets the
+   scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
+   ``make_train_step`` (K1, K2 must launch) and of ``make_scene_train_step``
+   (K5, K2 must launch), with ms/step, peak device memory per step, finite
+   losses, moved batch statistics, colours and camera matrices, non-zero
+   pose and colour gradients, and a profiler trace of one scene step; then a
+   small scene step on the card against the CPU;
+7. one JSON ``kernels`` line (time, bound, plain twin and library times);
+8. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
 """
@@ -44,6 +56,7 @@ WIDTH, HEIGHT = 1920, 1080
 POINTS = 5_000_000  # bench.py:52-55 of the JAX package
 FRAMES = 10  # timed frames after one warm-up
 HOST_FRAMES = 3  # timed frames of compute_full, outputs copied to host numpy
+TRAIN_STEPS = 3  # timed steps of each train step after one warm-up
 SEED = 0
 
 
@@ -123,6 +136,223 @@ def check_resolve(sp, hw, band, rows):
                           library_ms=None, max_abs_err=0.0)
     log(f"K1 winners: {k1_ms:.4f} ms (plain {k1_plain:.4f}, bound {b1:.4f} {by1})")
     log(f"K2 expand:  {k2_ms:.4f} ms (plain {k2_plain:.4f}, bound {b2:.4f} {by2})")
+
+
+def check_diff_raster(points, colors, valid, M, band, rows):
+    """The differentiable forward at the frame's shape: K5 + K2 float_sums
+    against their twins bit for bit; its count, depth and sums against the
+    serving raster's K1/K2 integer images exactly (the colours are integers,
+    so every sum is exact in f32); forward and backward ms."""
+    import torch
+    from rtnr_tpu_torch.ops import raster_diff as rd
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+    from rtnr_tpu_torch.ops.raster import project_and_sort, project_and_sort_diff
+
+    hw = WIDTH * HEIGHT
+    sd, _ = project_and_sort_diff(points, colors, M, width=WIDTH, height=HEIGHT, valid=valid)
+    wimg, total = rr.winners_f32(sd, hw, band)
+    wimg_p, total_p = rr.winners_f32_plain(sd, hw, band)
+    t = int(total[0])
+    if t != int(total_p[0]) or not torch.equal(wimg[:, :t], wimg_p[:, :t]):
+        fail("K5 winners_f32 differs from its twin")
+    sums_f, cnt_f, depth_f = rr.expand_winners(wimg, total, hw, float_sums=True)
+    for g, r in zip((sums_f, cnt_f, depth_f),
+                    rr.expand_plain(wimg, total, hw, False, float_sums=True)):
+        if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+            fail("K2 float_sums differs from its twin")
+    sp = project_and_sort(points, colors, M, width=WIDTH, height=HEIGHT, valid=valid)
+    sums_i, cnt_i, depth_i = rr.raster_images_v4(sp, hw, band)
+    if not (torch.equal(cnt_f, cnt_i.float()) and torch.equal(sums_f, sums_i.float())
+            and torch.equal(depth_f.view(torch.int32), depth_i.view(torch.int32))):
+        fail("diff raster count/depth/sums differ from the serving raster's")
+    n = sd.pix.numel()
+    log(f"K5+K2 float_sums bit-exact vs twins; diff raster count, depth and sums equal the "
+        f"serving K1/K2 images exactly: {n} points, {t} winners, max count "
+        f"{int(cnt_i.max())}, max sum {int(sums_i.max())}")
+    del sp, sums_i, cnt_i, depth_i, wimg_p
+
+    k5_ms = time_ms(lambda: rr.winners_f32(sd, hw, band))
+    k5_plain = time_ms(lambda: rr.winners_f32_plain(sd, hw, band), reps=2)
+    # yardstick for the reduction only: segment_reduce over the in-band runs
+    z = sd.zbits.view(torch.float32)
+    head_z = depth_f[sd.pix.clamp(max=hw - 1).long()]
+    in_band = (sd.pix < hw) & ~(z > head_z + band)
+    data = sd.rgb[in_band]
+    lengths = cnt_f[cnt_f > 0].to(torch.int64)
+    if int(lengths.sum()) != data.shape[0]:
+        fail("segment_reduce yardstick: in-band runs do not match the counts")
+    lib = time_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+    b5, by5 = bound_ms(20.0 * n + 24.0 * t, 0.0)
+    rows["winners_f32"] = dict(ms=k5_ms, plain_ms=k5_plain, bound_ms=b5, bound_by=by5,
+                               library_ms=lib, max_abs_err=0.0)
+    log(f"K5 winners_f32: {k5_ms:.4f} ms (plain {k5_plain:.4f}, bound {b5:.4f} {by5}, "
+        f"segment_reduce {lib:.4f})")
+    del data, lengths, in_band, head_z, sd, wimg
+
+    # the differentiable raster's forward and backward, as the scene step runs them
+    cols = colors.detach().clone().requires_grad_(True)
+    Mg = M.detach().clone().requires_grad_(True)
+    g = torch.randn((HEIGHT, WIDTH, 3), device=M.device, generator=torch.Generator(
+        device=M.device).manual_seed(SEED))
+    out = {}
+
+    def fwd():
+        out["o"] = rd.rasterize_diff_sorted(points, cols, Mg, width=WIDTH, height=HEIGHT,
+                                            valid=valid, depth_band=band)
+
+    def bwd():
+        o = out["o"]
+        loss = torch.sum(o.rgb * g) + 1e-6 * torch.sum(torch.where(o.mask, o.depth, 0.0))
+        loss.backward()
+
+    fwd_ms = time_ms(fwd)
+    bwd_ms = time_ms(lambda: (fwd(), bwd()), reps=3) - fwd_ms
+    if not (bool(torch.isfinite(cols.grad).all()) and float(Mg.grad.abs().sum()) > 0):
+        fail("diff raster gradients are not finite or the pose gradient is zero")
+    log(f"diff raster at {WIDTH}x{HEIGHT}, {n} points: forward {fwd_ms:.4f} ms, "
+        f"backward {bwd_ms:.4f} ms")
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+
+
+def train_phase(renderer, cam, E, variables, counted):
+    """Both train steps at full width on the scene: targets are the scene's
+    own render_rgbd frames (the CLI's --self-supervised); 1 warm-up + TRAIN_STEPS
+    timed steps each, bf16 U-Net, batch 1. Launch counts are reset just
+    before each step kind and read just after."""
+    import torch
+    from rtnr_tpu_torch.pipeline import render_rgbd
+    from rtnr_tpu_torch.train import trainer as tt
+
+    M = renderer._cam_proj(cam, E)
+    cams = M[None]
+    targets = render_rgbd(renderer.points, renderer.colors, renderer.valid, M, width=WIDTH,
+                          height=HEIGHT)["rgb"][None].float() / 255.0
+    result = {}
+
+    def run(name, state, step, args, need):
+        for fn in counted.values():
+            fn.launches = 0
+        stats0 = state.model.param("down0/bn0/mean").clone()
+        ms, enq, mem, losses = [], [], [], []
+        for i in range(1 + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, *args)
+            t1 = time.perf_counter()  # the host has enqueued the whole step
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+                enq.append((t1 - t0) * 1e3)
+            mem.append(torch.cuda.max_memory_allocated() / 2**30)
+            losses.append(float(m["loss"]))
+        launches = {k: fn.launches for k, fn in counted.items()}
+        log(f"{name}: launches over {1 + TRAIN_STEPS} steps {launches}")
+        for k in need:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched on the {name} path")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: non-finite loss {losses}")
+        if torch.equal(stats0, state.model.param("down0/bn0/mean")):
+            fail(f"{name}: batch_stats did not move")
+        med, enq_med = statistics.median(ms), statistics.median(enq)
+        log(f"{name}: ms/step median {med:.3f} (all {[round(v, 3) for v in ms]}), host "
+            f"enqueue median {enq_med:.3f} ms, peak device memory per step "
+            f"{[round(v, 3) for v in mem]} GiB, losses {[round(v, 5) for v in losses]}")
+        result[name] = {"ms_per_step": med, "enqueue_ms": enq_med, "steps": len(ms),
+                        "peak_mem_gib": max(mem), "losses": losses, "launches": launches}
+        return state, m
+
+    state = tt.create_train_state(variables, dtype=torch.bfloat16, device="cuda")
+    step = tt.make_train_step(width=WIDTH, height=HEIGHT)
+    run("train_step", state, step,
+        (renderer.points, renderer.colors, renderer.valid, cams, targets), ("winners", "expand"))
+    del state
+    torch.cuda.empty_cache()
+
+    sstate = tt.create_scene_train_state(variables, renderer.colors, cams,
+                                         dtype=torch.bfloat16, device="cuda")
+    cols0, cams0 = sstate.colors.detach().clone(), sstate.cam_projs.detach().clone()
+    sstep = tt.make_scene_train_step(width=WIDTH, height=HEIGHT)
+    sargs = (renderer.points, renderer.valid, targets)
+    sstate, m = run("scene_step", sstate, sstep, sargs, ("winners_f32", "expand"))
+    if not (float(m["pose_grad_norm"]) > 0 and float(m["color_grad_norm"]) > 0):
+        fail(f"scene_step: zero pose or colour gradient {m}")
+    if torch.equal(cols0, sstate.colors.detach()) or torch.equal(cams0, sstate.cam_projs.detach()):
+        fail("scene_step: colours or camera matrices did not move")
+    log(f"scene_step metrics: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m.items()))
+    result["scene_step"]["trace"] = trace_step(lambda: sstep(sstate, *sargs),
+                                               result["scene_step"]["ms_per_step"])
+    return result
+
+
+def trace_step(run, step_ms: float):
+    """torch.profiler over one step: device busy time (device-side events)
+    against the unprofiled step, and the top device kernels."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name][0] += e.device_time_total / 1e3
+            per_name[e.name][1] += 1
+    busy = sum(v[0] for v in per_name.values())
+    if busy <= 0:
+        log("trace: device time not measured (the profiler saw no device events)")
+        return None
+    log(f"trace of one scene step: device busy {busy:.3f} ms; unprofiled step {step_ms:.3f} ms "
+        f"-> idle share {max(0.0, 1 - busy / step_ms):.4f}")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, n) in top:
+        log(f"  {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    # the kernels above are mostly generic elementwise templates: attribute
+    # device time to the torch ops (forward and backward) that launched them
+    ops = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:15]
+    log("trace of one scene step by torch op (self device time):")
+    for e in ops:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:80]}")
+    return {"busy_ms": busy, "top": [[name[:60], ms, n] for name, (ms, n) in top[:8]],
+            "top_ops": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in ops[:8]]}
+
+
+def check_small_train_vs_cpu():
+    """One scene step at 32x32, features (8, 16), f32 (TF32 off), on the card
+    against the same step on the CPU (whose plain twins the tests hold
+    against the JAX package): loss and gradient norms within rtol 1e-3."""
+    import numpy as np
+    import torch
+    from rtnr_tpu_torch.camera import Camera
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.train import trainer as tt
+
+    pts, cols, valid = Scene.synthetic(8192, seed=0, extent=6.0).sorted_by_block().device_arrays(64)
+    cam = Camera.from_params(30, 30, 16, 16, 32, 32)
+    Es = [np.eye(4), np.eye(4)]
+    Es[0][2, 3], Es[1][2, 3] = 8.0, 8.2
+    cams = np.stack([cam.cam_proj(e) for e in Es]).astype(np.float32)
+    targets = np.random.default_rng(4).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    variables = init_unet_numpy(0, (8, 16))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = tt.create_scene_train_state(variables, cols, cams, learning_rate=1e-3, device=dev)
+        step = tt.make_scene_train_step(width=32, height=32, levels=3)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        _, m = step(st, t(pts), t(valid), t(targets))
+        out[dev] = {k: float(v) for k, v in m.items()}
+    for k, v in out["cpu"].items():
+        if not abs(out["cuda"][k] - v) <= 1e-3 * abs(v):
+            fail(f"small scene step: {k} on the card {out['cuda'][k]} vs CPU {v}")
+    log(f"small scene step (32x32, f32), card vs CPU within rtol 1e-3: {out['cuda']}")
 
 
 def record_unet_calls(unet, x):
@@ -383,12 +613,14 @@ def main() -> int:
     x = mid["unet_input"][None]
     del mid
     check_convs(renderer.unet, x, rows)
+    diff_ms = check_diff_raster(renderer.points, renderer.colors, renderer.valid, M,
+                                cfg.depth_band, rows)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # ---- the main path ----
     counted = {"winners": rr.winners, "expand": rr.expand_winners,
-               "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2}
+               "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32}
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
@@ -415,8 +647,8 @@ def main() -> int:
     launches = {k: fn.launches for k, fn in counted.items()}
     n_frames = 1 + FRAMES + HOST_FRAMES
     log(f"main path launches over {n_frames} frames: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("winners", "expand", "conv3x3", "convt2x2"):
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
     med = statistics.median(frame_ms)
     proj = statistics.median(s.projection_ms for s in stages)
@@ -456,6 +688,11 @@ def main() -> int:
 
     check_small_vs_cpu((16, 32))
 
+    # ---- the training paths ----
+    torch.cuda.empty_cache()
+    train = train_phase(renderer, cam, E, variables, counted)
+    check_small_train_vs_cpu()
+
     sources = {
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
@@ -463,13 +700,20 @@ def main() -> int:
                    "rtnr_tpu/ops/raster_pallas4.py:920"),
         "conv3x3": ("cuda", "rtnr_tpu_torch/csrc/conv.cu", "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2": ("cuda", "rtnr_tpu_torch/csrc/conv.cu", "rtnr_tpu/ops/conv_phase.py:1310"),
+        "winners_f32": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
+                        "rtnr_tpu/ops/raster_pallas4.py:872"),
     }
     kernels = []
     for name, (route, src, repl) in sources.items():
         r = rows[name]
+        # each kernel's launches on the path that runs it: serving frames for
+        # K1-K4, the scene train step for K5 (all paths in launches_by_path)
+        by_path = {"serve": launches[name], "train_step": train["train_step"]["launches"][name],
+                   "scene_step": train["scene_step"]["launches"][name]}
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": repl,
-            "launches": launches[name], "launches_per_frame": launches[name] / n_frames,
+            "launches": by_path["scene_step" if name == "winners_f32" else "serve"],
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
@@ -478,6 +722,7 @@ def main() -> int:
                "stage_ms": {"projection": proj, "filter": filt, "unet": unet}, "points": POINTS,
                "width": WIDTH, "height": HEIGHT, "peak_mem_gib": peak, "card": card}
     log(json.dumps({"summary": summary}))
+    log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,8 +30,33 @@
 // render.cu:160-162) and emits r|g<<8|b<<16 plus depth. Bound: bytes, the
 // 8 B/pixel output (~17 MB at 1080p, ~5 us) plus the winner rows.
 //
-// Built with -fmad=false: K1/K2 must be bit-identical to their plain twins.
-// Every entry returns cudaGetLastError().
+// K2 float_sums (the differentiable forward's mode, raster_pallas4.py:503-511)
+// needs no device code of its own: the winner rows of rtnr_winners_f32 hold
+// per-pixel totals as f32 bit patterns, nothing is subtracted, and
+// rtnr_expand copies 32-bit rows as they are. Empty pixels get 0 bits (0.0f)
+// in the sum and count rows and FLT_MAX depth, which is what float_sums
+// produces; the wrapper views rows 0-3 as f32.
+//
+// K5 (rtnr_winners_f32): replaces rtnr_tpu/ops/raster_pallas4.py::
+// _compact_kernel (wrapper compact_rows_by_rank) together with the XLA work
+// before it in the differentiable forward (raster_diff.py:246-276: head-depth
+// broadcast, band mask, inclusive f32 prefix sums, winner ranks). One kernel
+// does the whole job, as K1 does for integers: input is the same sorted
+// stream with f32 colour lanes (n, 3); each segment head walks its own band
+// prefix, accumulates r, g, b and count in f64 and rounds each ONCE to f32,
+// then writes them (as bit patterns), the head depth bits and the pixel id at
+// column = winner rank (the same three-launch head-count scan; the total
+// stays on the device). f64 makes a pixel's sum independent of summation
+// order, so the kernel equals its plain twin bit for bit, and equals the JAX
+// package wherever JAX's f32 prefixes are exact (integer colours, prefix
+// < 2^24); at 5M points JAX's global prefixes reach ~6e8, where f32 steps
+// are 64 apart. Bound on this card: bytes. ~20 B read per point (pix, z bits,
+// 12 B of colour, the neighbour's pix) plus 24 B written per winner: ~0.15
+// GB at 5M points / 1080p, ~45 us at 3.35 TB/s. As in K1, one thread walks
+// a very long segment, which is slow but exact.
+//
+// Built with -fmad=false: K1/K2/K5 must be bit-identical to their plain
+// twins. Every entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,6 +173,47 @@ __global__ void winners_write(const int* __restrict__ pix, const int* __restrict
   }
 }
 
+__global__ void winners_write_f32(const int* __restrict__ pix, const int* __restrict__ zbits,
+                                  const float* __restrict__ rgb, int n, int hw, float band,
+                                  const int* __restrict__ block_offsets,
+                                  int* __restrict__ wimg, int cap) {
+  __shared__ int warp_sums[32];
+  const int base = blockIdx.x * WIN_BLOCK + threadIdx.x * WIN_PER_THREAD;
+  int f[WIN_PER_THREAD];
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < WIN_PER_THREAD; ++k) {
+    const int i = base + k;
+    f[k] = i < n ? head_flag(pix, i, hw) : 0;
+    c += f[k];
+  }
+  int tot;
+  int rank = block_offsets[blockIdx.x] + block_exclusive_scan(c, warp_sums, &tot);
+#pragma unroll
+  for (int k = 0; k < WIN_PER_THREAD; ++k) {
+    if (!f[k]) continue;
+    const int i = base + k;
+    const int p = pix[i];
+    const int zb_head = zbits[i];
+    const float lim = __fadd_rn(__int_as_float(zb_head), band);
+    double sr = 0.0, sg = 0.0, sb = 0.0, cnt = 0.0;
+    for (int j = i; j < n && pix[j] == p; ++j) {
+      if (__int_as_float(zbits[j]) > lim) break;
+      sr = __dadd_rn(sr, (double)rgb[3 * j + 0]);
+      sg = __dadd_rn(sg, (double)rgb[3 * j + 1]);
+      sb = __dadd_rn(sb, (double)rgb[3 * j + 2]);
+      cnt = __dadd_rn(cnt, 1.0);
+    }
+    wimg[0 * cap + rank] = __float_as_int(__double2float_rn(sr));
+    wimg[1 * cap + rank] = __float_as_int(__double2float_rn(sg));
+    wimg[2 * cap + rank] = __float_as_int(__double2float_rn(sb));
+    wimg[3 * cap + rank] = __float_as_int(__double2float_rn(cnt));
+    wimg[4 * cap + rank] = zb_head;
+    wimg[5 * cap + rank] = p;
+    ++rank;
+  }
+}
+
 __global__ void expand_kernel(const int* __restrict__ wimg, int cap,
                               const int* __restrict__ total_p, int hw, int packed_out,
                               int* __restrict__ out0, int* __restrict__ out_cnt,
@@ -197,6 +263,25 @@ extern "C" int rtnr_winners(const void* pix, const void* zbits, const void* pack
     winners_write<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
                                              (const int*)packed, n, hw, band, offsets,
                                              (int*)wimg, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnr_winners_f32(const void* pix, const void* zbits, const void* rgb,
+                                int n, int hw, float band, void* block_scratch,
+                                void* wimg, int cap, void* total, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nb = (n + WIN_BLOCK - 1) / WIN_BLOCK;
+  int* counts = (int*)block_scratch;
+  int* offsets = counts + (nb > 0 ? nb : 1);
+  if (nb > 0) {
+    winners_count<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, n, hw, counts);
+  }
+  winners_scan<<<1, SCAN_THREADS, 0, s>>>(counts, nb, offsets, (int*)total);
+  if (nb > 0) {
+    winners_write_f32<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
+                                                 (const float*)rgb, n, hw, band, offsets,
+                                                 (int*)wimg, cap);
   }
   return (int)cudaGetLastError();
 }

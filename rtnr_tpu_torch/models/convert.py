@@ -17,11 +17,18 @@ are:
 
 ``init_unet_numpy`` makes seeded random raw variables (numpy only) at any
 width, for the chip check and tests.
+
+For training, ``train_state_from_flax`` turns raw variables into the
+trainable ``UNetTrain`` (same leaves, keyed by their tree paths), and
+``to_flax_variables`` turns it back into the same nested numpy tree, which
+JAX's ``UNet.apply`` and ``from_flax_variables`` (folding, for the serving
+``UNet`` on K3/K4) both accept.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from collections.abc import Mapping
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -106,3 +113,56 @@ def init_unet_numpy(
     params["final_conv"] = {"kernel": he((1, 1, features[0], out_channels)),
                             "bias": (rng.standard_normal(out_channels) * 0.05).astype(np.float32)}
     return {"params": params, "batch_stats": stats}
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            flat[f"{prefix}{k}"] = np.asarray(v, np.float32)
+    return flat
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def train_state_from_flax(variables: Dict, *, features: Optional[Sequence[int]] = None,
+                          dtype=None):
+    """Raw Flax U-Net variables (``params`` + ``batch_stats``, nested numpy
+    or JAX arrays) -> ``UNetTrain`` on the CPU, f32 parameters. ``features``
+    is read from the kernels and checked against the argument when given;
+    ``dtype`` is the compute dtype (default float32)."""
+    import torch
+
+    from rtnr_tpu_torch.models.unet import UNetTrain
+
+    params = variables["params"]
+    n_levels = sum(1 for k in params if k.startswith("down"))
+    found = tuple(int(np.shape(params[f"down{i}"]["conv0"]["kernel"])[-1])
+                  for i in range(n_levels))
+    if features is not None and tuple(features) != found:
+        raise ValueError(f"features {tuple(features)} do not match the variables' {found}")
+    return UNetTrain(_flatten(params), _flatten(variables["batch_stats"]), found,
+                     torch.float32 if dtype is None else dtype)
+
+
+def to_flax_variables(model) -> Dict:
+    """``UNetTrain`` -> ``{"params": ..., "batch_stats": ...}``, nested dicts
+    of f32 numpy arrays in the Flax tree layout."""
+
+    def tree(named):
+        return _unflatten({k.replace("__", "/"): t.detach().cpu().numpy().astype(np.float32)
+                           for k, t in named})
+
+    return {"params": tree(model.named_parameters()),
+            "batch_stats": tree(model.named_buffers())}

@@ -15,14 +15,19 @@ up shapes always match and no bilinear resize is needed (asserted).
 ``forward`` is the bf16 kernel path; ``forward_plain`` is the plain torch
 twin net (``dtype=float32`` is the f32 reference, ``bfloat16`` repeats the
 kernels' rounding).
+
+``UNetTrain`` is the un-folded net for training (``UNet.__call__`` with
+BatchNorm, ``rtnr_tpu/models/unet.py:478-522``): plain ``F.conv2d`` /
+``F.conv_transpose2d``, as the JAX package trains on XLA's own convs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as Fn
 from torch import nn
 
 from rtnr_tpu_torch.models.convert import unet_layer_names
@@ -131,3 +136,99 @@ class UNet(nn.Module):
                                   dtype=dtype)
 
         return self._run(x.to(dtype).contiguous(), conv, convt)
+
+
+_BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
+
+
+class UNetTrain(nn.Module):
+    """Trainable U-Net with BatchNorm (the JAX package's ``UNet`` with
+    ``fold_bn=False``), in the JAX package's layouts: NHWC in and out, flax
+    kernels (3x3: (3,3,C,F); ConvTranspose: (2,2,C,F), flipped; head:
+    (1,1,F0,out)) as ``nn.Parameter``s, BN ``scale``/``bias`` as parameters
+    and ``mean``/``var`` as buffers. ``models.convert`` carries the weights
+    across (``train_state_from_flax`` / ``to_flax_variables``).
+
+    ``.train()`` uses batch statistics and updates the running ones, as
+    flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9,
+    epsilon=1e-5)``; ``.eval()`` uses the running ones. BatchNorm follows
+    flax 0.12, not ``F.batch_norm``: statistics in f32 with ``var = E[x^2] -
+    E[x]^2`` clipped at 0 (``use_fast_variance``), and the running variance
+    updated with that same biased variance (``F.batch_norm`` would store the
+    unbiased one).
+
+    ``dtype`` follows flax's ``dtype``: parameters stay f32; with bfloat16
+    every conv runs in bf16 (inputs and kernels rounded), BatchNorm
+    normalises in f32 and rounds its output to bf16. Skip and up-sampled
+    tensors are concatenated ``[skip, up]`` (one conv over the concat, the
+    same math as the JAX package's split conv); inputs must be padded to a
+    multiple of 2**levels, so no bilinear resize arises.
+    """
+
+    def __init__(self, params: Dict[str, np.ndarray], stats: Dict[str, np.ndarray],
+                 features: Sequence[int] = (64, 128, 256, 512),
+                 dtype: torch.dtype = torch.float32):
+        """``params`` / ``stats``: flax ``params`` / ``batch_stats`` leaves
+        keyed by their tree path joined with "/" (``models.convert``)."""
+        super().__init__()
+        self.features = tuple(features)
+        self.dtype = dtype
+        for key, a in params.items():
+            self.register_parameter(_buf(key), nn.Parameter(torch.tensor(np.asarray(a, np.float32))))
+        for key, a in stats.items():
+            self.register_buffer(_buf(key), torch.tensor(np.asarray(a, np.float32)))
+
+    def param(self, key: str) -> torch.Tensor:
+        return getattr(self, _buf(key))
+
+    def _bn(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        mean_buf, var_buf = self.param(f"{name}/mean"), self.param(f"{name}/var")
+        xf = x.to(torch.float32)
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                mean_buf.copy_(_BN_MOMENTUM * mean_buf + (1 - _BN_MOMENTUM) * mean)
+                var_buf.copy_(_BN_MOMENTUM * var_buf + (1 - _BN_MOMENTUM) * var)
+        else:
+            mean, var = mean_buf, var_buf
+        mul = torch.rsqrt(var + _BN_EPS) * self.param(f"{name}/scale")
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.param(f"{name}/bias")[:, None, None]
+        return y.to(self.dtype)
+
+    def _double_conv(self, block: str, xs: List[torch.Tensor]) -> torch.Tensor:
+        x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+        for j in range(2):
+            k = self.param(f"{block}/conv{j}/kernel").permute(3, 2, 0, 1).to(self.dtype)
+            x = Fn.conv2d(x, k, padding=1)
+            x = torch.relu(self._bn(x, f"{block}/bn{j}"))
+        return x
+
+    def _convt(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        # torch's transposed conv does not flip: its weight [c, f, dy, dx]
+        # is flax's kernel[1-dy, 1-dx, c, f] (ops/conv.py convt2x2_plain)
+        k = self.param(f"{name}/kernel")
+        wt = torch.flip(k, dims=(0, 1)).permute(2, 3, 0, 1).to(self.dtype)
+        return Fn.conv_transpose2d(x, wt, self.param(f"{name}/bias").to(self.dtype), stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N,H,W,5) -> (N,H,W,out) in ``dtype``; H, W multiples of 2**levels."""
+        m = 1 << len(self.features)
+        if x.dim() != 4 or x.shape[1] % m or x.shape[2] % m:
+            raise ValueError(f"U-Net input must be (N, H, W, C) with H, W multiples of {m}; "
+                             f"got {tuple(x.shape)}")
+        n = len(self.features)
+        # NHWC memory seen as NCHW (channels-last strides): no copy
+        h = x.to(self.dtype).permute(0, 3, 1, 2)
+        skips = []
+        for i in range(n):
+            h = self._double_conv(f"down{i}", [h])
+            skips.append(h)
+            h = Fn.max_pool2d(h, 2)
+        h = self._double_conv("bottleneck", [h])
+        for i in range(n):
+            h = self._double_conv(f"updc{i}", [skips[-(i + 1)], self._convt(f"up{i}", h)])
+        k = self.param("final_conv/kernel").permute(3, 2, 0, 1).to(self.dtype)
+        y = Fn.conv2d(h, k, self.param("final_conv/bias").to(self.dtype))
+        return y.permute(0, 2, 3, 1)

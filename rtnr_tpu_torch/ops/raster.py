@@ -99,6 +99,47 @@ def project_and_sort(
     )
 
 
+class SortedDiff(NamedTuple):
+    """The differentiable forward's stream, sorted by (pixel id, depth bits)."""
+
+    pix: torch.Tensor  # (N,) int32; sentinel H*W for culled points
+    zbits: torch.Tensor  # (N,) int32 f32 bit patterns (+inf when culled)
+    rgb: torch.Tensor  # (N, 3) float32 colours in sorted order
+
+
+def project_and_sort_diff(
+    points: torch.Tensor,
+    colors: torch.Tensor,
+    cam_proj: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[SortedDiff, Tuple[torch.Tensor, torch.Tensor]]:
+    """The differentiable forward's projection and sort
+    (``rtnr_tpu/ops/raster_diff.py:204-245``): the same projection and one
+    ``torch.sort`` on ``pix << 32 | zbits``, then one gather of the f32
+    colours by the sort order (JAX sorts them as payload lanes).
+
+    Depth is ``where((pix < hw) & (z < DEPTH_EMPTY), z, +inf)``
+    (``raster_diff.py:212-213``), one clause more than ``project_and_sort``:
+    a point at or beyond FLT_MAX depth stays on its pixel but sorts last.
+    Also returns the ORIGINAL-order ``(pix, zs)``, the backward's residuals.
+    """
+    hw = width * height
+    u, v, z = project_points(points, cam_proj)
+    pix, _ = _pixel_ids(u, v, z, valid, width, height)
+    zs = torch.where((pix < hw) & (z < DEPTH_EMPTY), z, torch.full_like(z, float("inf")))
+    key = (pix.to(torch.int64) << 32) | zs.view(torch.int32).to(torch.int64)
+    key_s, order = torch.sort(key)
+    sd = SortedDiff(
+        pix=(key_s >> 32).to(torch.int32),
+        zbits=(key_s & 0xFFFFFFFF).to(torch.int32),
+        rgb=colors.to(torch.float32)[order].contiguous(),
+    )
+    return sd, (pix, zs)
+
+
 def resolve_uint8(sum_img: torch.Tensor, cnt_img: torch.Tensor) -> torch.Tensor:
     """Integer-average resolve (reference render.cu:145-162): (HW,3) uint8."""
     cnt = torch.clamp(cnt_img, min=1)[:, None]

@@ -1,18 +1,23 @@
-"""Carrier-free two-kernel raster resolve: winners (K1) and expansion (K2).
+"""Carrier-free raster resolve: winners (K1), float winners (K5) and
+expansion (K2).
 
 Counterpart of ``rtnr_tpu/ops/raster_pallas4.py``: ``raster_images_pallas4``
-becomes ``raster_images_v4``; ``expand_winners`` keeps its name. The CUDA
-kernels are in ``csrc/raster_resolve.cu`` (its header notes what each
+becomes ``raster_images_v4``; ``expand_winners`` keeps its name;
+``winners_f32`` takes the place of ``compact_rows_by_rank`` (K5) and of the
+prefix sums and ranks the differentiable forward computes before it. The
+CUDA kernels are in ``csrc/raster_resolve.cu`` (its header notes what each
 replaces, its bound and its design).
 
-Intermediate contract between the two: a winner image ``wimg`` (6, cap)
-int32, rows (r sum, g sum, b sum, count, head depth bits, pixel id), one
-column per winner (= pixel with at least one point) in pixel order, and the
-winner total as a (1,) int32 tensor that stays on the device.
+Intermediate contract: a winner image ``wimg`` (6, cap) int32, rows (r sum,
+g sum, b sum, count, head depth bits, pixel id), one column per winner (=
+pixel with at least one point) in pixel order, and the winner total as a
+(1,) int32 tensor that stays on the device. ``winners`` writes integer sums;
+``winners_f32`` writes f32 bit patterns, which ``expand_winners(...,
+float_sums=True)`` returns as f32 images.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
-twin only for CPU tensors. ``winners.launches`` / ``expand_winners.launches``
-count kernel launches.
+twin only for CPU tensors. ``winners.launches`` / ``winners_f32.launches`` /
+``expand_winners.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -22,18 +27,19 @@ import ctypes
 import torch
 
 from rtnr_tpu_torch import _build
-from rtnr_tpu_torch.ops.raster import SortedPoints
+from rtnr_tpu_torch.ops.raster import SortedDiff, SortedPoints
 
 _FLT_MAX_BITS = 0x7F7FFFFF
-_WIN_BLOCK = 1024  # elements per block of the winners kernel (csrc)
+_WIN_BLOCK = 1024  # elements per block of the winners kernels (csrc)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.rtnr_winners.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P, _P]
-    lib.rtnr_winners.restype = _I
+    for fn in (lib.rtnr_winners, lib.rtnr_winners_f32):
+        fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P, _P]
+        fn.restype = _I
     lib.rtnr_expand.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.rtnr_expand.restype = _I
 
@@ -50,13 +56,13 @@ def _check_stream(sp: SortedPoints) -> None:
         raise ValueError("sorted stream tensors must share a device")
 
 
-def winners_plain(sp: SortedPoints, hw: int, depth_band: float):
-    """Plain torch twin of K1: same (wimg, total) contract."""
-    pix, zbits, packed = sp
+def _winner_rows(pix, zbits, hw, depth_band, lanes: torch.Tensor, acc_dtype, out_bits):
+    """Shared twin body: heads, band membership (``!(z > z_head + band)``)
+    and per-segment in-band sums of the four ``lanes`` (4, n) in
+    ``acc_dtype``, turned to int32 rows by ``out_bits``."""
     n = pix.numel()
     dev = pix.device
     cap = max(min(n, hw), 1)
-    wimg = torch.zeros((6, cap), dtype=torch.int32, device=dev)
     ok = pix < hw
     prev = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev), pix[:-1]])
     head = ok & (pix != prev)
@@ -67,14 +73,41 @@ def winners_plain(sp: SortedPoints, hw: int, depth_band: float):
     in_band = ok & ~(z > lim)
     seg = torch.cumsum(head.to(torch.int64), 0) - 1
     total = int(head.sum())
-    cols = torch.stack([packed & 255, (packed >> 8) & 255, (packed >> 16) & 255,
-                        torch.ones_like(packed)], 0)
-    acc = torch.zeros((4, cap), dtype=torch.int64, device=dev)
-    acc.index_add_(1, seg[in_band], cols[:, in_band].to(torch.int64))
-    wimg[:4] = acc.to(torch.int32)
+    wimg = torch.zeros((6, cap), dtype=torch.int32, device=dev)
+    acc = torch.zeros((4, cap), dtype=acc_dtype, device=dev)
+    acc.index_add_(1, seg[in_band], lanes[:, in_band].to(acc_dtype))
+    wimg[:4] = out_bits(acc)
     wimg[4, :total] = zbits[head]
     wimg[5, :total] = pix[head]
     return wimg, torch.tensor([total], dtype=torch.int32, device=dev)
+
+
+def _launch_winners(fn: str, pix, zbits, payload, hw: int, depth_band: float):
+    """Run the C entry ``fn`` (rtnr_winners or rtnr_winners_f32) on CUDA
+    tensors; returns (wimg, total)."""
+    n = pix.numel()
+    dev = pix.device
+    cap = max(min(n, hw), 1)
+    nb = -(-n // _WIN_BLOCK)
+    scratch = torch.empty((2 * max(nb, 1),), dtype=torch.int32, device=dev)
+    wimg = torch.empty((6, cap), dtype=torch.int32, device=dev)
+    total = torch.empty((1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(_lib(), fn)(
+        pix.data_ptr(), zbits.data_ptr(), payload.data_ptr(), n, hw, float(depth_band),
+        scratch.data_ptr(), wimg.data_ptr(), cap, total.data_ptr(), stream,
+    )
+    _build.check(rc, fn)
+    return wimg, total
+
+
+def winners_plain(sp: SortedPoints, hw: int, depth_band: float):
+    """Plain torch twin of K1: same (wimg, total) contract."""
+    pix, zbits, packed = sp
+    lanes = torch.stack([packed & 255, (packed >> 8) & 255, (packed >> 16) & 255,
+                         torch.ones_like(packed)], 0)
+    return _winner_rows(pix, zbits, hw, depth_band, lanes, torch.int64,
+                        lambda acc: acc.to(torch.int32))
 
 
 def winners(sp: SortedPoints, hw: int, depth_band: float):
@@ -85,28 +118,57 @@ def winners(sp: SortedPoints, hw: int, depth_band: float):
         return winners_plain(sp, hw, depth_band)
     if sp.pix.device.type != "cuda":
         raise ValueError(f"unsupported device {sp.pix.device}")
-    n = sp.pix.numel()
-    dev = sp.pix.device
-    cap = max(min(n, hw), 1)
-    nb = -(-n // _WIN_BLOCK)
-    scratch = torch.empty((2 * max(nb, 1),), dtype=torch.int32, device=dev)
-    wimg = torch.empty((6, cap), dtype=torch.int32, device=dev)
-    total = torch.empty((1,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().rtnr_winners(
-        sp.pix.data_ptr(), sp.zbits.data_ptr(), sp.packed.data_ptr(), n, hw,
-        float(depth_band), scratch.data_ptr(), wimg.data_ptr(), cap,
-        total.data_ptr(), stream,
-    )
-    _build.check(rc, "rtnr_winners")
+    out = _launch_winners("rtnr_winners", sp.pix, sp.zbits, sp.packed, hw, depth_band)
     winners.launches += 1
-    return wimg, total
+    return out
 
 
 winners.launches = 0
 
 
-def expand_plain(wimg: torch.Tensor, total: torch.Tensor, hw: int, packed_out: bool):
+def _check_diff_stream(sd: SortedDiff) -> None:
+    for t in (sd.pix, sd.zbits):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError("pix and zbits must be contiguous 1-D int32 tensors")
+    n = sd.pix.numel()
+    if sd.rgb.dtype != torch.float32 or tuple(sd.rgb.shape) != (n, 3) or \
+            not sd.rgb.is_contiguous():
+        raise ValueError("rgb must be a contiguous (N, 3) float32 tensor")
+    if not (sd.pix.device == sd.zbits.device == sd.rgb.device):
+        raise ValueError("sorted stream tensors must share a device")
+
+
+def winners_f32_plain(sd: SortedDiff, hw: int, depth_band: float):
+    """Plain torch twin of K5: per-pixel in-band sums of the f32 colours and
+    the count, accumulated in f64 (``index_add_``) and rounded once to f32,
+    stored as bit patterns. On the CPU ``index_add_`` adds in stream order,
+    as the kernel does; on the card it adds with atomics, in any order, which
+    can only move an f64 sum's last bits (integer colours stay exact)."""
+    lanes = torch.cat([sd.rgb.t(), torch.ones_like(sd.rgb[:, :1]).t()], 0)
+    return _winner_rows(sd.pix, sd.zbits, hw, depth_band, lanes, torch.float64,
+                        lambda acc: acc.to(torch.float32).view(torch.int32))
+
+
+def winners_f32(sd: SortedDiff, hw: int, depth_band: float):
+    """K5: float winner rows of the differentiable forward's sorted stream ->
+    (wimg, total), rows 0-3 f32 bit patterns of per-pixel totals (no prefix
+    sums, nothing to subtract). Launches the CUDA kernel for CUDA tensors;
+    the plain twin for CPU."""
+    _check_diff_stream(sd)
+    if sd.pix.device.type == "cpu":
+        return winners_f32_plain(sd, hw, depth_band)
+    if sd.pix.device.type != "cuda":
+        raise ValueError(f"unsupported device {sd.pix.device}")
+    out = _launch_winners("rtnr_winners_f32", sd.pix, sd.zbits, sd.rgb, hw, depth_band)
+    winners_f32.launches += 1
+    return out
+
+
+winners_f32.launches = 0
+
+
+def expand_plain(wimg: torch.Tensor, total: torch.Tensor, hw: int, packed_out: bool,
+                 float_sums: bool = False):
     """Plain torch twin of K2."""
     dev = wimg.device
     t = int(total[0])
@@ -126,18 +188,27 @@ def expand_plain(wimg: torch.Tensor, total: torch.Tensor, hw: int, packed_out: b
     sums[p] = torch.stack([r, g, b], 1)
     count = torch.zeros((hw,), dtype=torch.int32, device=dev)
     count[p] = cnt
-    return sums, count, depth
+    return _as_float_sums(sums, count, depth) if float_sums else (sums, count, depth)
+
+
+def _as_float_sums(sums: torch.Tensor, count: torch.Tensor, depth: torch.Tensor):
+    """float_sums: the 32-bit sum and count rows are f32 bit patterns (0 bits
+    = 0.0 at empty pixels)."""
+    return sums.view(torch.float32), count.view(torch.float32), depth
 
 
 def expand_winners(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
-                   packed_out: bool = False):
+                   packed_out: bool = False, float_sums: bool = False):
     """K2: winner rows -> dense images. Returns (sums (HW,3) i32, count (HW,)
-    i32, depth (HW,) f32), or with ``packed_out`` (packed rgb (HW,) i32,
-    depth (HW,) f32)."""
+    i32, depth (HW,) f32); with ``float_sums`` (rows of ``winners_f32``) the
+    sums and count are f32; with ``packed_out`` (packed rgb (HW,) i32, depth
+    (HW,) f32)."""
     if wimg.dtype != torch.int32 or wimg.dim() != 2 or wimg.shape[0] != 6:
         raise ValueError("wimg must be a (6, cap) int32 tensor")
+    if packed_out and float_sums:
+        raise ValueError("packed_out resolves integer sums; float_sums has none")
     if wimg.device.type == "cpu":
-        return expand_plain(wimg, total, hw, packed_out)
+        return expand_plain(wimg, total, hw, packed_out, float_sums)
     if wimg.device.type != "cuda":
         raise ValueError(f"unsupported device {wimg.device}")
     wimg = wimg.contiguous()
@@ -159,7 +230,7 @@ def expand_winners(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
     expand_winners.launches += 1
     if packed_out:
         return out0, depth
-    return out0, count, depth
+    return _as_float_sums(out0, count, depth) if float_sums else (out0, count, depth)
 
 
 expand_winners.launches = 0

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K4) against their plain torch twins on the
-card. Marked ``cuda``; each test skips without a CUDA device. This file
+"""The port's CUDA kernels (K1-K5) against their plain torch twins on the
+card, and the differentiable raster on the card against the CPU. Marked ``cuda``; each test skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so on a machine with the card and
 no JAX it runs as
 
@@ -13,6 +13,7 @@ import torch
 from rtnr_tpu_torch.camera import Camera
 from rtnr_tpu_torch.ops import conv as cv
 from rtnr_tpu_torch.ops import raster as tr
+from rtnr_tpu_torch.ops import raster_diff as td
 from rtnr_tpu_torch.ops import raster_resolve4 as rr
 
 
@@ -98,3 +99,60 @@ def test_wrappers_count_launches(cuda):
     cv.conv3x3([x], _mk((3, 3, 8, 8), 1), relu=True)
     cv.convt2x2(x, _mk((2, 2, 8, 8), 2))
     assert (cv.conv3x3.launches, cv.convt2x2.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _dense_cloud(n, w, h, seed, integer):
+    rng = np.random.default_rng(seed)
+    px, py = rng.integers(0, w, n), rng.integers(0, h // 4, n)
+    z = np.where(rng.random(n) < 0.5, rng.uniform(4.0, 4.04, n), rng.uniform(2.0, 8.0, n))
+    pts = np.stack([(px - w / 2) * z / 40.0, (py - h / 2) * z / 40.0, z], 1).astype(np.float32)
+    cols = rng.integers(0, 256, (n, 3)) if integer else rng.uniform(0, 255, (n, 3))
+    M = Camera.from_params(40.0, 40.0, w / 2, h / 2, w, h).cam_proj(np.eye(4)).astype(np.float32)
+    return pts, cols.astype(np.float32), M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+def test_winners_f32_and_float_expand_match_twins(cuda, integer):
+    """K5 + K2 float_sums, bit for bit: against the twin on the card
+    (integer colours; its f64 atomics cannot round), and against the twin
+    on the CPU, which adds in the kernel's stream order (float colours)."""
+    w, h, n = 96, 64, 50_000
+    pts, cols, M = _dense_cloud(n, w, h, 12, integer)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    sd, _ = tr.project_and_sort_diff(t(pts), t(cols), t(M), width=w, height=h)
+    wimg, total = rr.winners_f32(sd, w * h, 0.02)
+    twin_dev = "cuda" if integer else "cpu"
+    sd_twin = tr.SortedDiff(*(x.to(twin_dev) for x in sd))
+    wimg_p, total_p = rr.winners_f32_plain(sd_twin, w * h, 0.02)
+    k = int(total_p[0])
+    assert int(total[0]) == k and torch.equal(wimg[:, :k].cpu(), wimg_p[:, :k].cpu())
+    got = rr.expand_winners(wimg, total, w * h, float_sums=True)
+    want = rr.expand_plain(wimg, total, w * h, False, float_sums=True)
+    for g, x in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g.view(torch.int32), x.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_diff_raster_on_card_matches_cpu(cuda):
+    """Forward bit for bit, colour and point gradients exactly, cam_proj
+    within rtol 1e-5 (``gz @ pts`` sums in another order)."""
+    w, h = 96, 64
+    pts, cols, M = _dense_cloud(30_000, w, h, 13, integer=False)
+    g = np.random.default_rng(14).normal(size=(h, w, 3)).astype(np.float32)
+
+    def run(dev):
+        P, C, MM = (torch.from_numpy(a).to(dev).requires_grad_(True) for a in (pts, cols, M))
+        o = td.rasterize_diff(P, C, MM, width=w, height=h)
+        loss = (torch.sum(o.rgb * torch.from_numpy(g).to(dev))
+                + 1e-6 * torch.sum(torch.where(o.mask, o.depth, 0.0)))
+        loss.backward()
+        return [x.detach().cpu() for x in o] + [P.grad.cpu(), C.grad.cpu(), MM.grad.cpu()]
+
+    before = rr.winners_f32.launches
+    card, cpu = run(cuda), run("cpu")
+    assert rr.winners_f32.launches == before + 1
+    for a, b in zip(card[:6], cpu[:6]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(card[6], cpu[6], rtol=1e-5, atol=1e-5 * float(cpu[6].abs().max()))
