@@ -18,23 +18,35 @@ Phases (any failure exits non-zero, and the result line is not printed):
    depth and sums equal to the serving raster's K1/K2 integer images; K5's
    time beside ``torch.segment_reduce`` over the same segments; forward and
    backward ms;
-5. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
+5. the int8 modes: the static net's lazy calibration (timed), then every
+   int8-mode call of the static and the dyn net at the frame's shapes
+   against its twin -- K3 static (int8 pool included), K3 dyn and K4 static
+   bit for bit, the bf16 input conv with int8 output within 1 code on
+   <= 0.1% of elements -- with ms, bound (int8 at 1,979 TOP/s), twin and
+   ``torch._int_mm`` (GEMM only) times; the static and dyn U-Net outputs
+   within max 0.10 / mean 0.02 of max|bf16| of the bf16 kernel net's;
+6. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
    10 timed frames with the outputs left on the card and 3 with them copied
    to host numpy, with ms/frame, the staged projection / filter / U-Net ms
    (CUDA events), finiteness, the launch count of every kernel in that run
    (each must be > 0), a ``torch.profiler`` trace of a few frames
    (device busy/idle share, top kernels), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
-   against the same render on the CPU;
-6. the training paths at full width (bf16 U-Net, batch 1, targets the
+   against the same render on the CPU; then the same frames (without the
+   host copies) for ``unet_int8="static"`` and ``"dyn"``, the static frame
+   against the bf16 one at a second pose (same budget), and a culled render
+   (``cull_budget="auto"``, camera inside the cloud) equal bit for bit to
+   the unculled one, with its kept share and both frame times;
+7. the training paths at full width (bf16 U-Net, batch 1, targets the
    scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
    ``make_train_step`` (K1, K2 must launch) and of ``make_scene_train_step``
    (K5, K2 must launch), with ms/step, peak device memory per step, finite
    losses, moved batch statistics, colours and camera matrices, non-zero
    pose and colour gradients, and a profiler trace of one scene step; then a
    small scene step on the card against the CPU;
-7. one JSON ``kernels`` line (time, bound, plain twin and library times);
-8. the last line ``{"ok": true, "device": {...}}``.
+8. one JSON ``kernels`` line: every kernel and int8 mode with its launches
+   on its path, time, bound, plain twin and library times;
+9. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
 """
@@ -48,13 +60,16 @@ import subprocess
 import sys
 import time
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 FLOP/s
+# published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 FLOP/s and int8 OP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 WIDTH, HEIGHT = 1920, 1080
 POINTS = 5_000_000  # bench.py:52-55 of the JAX package
 FRAMES = 10  # timed frames after one warm-up
+INT8_FRAMES = 10  # timed frames of each int8 serving path
+CULL_FRAMES = 5  # timed frames of the culled and unculled render
 HOST_FRAMES = 3  # timed frames of compute_full, outputs copied to host numpy
 TRAIN_STEPS = 3  # timed steps of each train step after one warm-up
 SEED = 0
@@ -69,8 +84,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -130,12 +145,32 @@ def check_resolve(sp, hw, band, rows):
     # K2 reads the winner rows and writes packed rgb + depth per pixel
     b1, by1 = bound_ms(12.0 * n + 24.0 * t, 0.0)
     b2, by2 = bound_ms(24.0 * t + 8.0 * hw, 0.0)
+    # yardsticks: K1's reduction as torch.segment_reduce over the same in-band
+    # runs (f32 lanes r, g, b, 1; without the head search, the band test and
+    # the ranks), K2 as one index_copy_ of the winner rows into a dense
+    # (H*W, 6) image (without the integer average and the packing)
+    _, cnt_i, depth_i = rr.expand_winners(wimg, total, hw, packed_out=False)
+    z = sp.zbits.view(torch.float32)
+    in_band = (sp.pix < hw) & ~(z > depth_i[sp.pix.clamp(max=hw - 1).long()] + band)
+    pk = sp.packed[in_band]
+    data = torch.stack([pk & 255, (pk >> 8) & 255, (pk >> 16) & 255, torch.ones_like(pk)],
+                       1).float()
+    lengths = cnt_i[cnt_i > 0].to(torch.int64)
+    if int(lengths.sum()) != data.shape[0] or lengths.numel() != t:
+        fail("segment_reduce yardstick: in-band runs do not match K1's winners")
+    lib1 = time_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+    rows_t = wimg[:, :t].t().contiguous()
+    dense = torch.zeros((hw, 6), dtype=torch.int32, device=wimg.device)
+    lib2 = time_ms(lambda: dense.index_copy_(0, wimg[5, :t].long(), rows_t))
+    del data, lengths, in_band, pk, rows_t, dense
     rows["winners"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
-                           library_ms=None, max_abs_err=0.0)
+                           library_ms=lib1, max_abs_err=0.0)
     rows["expand"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=b2, bound_by=by2,
-                          library_ms=None, max_abs_err=0.0)
-    log(f"K1 winners: {k1_ms:.4f} ms (plain {k1_plain:.4f}, bound {b1:.4f} {by1})")
-    log(f"K2 expand:  {k2_ms:.4f} ms (plain {k2_plain:.4f}, bound {b2:.4f} {by2})")
+                          library_ms=lib2, max_abs_err=0.0)
+    log(f"K1 winners: {k1_ms:.4f} ms (plain {k1_plain:.4f}, bound {b1:.4f} {by1}, "
+        f"segment_reduce {lib1:.4f})")
+    log(f"K2 expand:  {k2_ms:.4f} ms (plain {k2_plain:.4f}, bound {b2:.4f} {by2}, "
+        f"index_copy_ {lib2:.4f})")
 
 
 def check_diff_raster(points, colors, valid, M, band, rows):
@@ -355,13 +390,14 @@ def check_small_train_vs_cpu():
     log(f"small scene step (32x32, f32), card vs CPU within rtol 1e-3: {out['cuda']}")
 
 
-def record_unet_calls(unet, x):
-    """Run the bf16 net once, recording every conv3x3 / convt2x2 call's
-    inputs (the main path's shapes and activations)."""
+def record_unet_calls(unet, x, p=None):
+    """Run the net once on prepared weights ``p`` (default: the bf16 ones),
+    recording every conv3x3 / convt2x2 call's inputs (the main path's shapes
+    and activations)."""
     import torch
     from rtnr_tpu_torch.ops.conv import conv3x3_prepared, convt2x2_prepared
 
-    p = unet.prepare()
+    p = unet.prepare() if p is None else p
     calls = []
 
     def conv(xs, name, pool=False, head=False):
@@ -481,7 +517,180 @@ def check_convs(unet, x, rows):
             f"plain {a['plain_ms']:.4f}, library {a['library_ms']:.4f}")
 
 
-def trace_frames(renderer, cam, E, frame_ms: float, frames: int = 3) -> None:
+def _im2col_i8(xs):
+    """(H*W, 9*C) int8 im2col of (1,H,W,C) inputs, tap-major like the kernels'
+    K (bf16 inputs are cast: only the GEMM's time is wanted)."""
+    import torch
+
+    x = torch.cat([t.to(torch.int8) for t in xs], dim=-1)[0]
+    h, w, c = x.shape
+    xp = torch.zeros((h + 2, w + 2, c), dtype=torch.int8, device=x.device)
+    xp[1:-1, 1:-1] = x
+    return torch.stack([xp[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)],
+                       dim=2).reshape(h * w, 9 * c)
+
+
+def int_mm_ms(a, b):
+    """Time of ``torch._int_mm(a, b)`` (the int8 GEMM yardstick), or None
+    where the call refuses the operands in either layout of ``b``."""
+    import torch
+
+    err = None
+    for bb in (b, b.t().contiguous().t()):
+        try:
+            torch._int_mm(a, bb)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            err = e
+            continue
+        return time_ms(lambda: torch._int_mm(a, bb))
+    log(f"  torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {str(err)[:120]}")
+    return None
+
+
+def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
+    """Every int8-mode call of the static and the dyn net at the frame's
+    shapes against its plain twin on the card, on the same inputs: K3 static
+    (int8 pool included) and K4 static bit for bit, K3 dyn bit for bit, the
+    bf16 input conv with int8 output within 1 code on <= 0.1% of elements
+    (f32 sums in another order); ms, bound, twin and library per mode."""
+    import torch
+    import torch.nn.functional as Fn
+    from rtnr_tpu_torch.ops import conv as cv
+
+    modes = ("conv3x3_i8out", "conv3x3_static", "convt2x2_static", "conv3x3_dyn")
+    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, ops=0.0,
+                   nbytes=0.0, calls=0) for k in modes}
+    nets = ((static_unet, static_unet.prepare_int8(act_scales)),
+            (dyn_unet, dyn_unet.prepare_int8(None)))
+    for unet, p in nets:
+        head_w = p["final_conv"]
+        for kind, name, xin, pool, head in record_unet_calls(unet, x, p):
+            w = p[name]
+            if kind == "convt2x2":
+                if w.quant != "static":
+                    continue  # the bf16 K4 is checked with the bf16 net
+                mode = "convt2x2_static"
+                _, h, wd, c = xin.shape
+                y = cv.convt2x2_prepared(xin, w)
+                ref = cv.convt2x2_prepared_plain(xin, w)
+                if not torch.equal(y, ref):
+                    fail(f"K4 static {name}: kernel differs from its twin")
+                err, extra = 0.0, ""
+                M, F = h * wd, w.f
+                ops = 2.0 * M * 4 * F * c
+                nbytes = 1.0 * M * c + 4.0 * c * F + 8.0 * F + 4.0 * M * F
+                ms = time_ms(lambda: cv.convt2x2_prepared(xin, w))
+                plain = time_ms(lambda: cv.convt2x2_prepared_plain(xin, w), reps=2)
+                lib = int_mm_ms(xin[0].reshape(M, c), w.wmat[:c])
+                shape = f"{h}x{wd}x{c}->{2 * h}x{2 * wd}x{F}"
+                rate = INT8_OPS_PER_S
+            else:
+                mode = {"static": "conv3x3_static", "dyn": "conv3x3_dyn"}.get(w.quant)
+                if mode is None:
+                    if not w.out_i8:
+                        continue  # exact bf16 convs are checked with the bf16 net
+                    mode = "conv3x3_i8out"
+                xs = xin
+                _, h, wd, _ = xs[0].shape
+                ct, F = w.cin, int(w.wmat.shape[1])
+                hd = head_w if head else None
+                got = cv.conv3x3_prepared(xs, w, relu=True, pool=pool)
+                ref = cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool)
+                if mode == "conv3x3_i8out":
+                    d = (got[0].int() - ref[0].int()).abs()
+                    err = float(d.max())
+                    share = float((d > 0).float().mean())
+                    if not (err <= 1 and share <= 1e-3):
+                        fail(f"K3 int8-out {name}: max code diff {err}, share {share}")
+                    extra = f" codes differ on {share:.3g} (<= 1e-3)"
+                else:
+                    for g, r in zip(got, ref):
+                        if not torch.equal(g, r):
+                            fail(f"K3 {w.quant} {name}: kernel differs from its twin")
+                    err = 0.0
+                    extra = " +int8 pool exact" if pool else ""
+                if pool and not torch.equal(got[1], cv._pool2(got[0])):
+                    fail(f"K3 {name}: pooled output differs from the 2x2 max of the conv")
+                if head:
+                    (hout,) = cv.conv3x3_prepared(xs, w, relu=True, head=hd)
+                    href = torch.matmul(got[0].float(), hd.hk.float()) + hd.hb
+                    herr = float((hout.float() - href).abs().max())
+                    if not herr <= 2 * ulp_bf16(float(href.abs().max())):
+                        fail(f"K3 {name} head: max abs err {herr}")
+                    extra += f" +head err {herr:.3g}"
+                M = h * wd
+                oc = int(hd.hk.shape[1]) if head else 0
+                ops = 2.0 * M * F * 9 * ct + 2.0 * M * F * oc
+                in_b = 1.0 if w.quant == "static" else 2.0
+                out_b = 1.0 if w.out_i8 else 2.0
+                out_bytes = (2.0 * M * oc if head else out_b * M * F) + (
+                    out_b * M * F / 4 if pool else 0.0)
+                nbytes = in_b * M * ct + (1.0 if w.quant else 2.0) * 9 * ct * F + 8.0 * F + out_bytes
+                ms = time_ms(lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd))
+                plain = time_ms(lambda: cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool,
+                                                                  head=hd), reps=2)
+                if mode == "conv3x3_i8out":  # the bf16 GEMM: F.conv2d in bf16
+                    xl = xs[0].permute(0, 3, 1, 2)
+                    wl = w.wmat[:9 * ct].reshape(3, 3, ct, F).permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    lib = time_ms(lambda: Fn.conv2d(xl, wl, padding=1))
+                    rate = BF16_FLOP_PER_S
+                else:  # GEMM only, over an explicit int8 im2col
+                    a_col = _im2col_i8(xs)
+                    lib = int_mm_ms(a_col, w.wmat[:9 * ct])
+                    del a_col
+                    rate = INT8_OPS_PER_S
+                shape = f"{h}x{wd}x({'+'.join(str(int(t.shape[3])) for t in xs)})->{F}"
+            b, by = bound_ms(nbytes, ops, rate)
+            a = acc[mode]
+            a["ms"] += ms
+            a["plain_ms"] += plain
+            a["bound_ms"] += b
+            a["library_ms"] = None if (lib is None or a["library_ms"] is None) else a["library_ms"] + lib
+            a["err"] = max(a["err"], err)
+            a["ops"] += ops
+            a["nbytes"] += nbytes
+            a["calls"] += 1
+            a["rate"] = rate
+            libs = "refused" if lib is None else f"{lib:.4f}"
+            log(f"{mode} {name:16s} {shape:24s} err {err:.3g}{extra} | {ms:.4f} ms, "
+                f"{ops / ms / 1e9:.1f} TOP/s, bound {b:.4f} {by}, plain {plain:.4f}, "
+                f"library {libs}")
+    for mode, a in acc.items():
+        if not a["calls"]:
+            fail(f"no {mode} call in the int8 nets")
+        _, by = bound_ms(a["nbytes"], a["ops"], a["rate"])
+        rows[mode] = dict(ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                          bound_by=by, library_ms=a["library_ms"], max_abs_err=a["err"])
+        libs = "null" if a["library_ms"] is None else f"{a['library_ms']:.4f}"
+        log(f"{mode} per frame: {a['calls']} calls, {a['ms']:.4f} ms ({a['ops'] / 1e12:.4f} "
+            f"TOP, {a['ops'] / a['ms'] / 1e9:.1f} TOP/s), bound {a['bound_ms']:.4f}, plain "
+            f"{a['plain_ms']:.4f}, library {libs}")
+
+
+def check_int8_nets(bf16_unet, static_unet, act_scales, dyn_unet, x):
+    """The static and dyn U-Net outputs against the bf16 kernel net's at the
+    calibration input: max <= 0.10 and mean <= 0.02 of max|bf16|
+    (PARITY.md's int8 budgets)."""
+    import torch
+
+    with torch.no_grad():
+        yb = bf16_unet(x).float()
+        scale = float(yb.abs().max())
+        out = {}
+        for label, y in (("static", static_unet(x, act_scales=act_scales)), ("dyn", dyn_unet(x))):
+            d = (y.float() - yb).abs()
+            dmax, dmean = float(d.max()), float(d.mean())
+            log(f"U-Net {label} int8 vs bf16 kernel net at {tuple(x.shape)}: max {dmax:.4g}, "
+                f"mean {dmean:.4g}, max|bf16| {scale:.4g} (budget max 0.10, mean 0.02 x it)")
+            if not (dmax <= 0.10 * scale and dmean <= 0.02 * scale):
+                fail(f"U-Net {label} int8 output outside the budget against bf16")
+            out[label] = {"max": dmax, "mean": dmean, "scale": scale}
+    return out
+
+
+def trace_frames(renderer, cam, E, frame_ms: float, frames: int = 3, label: str = "bf16") -> None:
     """torch.profiler over a few frames: device busy time per frame (sum of
     the device-side events: kernels and copies, one stream) against the
     unprofiled ``frame_ms``, and the top device kernels. Prints "not
@@ -509,7 +718,7 @@ def trace_frames(renderer, cam, E, frame_ms: float, frames: int = 3) -> None:
     if busy <= 0:
         log("trace: device time not measured (the profiler saw no device events)")
         return
-    log(f"trace: {frames} frames; device busy {busy:.3f} ms/frame; unprofiled frame "
+    log(f"trace ({label}): {frames} frames; device busy {busy:.3f} ms/frame; unprofiled frame "
         f"{frame_ms:.3f} ms -> idle share {max(0.0, 1 - busy / frame_ms):.4f} "
         f"(profiled wall {wall_ms:.3f} ms/frame)")
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -543,6 +752,98 @@ def check_small_vs_cpu(features):
         fail(f"small render: rgb_f max {d.max()} / mean {d.mean()} vs scale {scale}")
     log(f"small 64x48 render, card vs CPU: raw/mask/depth bit-exact, rgb_f max "
         f"{d.max():.3g} mean {d.mean():.3g}")
+
+
+def serve_frames(r, cam, E, n, counted, need, label, host_frames=0):
+    """One warm-up frame through ``compute_full`` (numpy out), ``n`` timed
+    frames of ``compute_full_tensors`` and ``host_frames`` of ``compute_full``;
+    every launch count is set to 0 just before and read just after, and each
+    kernel in ``need`` must have launched."""
+    import numpy as np
+    import torch
+
+    for fn in counted.values():
+        fn.launches = 0
+    warm = r.compute_full(cam, E)
+    if warm["rgb"].shape != (HEIGHT, WIDTH, 3) or not np.isfinite(warm["rgb_f"]).all():
+        fail(f"{label}: compute_full gave an unexpected or non-finite output")
+    del warm
+
+    def timed(frame, k):
+        ms, st, res = [], [], None
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = frame(cam, E)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            st.append(r.last_timings)
+        return res, ms, st
+
+    # compute_full_tensors is compute_full without the copy to host numpy
+    out, frame_ms, stages = timed(r.compute_full_tensors, n)
+    _, host_ms, _ = timed(r.compute_full, host_frames)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"{label} launches over {1 + n + host_frames} frames: {launches}")
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the {label} path")
+    res = {"ms_per_frame": statistics.median(frame_ms), "frames": len(frame_ms),
+           "all_ms": frame_ms, "launches": launches,
+           "stage_ms": {k: statistics.median(getattr(s, f"{k}_ms") for s in stages)
+                        for k in ("projection", "filter", "unet")}}
+    st = res["stage_ms"]
+    log(f"{label} frames: {len(frame_ms)} timed, ms/frame median {res['ms_per_frame']:.3f} "
+        f"(all {[round(v, 3) for v in frame_ms]}); stages (CUDA events, median): projection "
+        f"{st['projection']:.3f} ms, filter {st['filter']:.3f} ms, unet {st['unet']:.3f} ms")
+    if host_frames:
+        res["host_out_ms_per_frame"] = statistics.median(host_ms)
+        log(f"{label} compute_full with the copy to host numpy: {len(host_ms)} frames, ms/frame "
+            f"median {res['host_out_ms_per_frame']:.3f} (all {[round(v, 3) for v in host_ms]})")
+    if tuple(out["rgb_f"].shape) != (HEIGHT, WIDTH, 3) or out["rgb"].dtype != torch.uint8:
+        fail(f"{label}: unexpected output shape {tuple(out['rgb_f'].shape)}")
+    for k in ("rgb_f", "raw_depth", "depth"):
+        if not bool(torch.isfinite(out[k]).all()):
+            fail(f"{label}: output {k} is not finite")
+    log(f"{label} outputs finite: rgb_f range [{float(out['rgb_f'].min()):.4f}, "
+        f"{float(out['rgb_f'].max()):.4f}], mask kept {float(out['mask'].float().mean()):.4f}, "
+        f"occupied {float((out['raw_depth'] < 3e38).float().mean()):.4f}")
+    return res
+
+
+def check_culled(renderer, culled, cam, Ec):
+    """The culled render against the unculled one at a pose inside the cloud:
+    raw_rgb, raw_depth, depth, mask and rgb_f equal bit for bit; the kept
+    share; both timed (compute_full_tensors, median of CULL_FRAMES)."""
+    import numpy as np
+    import torch
+
+    a, b = renderer.compute_full(cam, Ec), culled.compute_full(cam, Ec)
+    for k in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
+        if not np.array_equal(a[k], b[k]):
+            fail(f"culled render: {k} differs from the unculled render")
+    cache = culled._cull_cache
+    kept = cache["n_kept"] / POINTS
+    if cache["overflowed"] or not kept < 1.0:
+        fail(f"culled render: nothing culled or overflowed ({cache['n_kept']} kept)")
+    res = {"kept_share": kept, "n_kept": cache["n_kept"], "budget": culled.cull_budget}
+    for label, r in (("unculled", renderer), ("culled", culled)):
+        ms = []
+        for _ in range(CULL_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.compute_full_tensors(cam, Ec)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[f"{label}_ms"] = statistics.median(ms)
+        res[f"{label}_projection_ms"] = r.last_timings.projection_ms
+        log(f"{label} render at the inside pose: ms/frame median {statistics.median(ms):.3f} "
+            f"(all {[round(v, 3) for v in ms]}), last projection stage "
+            f"{r.last_timings.projection_ms:.3f} ms")
+    log(f"culled render (cull_budget='auto', budget {culled.cull_budget}): kept {cache['n_kept']} "
+        f"of {POINTS} points ({kept:.4f}); raw_rgb, raw_depth, depth, mask and rgb_f equal the "
+        f"unculled render bit for bit")
+    return res
 
 
 def main() -> int:
@@ -596,9 +897,11 @@ def main() -> int:
     cfg = RenderConfig()  # bf16 exact, features (64, 128, 256, 512)
     variables = init_unet_numpy(SEED, cfg.unet_features)
     renderer = Renderer(scene, cfg, variables, device="cuda")
+    static_r = Renderer(scene, RenderConfig(unet_int8="static"), variables, device="cuda")
+    dyn_r = Renderer(scene, RenderConfig(unet_int8="dyn"), variables, device="cuda")
     torch.cuda.synchronize()
     log(f"setup: {POINTS} points, {WIDTH}x{HEIGHT}, U-Net {cfg.unet_features} bf16, "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"static int8, dyn int8, {time.perf_counter() - t0:.2f} s")
 
     # ---- kernel checks at the main path's shapes ----
     rows = {}
@@ -618,60 +921,33 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # ---- the main path ----
+    # ---- the int8 modes: calibration, kernels and nets at the frame's shapes ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = static_r.calibrate(cam, E)  # the lazy calibration, on this view's U-Net input
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    log(f"static-int8 calibration (render_filtered + one bf16 forward + weight "
+        f"quantisation): {calib_ms:.3f} ms, {len(scales)} scales, range "
+        f"[{min(float(v) for v in scales.values()):.4g}, "
+        f"{max(float(v) for v in scales.values()):.4g}]")
+    if len(scales) != 21:
+        fail(f"calibration recorded {len(scales)} scales, not 21")
+    check_int8_convs(static_r.unet, scales, dyn_r.unet, x, rows)
+    int8_err = check_int8_nets(renderer.unet, static_r.unet, scales, dyn_r.unet, x)
+    torch.cuda.empty_cache()
+
+    # ---- the main path: bf16 ----
     counted = {"winners": rr.winners, "expand": rr.expand_winners,
-               "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32}
+               "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32,
+               "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
+               "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static}
     torch.cuda.reset_peak_memory_stats()
-    for fn in counted.values():
-        fn.launches = 0
-    # warm-up frame through the user's entry point (numpy out)
-    warm = renderer.compute_full(cam, E)
-    if warm["rgb"].shape != (HEIGHT, WIDTH, 3) or not np.isfinite(warm["rgb_f"]).all():
-        fail("compute_full: unexpected or non-finite output")
-    del warm
-
-    def timed(frame, n):
-        ms, st = [], []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = frame(cam, E)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            st.append(renderer.last_timings)
-        return res, ms, st
-
-    # compute_full_tensors is compute_full without the copy to host numpy
-    out, frame_ms, stages = timed(renderer.compute_full_tensors, FRAMES)
-    _, host_ms, _ = timed(renderer.compute_full, HOST_FRAMES)
-    launches = {k: fn.launches for k, fn in counted.items()}
-    n_frames = 1 + FRAMES + HOST_FRAMES
-    log(f"main path launches over {n_frames} frames: {launches}")
-    for k in ("winners", "expand", "conv3x3", "convt2x2"):
-        if launches[k] <= 0:
-            fail(f"kernel {k} was not launched on the main path")
-    med = statistics.median(frame_ms)
-    proj = statistics.median(s.projection_ms for s in stages)
-    filt = statistics.median(s.filter_ms for s in stages)
-    unet = statistics.median(s.unet_ms for s in stages)
-    log(f"frames: {len(frame_ms)} timed, ms/frame median {med:.3f} "
-        f"(all {[round(v, 3) for v in frame_ms]})")
-    log(f"stages (CUDA events, median): projection {proj:.3f} ms, "
-        f"filter {filt:.3f} ms, unet {unet:.3f} ms")
-    host_med = statistics.median(host_ms)
-    log(f"compute_full with the copy to host numpy: {len(host_ms)} frames, ms/frame median "
-        f"{host_med:.3f} (all {[round(v, 3) for v in host_ms]})")
-    if tuple(out["rgb_f"].shape) != (HEIGHT, WIDTH, 3) or out["rgb"].dtype != torch.uint8:
-        fail(f"unexpected output shape {tuple(out['rgb_f'].shape)}")
-    for k in ("rgb_f", "raw_depth", "depth"):
-        if not bool(torch.isfinite(out[k]).all()):
-            fail(f"output {k} is not finite")
-    log(f"outputs finite: rgb_f range [{float(out['rgb_f'].min()):.4f}, "
-        f"{float(out['rgb_f'].max()):.4f}], mask kept {float(out['mask'].float().mean()):.4f}, "
-        f"occupied {float((out['raw_depth'] < 3e38).float().mean()):.4f}")
+    serve = serve_frames(renderer, cam, E, FRAMES, counted,
+                         ("winners", "expand", "conv3x3", "convt2x2"), "bf16",
+                         host_frames=HOST_FRAMES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    del out
-    trace_frames(renderer, cam, E, med)
+    trace_frames(renderer, cam, E, serve["ms_per_frame"])
 
     # ---- the bf16 U-Net against the plain f32 twin net at the full shape ----
     with torch.no_grad():
@@ -688,39 +964,81 @@ def main() -> int:
 
     check_small_vs_cpu((16, 32))
 
+    # ---- the int8 serving paths ----
+    serve_static = serve_frames(static_r, cam, E, INT8_FRAMES, counted,
+                                ("winners", "expand", "conv3x3_i8out", "conv3x3_static",
+                                 "convt2x2_static"), "static int8")
+    serve_dyn = serve_frames(dyn_r, cam, E, INT8_FRAMES, counted,
+                             ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2"),
+                             "dyn int8")
+    trace_frames(static_r, cam, E, serve_static["ms_per_frame"], label="static int8")
+    trace_frames(dyn_r, cam, E, serve_dyn["ms_per_frame"], label="dyn int8")
+    # end to end at a second pose, away from the calibration view
+    E2 = np.eye(4)
+    E2[0, 3], E2[1, 3], E2[2, 3] = 1.5, -0.5, 9.0
+    ya = renderer.compute_full_tensors(cam, E2)["rgb_f"]
+    yq = static_r.compute_full_tensors(cam, E2)["rgb_f"]
+    dd = (ya - yq).abs()
+    sc = float(ya.abs().max())
+    e2e = {"max": float(dd.max()), "mean": float(dd.mean()), "scale": sc}
+    log(f"static int8 vs bf16 rgb_f at a second pose (not the calibration view): max "
+        f"{e2e['max']:.4g}, mean {e2e['mean']:.4g}, max|bf16| {sc:.4g} (budget 0.10 / 0.02 x it)")
+    if not (e2e["max"] <= 0.10 * sc and e2e["mean"] <= 0.02 * sc):
+        fail("static int8 end to end outside the budget at the second pose")
+    del ya, yq, dd
+
+    # ---- the culled render, camera inside the cloud ----
+    Ec = np.eye(4)
+    Ec[2, 3] = 2.0
+    culled_r = Renderer(scene, cfg, variables, cull_budget="auto", device="cuda")
+    culled = check_culled(renderer, culled_r, cam, Ec)
+    del culled_r, static_r, dyn_r
+
     # ---- the training paths ----
     torch.cuda.empty_cache()
     train = train_phase(renderer, cam, E, variables, counted)
     check_small_train_vs_cpu()
 
+    conv_src = "rtnr_tpu_torch/csrc/conv.cu"
     sources = {
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
         "expand": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                    "rtnr_tpu/ops/raster_pallas4.py:920"),
-        "conv3x3": ("cuda", "rtnr_tpu_torch/csrc/conv.cu", "rtnr_tpu/ops/conv_phase.py:1018"),
-        "convt2x2": ("cuda", "rtnr_tpu_torch/csrc/conv.cu", "rtnr_tpu/ops/conv_phase.py:1310"),
+        "conv3x3": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "convt2x2": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1310"),
         "winners_f32": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                         "rtnr_tpu/ops/raster_pallas4.py:872"),
+        "conv3x3_i8out": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "conv3x3_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "conv3x3_dyn": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "convt2x2_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1310"),
     }
+    # each kernel's launches on the path that runs it (all paths in launches_by_path)
+    paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
+             "train_step": train["train_step"], "scene_step": train["scene_step"]}
+    own = {"winners_f32": "scene_step", "conv3x3_i8out": "serve_static",
+           "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
+           "conv3x3_dyn": "serve_dyn"}
     kernels = []
     for name, (route, src, repl) in sources.items():
         r = rows[name]
-        # each kernel's launches on the path that runs it: serving frames for
-        # K1-K4, the scene train step for K5 (all paths in launches_by_path)
-        by_path = {"serve": launches[name], "train_step": train["train_step"]["launches"][name],
-                   "scene_step": train["scene_step"]["launches"][name]}
+        by_path = {p: v["launches"][name] for p, v in paths.items()}
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": repl,
-            "launches": by_path["scene_step" if name == "winners_f32" else "serve"],
-            "launches_by_path": by_path,
+            "launches": by_path[own.get(name, "serve")], "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    summary = {"ms_per_frame": med, "frames": len(frame_ms), "host_out_ms_per_frame": host_med,
-               "stage_ms": {"projection": proj, "filter": filt, "unet": unet}, "points": POINTS,
-               "width": WIDTH, "height": HEIGHT, "peak_mem_gib": peak, "card": card}
+    summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
+               "host_out_ms_per_frame": serve["host_out_ms_per_frame"],
+               "stage_ms": serve["stage_ms"], "points": POINTS, "width": WIDTH,
+               "height": HEIGHT, "peak_mem_gib": peak, "card": card,
+               "static_int8": {**serve_static, "calibration_ms": calib_ms,
+                               "unet_err": int8_err["static"], "e2e_second_pose": e2e},
+               "dyn_int8": {**serve_dyn, "unet_err": int8_err["dyn"]},
+               "culled": culled}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
     log(json.dumps({"kernels": kernels}))

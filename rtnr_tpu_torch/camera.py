@@ -28,6 +28,14 @@ class Camera:
         K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
         return cls(K=K, width=width, height=height)
 
+    @property
+    def fx(self) -> float:
+        return float(self.K[0, 0])
+
+    @property
+    def fy(self) -> float:
+        return float(self.K[1, 1])
+
     def intrinsics4(self) -> np.ndarray:
         """K embedded into 4x4 (top-left 3x3, [3,3] = 1)."""
         K4 = np.eye(4, dtype=np.float64)

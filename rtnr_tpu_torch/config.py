@@ -24,8 +24,11 @@ class RenderConfig:
     - ``block_size_m``: voxel block edge of the scene grid
       (reference cloudreader.cpp:10).
     - ``unet_dtype``: "bf16" runs the hand-written CUDA kernels; "f32" is
-      the plain-torch reference net.
-    - ``unet_int8``: only "off" (exact bf16) is ported so far.
+      the f32 net on plain ``F.conv2d`` (on the card too, TF32 off).
+    - ``unet_int8`` (bf16 net only): "off" exact bf16; "dyn" int8 with
+      activations quantised in the kernel on the levels with >= 256
+      features; "static" int8 activations with per-layer scales from a
+      one-time calibration on the first view (``rtnr_tpu/config.py:43-50``).
 
     The port always times its stages (``Renderer.last_timings``), so the JAX
     package's ``stage_timing`` switch has no counterpart.

@@ -12,9 +12,13 @@ conv and the 1x1 head into the last conv; every 3x3 conv runs ``conv3x3``
 multiple of 2**levels upstream (``pipeline.pyramid_pad_shape``), so skip and
 up shapes always match and no bilinear resize is needed (asserted).
 
-``forward`` is the bf16 kernel path; ``forward_plain`` is the plain torch
-twin net (``dtype=float32`` is the f32 reference, ``bfloat16`` repeats the
-kernels' rounding).
+``forward`` is the kernel path: exact bf16, or with ``quant_int8`` the int8
+topologies of ``_phase_forward`` (``unet.py:590-711``): static int8 when
+``act_scales`` (from ``calibrate_act_scales``) are given, else dynamic int8
+on the levels with ``f >= quant_min_f``. ``forward_plain`` is the plain
+torch twin net (``dtype=float32`` is the f32 reference, ``bfloat16``
+repeats the kernels' rounding; with ``quant_int8`` the same int8 topology on
+the int8 twins).
 
 ``UNetTrain`` is the un-folded net for training (``UNet.__call__`` with
 BatchNorm, ``rtnr_tpu/models/unet.py:478-522``): plain ``F.conv2d`` /
@@ -32,10 +36,13 @@ from torch import nn
 
 from rtnr_tpu_torch.models.convert import unet_layer_names
 from rtnr_tpu_torch.ops.conv import (
+    INV127,
     conv3x3_plain,
     conv3x3_prepared,
+    conv3x3_prepared_plain,
     convt2x2_plain,
     convt2x2_prepared,
+    convt2x2_prepared_plain,
     prepare_conv3x3,
     prepare_convt2x2,
     prepare_head,
@@ -47,37 +54,114 @@ def _buf(name: str) -> str:
 
 
 class UNet(nn.Module):
-    """Inference U-Net over a flat folded state (``models.convert``)."""
+    """Inference U-Net over a flat folded state (``models.convert``).
+
+    ``quant_int8`` / ``quant_min_f`` are the JAX ``UNet``'s attributes
+    (``unet.py:419-425``): with ``quant_int8`` the kernel path runs int8,
+    static when ``forward`` gets ``act_scales``, else dynamic on the levels
+    with ``f >= quant_min_f``."""
 
     def __init__(self, state: Dict[str, np.ndarray], features: Sequence[int] = (64, 128, 256, 512),
-                 out_channels: int = 3):
+                 out_channels: int = 3, quant_int8: bool = False, quant_min_f: int = 256):
         super().__init__()
         self.features = tuple(features)
         self.out_channels = out_channels
+        self.quant_int8 = quant_int8
+        self.quant_min_f = quant_min_f
         self.conv_names, self.up_names = unet_layer_names(len(self.features))
         for name in self.conv_names + self.up_names + ["final_conv"]:
             for part in ("kernel", "bias"):
                 key = f"{name}/{part}"
                 self.register_buffer(_buf(key), torch.tensor(np.asarray(state[key], np.float32)))
         self._prepared: Optional[dict] = None
+        self._prepared_int8: Optional[dict] = None
 
     def param(self, key: str) -> torch.Tensor:
         return getattr(self, _buf(key))
 
+    def _device(self) -> torch.device:
+        return self.param("final_conv/bias").device
+
+    def _prepare_plan(self, plan: Dict[str, dict]) -> dict:
+        """Prepared weights of every layer; ``plan`` maps a layer to its
+        mode's keyword arguments (absent: exact bf16)."""
+        n = len(self.features)
+        p = {"device": self._device()}
+        for name in self.conv_names:
+            c0 = None
+            if name.startswith("updc") and name.endswith("conv0"):  # [skip, up]
+                c0 = self.features[n - 1 - int(name[4:name.index("/")])]
+            p[name] = prepare_conv3x3(self.param(f"{name}/kernel"), self.param(f"{name}/bias"),
+                                      c0=c0, **plan.get(name, {}))
+        for name in self.up_names:
+            p[name] = prepare_convt2x2(self.param(f"{name}/kernel"), self.param(f"{name}/bias"),
+                                       **plan.get(name, {}))
+        p["final_conv"] = prepare_head(self.param("final_conv/kernel"),
+                                       self.param("final_conv/bias"))
+        return p
+
     def prepare(self) -> dict:
-        """Lay the weights out for the kernels (bf16) once, on the buffers'
-        device; re-done only if the module moved."""
-        dev = self.param("final_conv/bias").device
-        if self._prepared is None or self._prepared["device"] != dev:
-            p = {"device": dev}
-            for name in self.conv_names:
-                p[name] = prepare_conv3x3(self.param(f"{name}/kernel"), self.param(f"{name}/bias"))
-            for name in self.up_names:
-                p[name] = prepare_convt2x2(self.param(f"{name}/kernel"), self.param(f"{name}/bias"))
-            p["final_conv"] = prepare_head(self.param("final_conv/kernel"),
-                                           self.param("final_conv/bias"))
-            self._prepared = p
+        """Lay the weights out for the exact bf16 kernels once, on the
+        buffers' device; re-done only if the module moved."""
+        if self._prepared is None or self._prepared["device"] != self._device():
+            self._prepared = self._prepare_plan({})
         return self._prepared
+
+    def int8_plan(self, act_scales: Optional[dict] = None) -> Dict[str, dict]:
+        """Each layer's int8 mode (``_phase_forward``, ``unet.py:607-706``).
+
+        Static (``act_scales``): ``down0/conv0`` exact bf16 with int8 output
+        at ``down0/c0``; every other conv and ConvTranspose static from its
+        input's scale to its output's; ``updc{i}/conv0`` reads [skip, up] at
+        (``down{n-1-i}/c1``, ``u{i}t``); the last conv writes bf16 for the
+        head. Dyn: a level quantises when ``f >= quant_min_f``, except the
+        encoder's level-0 conv0; the bottleneck uses ``2*features[-1]``; the
+        ConvTranspose stays bf16."""
+        n = len(self.features)
+        plan: Dict[str, dict] = {}
+        if act_scales is not None:
+            def st(ins, out):
+                return dict(quant="static", in_scales=tuple(act_scales[k] for k in ins),
+                            out_scale=None if out is None else act_scales[out])
+
+            for i in range(n):
+                plan[f"down{i}/conv0"] = (dict(out_scale=act_scales["down0/c0"]) if i == 0
+                                          else st((f"down{i - 1}/c1",), f"down{i}/c0"))
+                plan[f"down{i}/conv1"] = st((f"down{i}/c0",), f"down{i}/c1")
+            plan["bottleneck/conv0"] = st((f"down{n - 1}/c1",), "bottleneck/c0")
+            plan["bottleneck/conv1"] = st(("bottleneck/c0",), "bottleneck/c1")
+            for i in range(n):
+                prev = "bottleneck/c1" if i == 0 else f"updc{i - 1}/c1"
+                plan[f"up{i}"] = dict(quant="static", in_scale=act_scales[prev],
+                                      out_scale=act_scales[f"u{i}t"])
+                plan[f"updc{i}/conv0"] = st((f"down{n - 1 - i}/c1", f"u{i}t"), f"updc{i}/c0")
+                plan[f"updc{i}/conv1"] = st((f"updc{i}/c0",),
+                                            None if i == n - 1 else f"updc{i}/c1")
+            return plan
+
+        def dyn(on):
+            return dict(quant="dyn") if on else {}
+
+        for i, f in enumerate(self.features):
+            q = f >= self.quant_min_f
+            plan[f"down{i}/conv0"] = dyn(q and i > 0)
+            plan[f"down{i}/conv1"] = dyn(q)
+        qb = 2 * self.features[-1] >= self.quant_min_f
+        plan["bottleneck/conv0"] = plan["bottleneck/conv1"] = dyn(qb)
+        for i, f in enumerate(reversed(self.features)):
+            plan[f"updc{i}/conv0"] = plan[f"updc{i}/conv1"] = dyn(f >= self.quant_min_f)
+        return plan
+
+    def prepare_int8(self, act_scales: Optional[dict] = None) -> dict:
+        """Prepared weights of the int8 topology (static with ``act_scales``,
+        else dyn), made once per scales object, ``quant_min_f`` and device."""
+        c = self._prepared_int8
+        key = (self.quant_min_f, self._device())
+        if c is None or c["scales"] is not act_scales or c["key"] != key:
+            c = {"scales": act_scales, "key": key,
+                 "p": self._prepare_plan(self.int8_plan(act_scales))}
+            self._prepared_int8 = c
+        return c["p"]
 
     def _run(self, x, conv, convt):
         n = len(self.features)
@@ -105,23 +189,36 @@ class UNet(nn.Module):
             raise ValueError(f"U-Net input must be (1, H, W, C) with H, W multiples of {m}; "
                              f"got {tuple(x.shape)}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """bf16 forward on the K3/K4 kernels: (1,H,W,5) -> (1,H,W,out) bf16."""
-        self._check_input(x)
-        p = self.prepare()
-
+    def _run_prepared(self, x: torch.Tensor, p: dict, conv3x3_fn, convt2x2_fn) -> torch.Tensor:
         def conv(xs, name, pool=False, head=False):
-            return conv3x3_prepared(xs, p[name], relu=True, pool=pool,
-                                    head=p["final_conv"] if head else None)
+            return conv3x3_fn(xs, p[name], relu=True, pool=pool,
+                              head=p["final_conv"] if head else None)
 
         def convt(h, name):
-            return convt2x2_prepared(h, p[name])
+            return convt2x2_fn(h, p[name])
 
         return self._run(x.to(torch.bfloat16).contiguous(), conv, convt)
 
-    def forward_plain(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Plain torch twin net in ``dtype`` (float32: the f32 reference)."""
+    def _weights(self, act_scales: Optional[dict]) -> dict:
+        return self.prepare_int8(act_scales) if self.quant_int8 else self.prepare()
+
+    def forward(self, x: torch.Tensor, act_scales: Optional[dict] = None) -> torch.Tensor:
+        """Forward on the K3/K4 kernels: (1,H,W,5) -> (1,H,W,out) bf16. Exact
+        bf16, or with ``quant_int8`` static int8 (``act_scales``) or dyn
+        int8; ``act_scales`` is ignored without ``quant_int8``, as in JAX."""
         self._check_input(x)
+        return self._run_prepared(x, self._weights(act_scales), conv3x3_prepared,
+                                  convt2x2_prepared)
+
+    def forward_plain(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                      act_scales: Optional[dict] = None) -> torch.Tensor:
+        """Plain torch twin net in ``dtype`` (float32: the f32 reference).
+        With ``quant_int8`` it is ``forward``'s int8 topology on the int8
+        twins (bf16 out; ``dtype`` is not read)."""
+        self._check_input(x)
+        if self.quant_int8:
+            return self._run_prepared(x, self.prepare_int8(act_scales), conv3x3_prepared_plain,
+                                      convt2x2_prepared_plain)
 
         def conv(xs, name, pool=False, head=False):
             kw = {}
@@ -136,6 +233,42 @@ class UNet(nn.Module):
                                   dtype=dtype)
 
         return self._run(x.to(dtype).contiguous(), conv, convt)
+
+
+def calibrate_act_scales(unet: UNet, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Static-int8 calibration (``unet.py:714-744``): one exact bf16 forward
+    of ``unet`` on a representative (1,H,W,5) input, recording ``max|y|``
+    of every conv0 output, every conv1 output before the pool except the
+    head conv's, and every ConvTranspose output, under the JAX package's
+    keys (``down{i}/c0``, ``bottleneck/c1``, ``u{i}t``, ``updc{i}/c0``, ...;
+    the ``sow`` points of ``unet.py:318-332, 690-692``). Each scale is
+    ``max(m, 1e-8) * f32(1/127)``, a 0-d f32 tensor on the net's device:
+    nothing goes back to the host."""
+    unet._check_input(x)
+    p = unet.prepare()
+    seen: Dict[str, torch.Tensor] = {}
+
+    def amax(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.float32).abs().amax()
+
+    def conv(xs, name, pool=False, head=False):
+        out = conv3x3_prepared(xs, p[name], relu=True, pool=pool,
+                               head=p["final_conv"] if head else None)
+        block, layer = name.split("/")
+        if layer == "conv0":
+            seen[f"{block}/c0"] = amax(out[0])
+        elif not head:
+            seen[f"{block}/c1"] = amax(out[0])
+        return out
+
+    def convt(h, name):
+        y = convt2x2_prepared(h, p[name])
+        seen[f"u{name[2:]}t"] = amax(y)
+        return y
+
+    with torch.no_grad():
+        unet._run(x.to(torch.bfloat16).contiguous(), conv, convt)
+    return {k: torch.clamp_min(m, 1e-8) * INV127 for k, m in seen.items()}
 
 
 _BN_EPS = 1e-5

@@ -1,28 +1,50 @@
 """U-Net convolutions: 3x3 conv (K3) and 2x2/s2 transposed conv (K4).
 
-Counterpart of ``rtnr_tpu/ops/conv_phase.py`` (bf16 mode). The TPU's
-polyphase layout is not carried over: tensors are NHWC (1, H, W, C) bf16 at
+Counterpart of ``rtnr_tpu/ops/conv_phase.py``. The TPU's polyphase layout is
+not carried over: tensors are NHWC (1, H, W, C), bf16 or int8 codes, at
 every public function, as in the JAX package's NHWC API. The CUDA kernels
 are in ``csrc/conv.cu`` (its header notes what each replaces, its bound and
 its design).
 
-- ``conv3x3(xs, kernel, bias, *, relu, pool, head_kernel, head_bias)``: 3x3
-  s1 same conv over the virtual concat of one or two inputs, bias, ReLU;
-  ``pool`` adds the 2x2 max-pool of the output; ``head_kernel`` applies the
-  1x1 head to the (bf16) output instead of returning it. Returns a tuple
-  like ``conv3x3_phase``: (out,), (out, pooled) or (head_out,).
-- ``convt2x2(x, kernel, bias)``: flax's 2x2 stride-2 ConvTranspose (output
-  subpixel (dy, dx) reads ``kernel[1-dy, 1-dx]``) plus bias.
+- ``conv3x3(xs, kernel, bias, *, relu, pool, head_kernel, head_bias, quant,
+  in_scales, out_scale)``: 3x3 s1 same conv over the virtual concat of one
+  or two inputs, bias, ReLU; ``pool`` adds the 2x2 max-pool of the output;
+  ``head_kernel`` applies the 1x1 head to the (bf16) output instead of
+  returning it. Returns a tuple like ``conv3x3_phase``: (out,),
+  (out, pooled) or (head_out,).
+- ``convt2x2(x, kernel, bias, *, quant, in_scale, out_scale)``: flax's 2x2
+  stride-2 ConvTranspose (output subpixel (dy, dx) reads
+  ``kernel[1-dy, 1-dx]``) plus bias.
 
-Numerics of the bf16 mode, as in the TPU kernels: weights and biases are
-rounded to bf16, products accumulate in f32, bias and ReLU are applied in
-f32 and the result is rounded to bf16 once; the head reads the bf16 conv
-output.
+Modes, as ``conv3x3_phase(quant=, in_scales=, out_scale=)`` and
+``convt2x2_phase`` (numerics of ``conv_phase.py:846-943, 1259-1290``):
+- ``quant=""``, exact: weights and bias rounded to bf16, f32 accumulation,
+  bias and ReLU in f32, one bf16 rounding of the output; the head reads the
+  bf16 conv output. With ``out_scale`` (K3 only) the output is int8 codes
+  ``clip(rint(y), 0 or -127, 127)`` at that scale: the f32 kernel and the
+  bias are multiplied by ``1/out_scale`` before they are rounded to bf16.
+- ``quant="static"``: int8 inputs at ``in_scales`` (one 0-d scale per
+  input; K4: ``in_scale``). Per-output-channel weights ``swv =
+  max(max|k|, 1e-12) * f32(1/127)``, ``Wq = clip(rint(k / swv), -127,
+  127)``; a second input's slice of the kernel is first multiplied by
+  ``s_in1 / s_in0``. i32 accumulation, ``y = f32(acc) * sw_eff + bias`` with
+  ``sw_eff = swv * s_in0 * (1/out_scale)`` and the bias ``bf16(bias /
+  out_scale)``; ReLU; int8 codes at ``out_scale``, or bf16 without it (the
+  head conv). K4 has no ReLU and clips to [-127, 127].
+- ``quant="dyn"`` (K3): bf16 inputs quantised to int8 per output pixel (the
+  3x3 receptive field over all channels: ``inv = 127/amax``, ``q =
+  clip(rint(x * inv), -127, 127)``), i32 accumulation, dequantised by
+  ``swv * (amax * f32(1/127))``, bias, ReLU, bf16 out. The TPU groups per
+  lane over its row window instead (see ``csrc/conv.cu``).
 
-``prepare_conv3x3``/``prepare_convt2x2``/``prepare_head`` lay the weights out
-for the kernels once (the U-Net keeps them on the device). The wrappers
-launch the kernels for CUDA tensors and run the plain torch twins only for
-CPU tensors. ``conv3x3.launches`` / ``convt2x2.launches`` count launches.
+``prepare_conv3x3`` / ``prepare_convt2x2`` / ``prepare_head`` quantise and
+lay the weights out once (the U-Net keeps them on the device); the scales
+stay device tensors, so nothing returns to the host. The ``*_prepared``
+wrappers launch the kernels for CUDA tensors and run the plain torch twins
+(``*_prepared_plain``, the same function on int64-exact f64 sums) only for
+CPU tensors. Launch counters: ``conv3x3.launches`` / ``convt2x2.launches``
+(bf16 mode), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn`` and
+``convt2x2_static`` (``.launches``).
 """
 
 from __future__ import annotations
@@ -30,6 +52,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
@@ -37,7 +60,11 @@ from rtnr_tpu_torch import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_BK = 32  # K step of the GEMM kernel: weight rows pad to a multiple
+# K step of the GEMM kernel in elements (64 bytes): weight rows pad to a multiple
+_BK = {torch.bfloat16: 32, torch.int8: 64}
+_KIND = {"": 0, "static": 1, "dyn": 2}
+# f32(1/127), the quantiser's constant (conv_phase.py:329, :870)
+INV127 = float(np.float32(1.0 / 127.0))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,11 +72,14 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.rtnr_conv3x3.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P]
-    lib.rtnr_convt2x2.argtypes = [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P]
-    lib.rtnr_maxpool2.argtypes = [_P, _I, _I, _I, _P, _P]
+    lib.rtnr_conv3x3.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P]
+    lib.rtnr_convt2x2.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.rtnr_dyn_scales.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
+    lib.rtnr_maxpool2.argtypes = [_P, _I, _I, _I, _I, _P, _P]
     lib.rtnr_head1x1.argtypes = [_P, _I, _I, _P, _P, _I, _P, _P]
-    for fn in (lib.rtnr_conv3x3, lib.rtnr_convt2x2, lib.rtnr_maxpool2, lib.rtnr_head1x1):
+    for fn in (lib.rtnr_conv3x3, lib.rtnr_convt2x2, lib.rtnr_dyn_scales, lib.rtnr_maxpool2,
+               lib.rtnr_head1x1):
         fn.restype = _I
 
 
@@ -57,9 +87,28 @@ def _lib() -> ctypes.CDLL:
     return _build.load("conv", _bind)
 
 
+class LaunchCount:
+    """Launch counter of one kernel mode: its wrapper adds one to
+    ``launches`` per call that launches the mode's kernels."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
+conv3x3_i8out = LaunchCount()  # K3 exact bf16 GEMM with int8 output codes
+conv3x3_static = LaunchCount()  # K3 static int8
+conv3x3_dyn = LaunchCount()  # K3 dyn int8
+convt2x2_static = LaunchCount()  # K4 static int8
+
+
 def _as_tensor(a, device=None) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
     return t.to(device=device, dtype=torch.float32)
+
+
+def _scale(s, device) -> torch.Tensor:
+    """A 0-d f32 scale on ``device``."""
+    return _as_tensor(s, device).reshape(())
 
 
 def _bf16_values(t: torch.Tensor) -> torch.Tensor:
@@ -67,17 +116,42 @@ def _bf16_values(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def _inv(s: torch.Tensor) -> torch.Tensor:
+    """1 / s, correctly rounded (``1.0 / t`` in torch multiplies by the
+    reciprocal)."""
+    return torch.div(torch.ones_like(s), s)
+
+
+def _quant_weights(kf: torch.Tensor, dims):
+    """Per-output-channel symmetric int8: (swv, Wq) over the last axis."""
+    swv = torch.clamp_min(kf.abs().amax(dim=dims), 1e-12) * INV127
+    return swv, torch.clamp(torch.round(torch.div(kf, swv)), -127.0, 127.0)
+
+
+def _pad_rows(m: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    out = torch.zeros((_round_up(m.shape[0], _BK[dtype]), m.shape[1]), dtype=dtype,
+                      device=m.device)
+    out[: m.shape[0]] = m.to(dtype)
+    return out.contiguous()
+
+
 class Conv3x3Weights(NamedTuple):
-    wmat: torch.Tensor  # (Kp, F) bf16: flax (3,3,C,F) reshaped, zero rows K..Kp-1
-    bias: torch.Tensor  # (F,) f32 values of the bf16 bias
+    wmat: torch.Tensor  # (Kp, F) bf16 or int8: flax (3,3,C,F) reshaped, zero rows K..Kp-1
+    bias: torch.Tensor  # (F,) f32 values of the bf16 bias (divided by out_scale)
     cin: int
+    quant: str = ""  # "" | "static" | "dyn"
+    scale: Optional[torch.Tensor] = None  # (F,) f32 dequantisation scale (int8 modes)
+    out_i8: bool = False  # int8 output codes at out_scale
 
 
 class ConvT2x2Weights(NamedTuple):
-    wmat: torch.Tensor  # (Kp, 4F) bf16: column (dy*2+dx)*F + f = kernel[1-dy,1-dx,:,f]
-    bias: torch.Tensor  # (F,) f32 values of the bf16 bias
+    wmat: torch.Tensor  # (Kp, 4F) bf16 or int8: column (dy*2+dx)*F + f = kernel[1-dy,1-dx,:,f]
+    bias: torch.Tensor  # (F,) f32 values of the bf16 bias (divided by out_scale)
     cin: int
     f: int
+    quant: str = ""  # "" | "static"
+    scale: Optional[torch.Tensor] = None  # (F,) f32 dequantisation scale (static)
+    out_i8: bool = False
 
 
 class HeadWeights(NamedTuple):
@@ -85,27 +159,71 @@ class HeadWeights(NamedTuple):
     hb: torch.Tensor  # (OC,) f32 values of the bf16 bias
 
 
-def prepare_conv3x3(kernel, bias=None, device=None) -> Conv3x3Weights:
+def prepare_conv3x3(kernel, bias=None, device=None, *, quant: str = "", in_scales=None,
+                    out_scale=None, c0: Optional[int] = None) -> Conv3x3Weights:
+    """Weights of one K3 call in mode ``quant`` (module doc). Static mode
+    with two inputs needs ``c0``, the channel count of input 0."""
+    if quant not in _KIND:
+        raise ValueError(f"unknown quant mode {quant!r}")
     k = _as_tensor(kernel, device)
     kh, kw, c, f = k.shape
     assert (kh, kw) == (3, 3)
-    K = 9 * c
-    wmat = torch.zeros((_round_up(K, _BK), f), dtype=torch.bfloat16, device=k.device)
-    wmat[:K] = k.reshape(K, f).to(torch.bfloat16)
-    b = torch.zeros(f, device=k.device) if bias is None else _as_tensor(bias, device)
-    return Conv3x3Weights(wmat.contiguous(), _bf16_values(b).contiguous(), c)
+    dev = k.device
+    b = torch.zeros(f, device=dev) if bias is None else _as_tensor(bias, dev)
+    inv_out = None
+    if out_scale is not None:
+        inv_out = _inv(_scale(out_scale, dev))
+        b = b * inv_out
+    if quant == "":
+        if inv_out is not None:
+            k = k * inv_out
+        return Conv3x3Weights(_pad_rows(k.reshape(9 * c, f), torch.bfloat16),
+                              _bf16_values(b).contiguous(), c, "", None, inv_out is not None)
+    kf = k
+    if quant == "static":
+        if in_scales is None or len(in_scales) not in (1, 2):
+            raise ValueError("static mode needs one input scale per input")
+        s = [_scale(v, dev) for v in in_scales]
+        if len(s) == 2:
+            if c0 is None:
+                raise ValueError("two static inputs need c0, input 0's channel count")
+            kf = torch.cat([kf[:, :, :c0], kf[:, :, c0:] * torch.div(s[1], s[0])], dim=2)
+    swv, wq = _quant_weights(kf, (0, 1, 2))
+    sw_eff = swv * s[0] if quant == "static" else swv
+    if inv_out is not None:
+        sw_eff = sw_eff * inv_out
+    return Conv3x3Weights(_pad_rows(wq.reshape(9 * c, f), torch.int8),
+                          _bf16_values(b).contiguous(), c, quant, sw_eff.contiguous(),
+                          inv_out is not None)
 
 
-def prepare_convt2x2(kernel, bias=None, device=None) -> ConvT2x2Weights:
+def prepare_convt2x2(kernel, bias=None, device=None, *, quant: str = "", in_scale=None,
+                     out_scale=None) -> ConvT2x2Weights:
+    """Weights of one K4 call: bf16 (``quant=""``) or static int8."""
+    if quant not in ("", "static"):
+        raise ValueError(f"K4 has modes '' and 'static', not {quant!r}")
     k = _as_tensor(kernel, device)
     kh, kw, c, f = k.shape
     assert (kh, kw) == (2, 2)
+    dev = k.device
     # flax ConvTranspose applies the spatially flipped kernel
     w4 = torch.flip(k, dims=(0, 1))  # w4[dy, dx] = kernel[1-dy, 1-dx]
-    wmat = torch.zeros((_round_up(c, _BK), 4 * f), dtype=torch.bfloat16, device=k.device)
-    wmat[:c] = w4.permute(2, 0, 1, 3).reshape(c, 4 * f).to(torch.bfloat16)
-    b = torch.zeros(f, device=k.device) if bias is None else _as_tensor(bias, device)
-    return ConvT2x2Weights(wmat.contiguous(), _bf16_values(b).contiguous(), c, f)
+    b = torch.zeros(f, device=dev) if bias is None else _as_tensor(bias, dev)
+    if quant == "":
+        if out_scale is not None:
+            raise ValueError("the bf16 K4 writes bf16; int8 output needs quant='static'")
+        wmat = _pad_rows(w4.permute(2, 0, 1, 3).reshape(c, 4 * f), torch.bfloat16)
+        return ConvT2x2Weights(wmat, _bf16_values(b).contiguous(), c, f)
+    if in_scale is None:
+        raise ValueError("static mode needs in_scale")
+    swv, wq = _quant_weights(w4, (0, 1, 2))
+    sw_eff = swv * _scale(in_scale, dev)
+    if out_scale is not None:
+        inv_out = _inv(_scale(out_scale, dev))
+        sw_eff, b = sw_eff * inv_out, b * inv_out
+    wmat = _pad_rows(wq.permute(2, 0, 1, 3).reshape(c, 4 * f), torch.int8)
+    return ConvT2x2Weights(wmat, _bf16_values(b).contiguous(), c, f, "static",
+                           sw_eff.contiguous(), out_scale is not None)
 
 
 def prepare_head(head_kernel, head_bias=None, device=None) -> HeadWeights:
@@ -123,6 +241,11 @@ def prepare_head(head_kernel, head_bias=None, device=None) -> HeadWeights:
 def _pool2(y: torch.Tensor) -> torch.Tensor:
     n, h, w, f = y.shape
     return y.reshape(n, h // 2, 2, w // 2, 2, f).amax(dim=(2, 4))
+
+
+def _codes(y: torch.Tensor, relu: bool) -> torch.Tensor:
+    """int8 output codes clip(rint(y), 0 or -127, 127)."""
+    return torch.clamp(torch.round(y), 0.0 if relu else -127.0, 127.0).to(torch.int8)
 
 
 def conv3x3_plain(
@@ -158,6 +281,69 @@ def conv3x3_plain(
     return (y,)
 
 
+def dyn_scales_plain(xs: Sequence[torch.Tensor]):
+    """The dyn mode's per-output-pixel factors: amax = max |x| over the
+    pixel's 3x3 receptive field and all channels of every input; returns
+    (127/amax, 0 where amax is 0; amax * f32(1/127)), each (H*W,) f32."""
+    a = torch.stack([t[0].to(torch.float32).abs().amax(dim=-1) for t in xs]).amax(dim=0)
+    amax = Fn.max_pool2d(a[None, None], 3, stride=1, padding=1)[0, 0].reshape(-1)
+    inv = torch.where(amax > 0, torch.div(torch.full_like(amax, 127.0), amax),
+                      torch.zeros_like(amax))
+    return inv, amax * INV127
+
+
+def _tap_sums(xs: Sequence[torch.Tensor], wq: torch.Tensor, rinv=None) -> torch.Tensor:
+    """(H*W, F) f64 sums of the 3x3 implicit GEMM over int8 codes (``xs``
+    int8) or over bf16 inputs quantised per output pixel with ``rinv``.
+    Products and partial sums are integers below 2^53, so f64 is exact in
+    any order."""
+    x = torch.cat([t[0].to(torch.float32) for t in xs], dim=-1)
+    h, w, c = x.shape
+    xp = Fn.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((h * w, wq.shape[1]), dtype=torch.float64, device=x.device)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        a = xp[dy:dy + h, dx:dx + w].reshape(h * w, c)
+        if rinv is not None:
+            a = torch.clamp(torch.round(a * rinv[:, None]), -127.0, 127.0)
+        acc += a.to(torch.float64) @ wq[tap * c:(tap + 1) * c].to(torch.float64)
+    return acc
+
+
+def conv3x3_prepared_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *,
+                           relu: bool = False, pool: bool = False,
+                           head: Optional[HeadWeights] = None):
+    """Plain torch twin of ``conv3x3_prepared`` on the same prepared weights
+    (any device): the bf16 mode through ``conv3x3_plain``, the int8 modes
+    through exact integer sums and the kernels' f32 epilogue, op for op."""
+    _, h, wd, _ = xs[0].shape
+    F = int(w.wmat.shape[1])
+    K = 9 * w.cin
+    if w.quant == "":
+        kernel = w.wmat[:K].to(torch.float32).reshape(3, 3, w.cin, -1)
+        if not w.out_i8:
+            hk = None if head is None else head.hk.to(torch.float32)
+            return conv3x3_plain(xs, kernel, w.bias, relu=relu, pool=pool, head_kernel=hk,
+                                 head_bias=None if head is None else head.hb)
+        (y,) = conv3x3_plain(xs, kernel, w.bias, relu=relu, dtype=torch.float32)
+        q = _codes(y, relu)
+        return (q, _pool2(q)) if pool else (q,)
+    if w.quant == "dyn":
+        rinv, rscale = dyn_scales_plain(xs)
+        acc = _tap_sums(xs, w.wmat[:K], rinv).to(torch.float32)
+        y = acc * (w.scale[None, :] * rscale[:, None]) + w.bias
+    else:
+        y = _tap_sums(xs, w.wmat[:K]).to(torch.float32) * w.scale + w.bias
+    if relu:
+        y = torch.clamp(y, min=0.0)
+    y = y.reshape(1, h, wd, F)
+    out = _codes(y, relu) if w.out_i8 else y.to(torch.bfloat16)
+    if head is not None:
+        return ((torch.matmul(out.to(torch.float32), head.hk.to(torch.float32))
+                 + head.hb).to(torch.bfloat16),)
+    return (out, _pool2(out)) if pool else (out,)
+
+
 def convt2x2_plain(x: torch.Tensor, kernel, bias=None, *,
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Plain torch flax-ConvTranspose 2x2/s2 (``F.conv_transpose2d`` in
@@ -174,12 +360,26 @@ def convt2x2_plain(x: torch.Tensor, kernel, bias=None, *,
     return y.permute(0, 2, 3, 1).to(dtype).contiguous()
 
 
+def convt2x2_prepared_plain(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
+    """Plain torch twin of ``convt2x2_prepared`` (any device)."""
+    _, h, wd, c = x.shape
+    if w.quant == "":
+        kernel = torch.flip(
+            w.wmat[:c].to(torch.float32).reshape(c, 2, 2, w.f).permute(1, 2, 0, 3), dims=(0, 1))
+        return convt2x2_plain(x, kernel, w.bias)
+    acc = x[0].reshape(h * wd, c).to(torch.float64) @ w.wmat[:c].to(torch.float64)
+    y = acc.to(torch.float32).reshape(h * wd, 4, w.f) * w.scale + w.bias
+    y = _codes(y, relu=False) if w.out_i8 else y.to(torch.bfloat16)
+    return y.reshape(h, wd, 2, 2, w.f).permute(0, 2, 1, 3, 4).reshape(1, 2 * h, 2 * wd, w.f)
+
+
 # ---------------------------------------------------------------- kernels
 
 
-def _check_act(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[0] != 1:
-        raise ValueError(f"{what} must be a (1, H, W, C) bf16 tensor")
+def _check_act(x: torch.Tensor, what: str, dtype: torch.dtype) -> None:
+    name = "bf16" if dtype == torch.bfloat16 else "int8"
+    if x.dtype != dtype or x.dim() != 4 or x.shape[0] != 1:
+        raise ValueError(f"{what} must be a (1, H, W, C) {name} tensor")
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous NHWC")
     if x.device.type == "cuda" and x.data_ptr() % 16:
@@ -192,42 +392,49 @@ def conv3x3_prepared(
 ):
     """conv3x3 on prepared weights (see ``conv3x3``)."""
     assert len(xs) in (1, 2)
+    act = torch.int8 if w.quant == "static" else torch.bfloat16
     for i, x in enumerate(xs):
-        _check_act(x, f"xs[{i}]")
+        _check_act(x, f"xs[{i}]", act)
     _, h, wd, _ = xs[0].shape
     if any(tuple(x.shape[1:3]) != (h, wd) for x in xs):
         raise ValueError("conv3x3 inputs must share H, W")
     cs = [int(x.shape[3]) for x in xs]
     if sum(cs) != w.cin:
         raise ValueError(f"input channels {cs} do not match the kernel's {w.cin}")
-    if head is not None and pool:
-        raise ValueError("the head and the pool do not combine")
+    if head is not None and (pool or w.out_i8):
+        raise ValueError("the head reads the bf16 conv output; it takes no pool or int8 output")
     if pool and (h % 2 or wd % 2):
         raise ValueError("pool needs even H, W")
     dev = xs[0].device
     if dev.type == "cpu":
-        K = 9 * w.cin
-        kernel = w.wmat[:K].to(torch.float32).reshape(3, 3, w.cin, -1)
-        hk = None if head is None else head.hk.to(torch.float32)
-        return conv3x3_plain(xs, kernel, w.bias, relu=relu, pool=pool,
-                             head_kernel=hk, head_bias=None if head is None else head.hb)
+        return conv3x3_prepared_plain(xs, w, relu=relu, pool=pool, head=head)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("conv3x3: activations and weights must be on one CUDA device")
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     F = int(w.wmat.shape[1])
-    out = torch.empty((1, h, wd, F), dtype=torch.bfloat16, device=dev)
+    odt = torch.int8 if w.out_i8 else torch.bfloat16
+    out = torch.empty((1, h, wd, F), dtype=odt, device=dev)
     x1 = xs[1].data_ptr() if len(xs) == 2 else None
     c1 = cs[1] if len(xs) == 2 else 0
+    rinv = rscale = None
+    if w.quant == "dyn":
+        rinv = torch.empty(h * wd, dtype=torch.float32, device=dev)
+        rscale = torch.empty(h * wd, dtype=torch.float32, device=dev)
+        _build.check(lib.rtnr_dyn_scales(xs[0].data_ptr(), x1, cs[0], c1, h, wd,
+                                         rinv.data_ptr(), rscale.data_ptr(), stream),
+                     "rtnr_dyn_scales")
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.rtnr_conv3x3(xs[0].data_ptr(), x1, cs[0], c1, h, wd, w.wmat.data_ptr(),
-                          w.bias.data_ptr(), out.data_ptr(), F, int(w.wmat.shape[0]),
-                          int(relu), stream)
+                          w.bias.data_ptr(), ptr(w.scale), ptr(rinv), ptr(rscale),
+                          out.data_ptr(), F, int(w.wmat.shape[0]), int(relu), _KIND[w.quant],
+                          int(w.out_i8), stream)
     _build.check(rc, "rtnr_conv3x3")
     result = (out,)
     if pool:
-        pooled = torch.empty((1, h // 2, wd // 2, F), dtype=torch.bfloat16, device=dev)
-        _build.check(lib.rtnr_maxpool2(out.data_ptr(), h, wd, F, pooled.data_ptr(), stream),
-                     "rtnr_maxpool2")
+        pooled = torch.empty((1, h // 2, wd // 2, F), dtype=odt, device=dev)
+        _build.check(lib.rtnr_maxpool2(out.data_ptr(), h, wd, F, out.element_size(),
+                                       pooled.data_ptr(), stream), "rtnr_maxpool2")
         result = (out, pooled)
     if head is not None:
         oc = int(head.hk.shape[1])
@@ -236,16 +443,26 @@ def conv3x3_prepared(
                                       head.hb.data_ptr(), oc, hout.data_ptr(), stream),
                      "rtnr_head1x1")
         result = (hout,)
-    conv3x3.launches += 1
+    if w.quant == "static":
+        conv3x3_static.launches += 1
+    elif w.quant == "dyn":
+        conv3x3_dyn.launches += 1
+    elif w.out_i8:
+        conv3x3_i8out.launches += 1
+    else:
+        conv3x3.launches += 1
     return result
 
 
 def conv3x3(xs: Sequence[torch.Tensor], kernel, bias=None, *, relu: bool = False,
-            pool: bool = False, head_kernel=None, head_bias=None):
+            pool: bool = False, head_kernel=None, head_bias=None, quant: str = "",
+            in_scales=None, out_scale=None):
     """K3: 3x3 same conv over the virtual concat of ``xs`` (one or two
-    (1,H,W,C) bf16 tensors), flax kernel (3,3,sumC,F). See module doc."""
+    (1,H,W,C) tensors: bf16, or int8 codes in static mode), flax kernel
+    (3,3,sumC,F). See module doc."""
     dev = xs[0].device
-    w = prepare_conv3x3(kernel, bias, dev)
+    w = prepare_conv3x3(kernel, bias, dev, quant=quant, in_scales=in_scales,
+                        out_scale=out_scale, c0=int(xs[0].shape[3]))
     head = None if head_kernel is None else prepare_head(head_kernel, head_bias, dev)
     return conv3x3_prepared(xs, w, relu=relu, pool=pool, head=head)
 
@@ -255,30 +472,35 @@ conv3x3.launches = 0
 
 def convt2x2_prepared(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
     """convt2x2 on prepared weights (see ``convt2x2``)."""
-    _check_act(x, "x")
+    _check_act(x, "x", torch.int8 if w.quant == "static" else torch.bfloat16)
     _, h, wd, c = x.shape
     if c != w.cin:
         raise ValueError(f"input channels {c} do not match the kernel's {w.cin}")
     dev = x.device
     if dev.type == "cpu":
-        kernel = torch.flip(
-            w.wmat[:c].to(torch.float32).reshape(c, 2, 2, w.f).permute(1, 2, 0, 3), dims=(0, 1))
-        return convt2x2_plain(x, kernel, w.bias)
+        return convt2x2_prepared_plain(x, w)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("convt2x2: activations and weights must be on one CUDA device")
-    out = torch.empty((1, 2 * h, 2 * wd, w.f), dtype=torch.bfloat16, device=dev)
+    odt = torch.int8 if w.out_i8 else torch.bfloat16
+    out = torch.empty((1, 2 * h, 2 * wd, w.f), dtype=odt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().rtnr_convt2x2(x.data_ptr(), c, h, wd, w.wmat.data_ptr(), w.bias.data_ptr(),
-                              out.data_ptr(), w.f, int(w.wmat.shape[0]), stream)
+                              None if w.scale is None else w.scale.data_ptr(), out.data_ptr(),
+                              w.f, int(w.wmat.shape[0]), _KIND[w.quant], int(w.out_i8), stream)
     _build.check(rc, "rtnr_convt2x2")
-    convt2x2.launches += 1
+    if w.quant == "static":
+        convt2x2_static.launches += 1
+    else:
+        convt2x2.launches += 1
     return out
 
 
-def convt2x2(x: torch.Tensor, kernel, bias=None) -> torch.Tensor:
-    """K4: flax 2x2 stride-2 ConvTranspose of (1,H,W,C) bf16 with kernel
-    (2,2,C,F) plus bias -> (1,2H,2W,F) bf16."""
-    return convt2x2_prepared(x, prepare_convt2x2(kernel, bias, x.device))
+def convt2x2(x: torch.Tensor, kernel, bias=None, *, quant: str = "", in_scale=None,
+             out_scale=None) -> torch.Tensor:
+    """K4: flax 2x2 stride-2 ConvTranspose of (1,H,W,C) bf16 (or int8 codes
+    in static mode) with kernel (2,2,C,F) plus bias -> (1,2H,2W,F)."""
+    return convt2x2_prepared(x, prepare_convt2x2(kernel, bias, x.device, quant=quant,
+                                                 in_scale=in_scale, out_scale=out_scale))
 
 
 convt2x2.launches = 0

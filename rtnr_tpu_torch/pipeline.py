@@ -8,12 +8,15 @@ the scene and the folded U-Net weights on the device once.
 
 Functions on tensors follow their inputs' device. ``Renderer`` runs on the
 card unless the caller asks for ``device="cpu"``; without CUDA the default
-raises. Frustum culling (``cull_budget``) is not ported yet and raises.
+raises. It takes every option of the JAX ``Renderer``: the bf16, int8
+("dyn", "static" with lazy calibration) and f32 U-Nets, and frustum culling
+(``cull_budget``, ``ops/culling.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -23,7 +26,8 @@ import torch
 from rtnr_tpu_torch.camera import Camera
 from rtnr_tpu_torch.config import DEPTH_EMPTY, RenderConfig
 from rtnr_tpu_torch.models.convert import from_flax_variables
-from rtnr_tpu_torch.models.unet import UNet
+from rtnr_tpu_torch.models.unet import UNet, calibrate_act_scales
+from rtnr_tpu_torch.ops.culling import build_block_index, compact_points, cull_points
 from rtnr_tpu_torch.ops.prefilter import depth_prefilter
 from rtnr_tpu_torch.ops.raster import rasterize, rasterize_packed, unpack_rgb8
 from rtnr_tpu_torch.scene import Scene
@@ -114,12 +118,13 @@ def render_filtered(points, colors, valid, cam_proj, *, width: int, height: int,
 
 def render_full(points, colors, valid, cam_proj, unet: UNet, *, width: int, height: int,
                 depth_band: float = 0.02, levels: int = 4, filter_strength: float = 1.025,
-                gradient_filter: float = 0.03) -> Dict[str, torch.Tensor]:
-    """Stage 3: raster + prefilter + bf16 U-Net (reference computeFull).
-    ``rgb_f`` is the float output, ``rgb`` its saturating x255 uint8 frame."""
-    return _render(points, colors, valid, cam_proj, unet, width=width, height=height,
-                   depth_band=depth_band, levels=levels, filter_strength=filter_strength,
-                   gradient_filter=gradient_filter)
+                gradient_filter: float = 0.03, act_scales=None) -> Dict[str, torch.Tensor]:
+    """Stage 3: raster + prefilter + U-Net (reference computeFull).
+    ``rgb_f`` is the float output, ``rgb`` its saturating x255 uint8 frame.
+    ``act_scales`` feeds a static-int8 net (``UNet(quant_int8=True)``)."""
+    return _render(points, colors, valid, cam_proj, functools.partial(unet, act_scales=act_scales),
+                   width=width, height=height, depth_band=depth_band, levels=levels,
+                   filter_strength=filter_strength, gradient_filter=gradient_filter)
 
 
 @dataclasses.dataclass
@@ -173,47 +178,144 @@ class Renderer:
     ``unet_variables``: the JAX package's U-Net variables as nested numpy
     dicts (raw with ``batch_stats``, or folded); None disables
     ``compute_full``. ``device`` defaults to "cuda" and raises without it.
+
+    ``config.unet_dtype``: "bf16" runs the CUDA kernels; "f32" runs the f32
+    net on plain ``F.conv2d`` (TF32 off), as the JAX package's f32 net runs
+    XLA's own convs; ``unet_int8`` has no effect on it. ``config.unet_int8``
+    (bf16 only): "off" exact, "dyn" dynamic int8, "static" static int8,
+    calibrated lazily on the first ``compute_full`` view's own U-Net input
+    (``calibrate``); the scales stay on the device (``act_scales``).
+
+    ``cull_budget`` enables frustum culling on the 0.25 m block grid
+    (``rtnr_tpu/pipeline.py:257-384``): per view, the points of out-of-
+    frustum blocks are compacted away into a ``cull_budget``-point buffer,
+    which shrinks the per-frame sort. The compaction is cached and reused
+    while the camera stays within ``cull_inflate_m`` meters and a rotation
+    bounded by ``cull_margin_px`` pixels of the compaction's pose (block boxes
+    are inflated by the same amount, so reuse is conservative). If a view
+    keeps more points than the budget, the full cloud is rendered for that
+    pose region instead: culling never drops a visible point.
+    ``cull_budget`` is an int, "auto" (1.5x the first view's kept count,
+    rounded up to ``pad_points_to``, grown on overflow) or None/0 (off).
     """
 
     def __init__(self, scene: Scene, config: RenderConfig = RenderConfig(),
                  unet_variables: Any = None, pad_points_to: int = 1024,
-                 cull_budget: Any = None, device: str = "cuda"):
-        if cull_budget:
-            raise NotImplementedError("frustum culling is not ported yet")
-        if config.unet_int8 != "off":
-            raise NotImplementedError(f"unet_int8={config.unet_int8!r} is not ported yet")
+                 cull_budget: Any = None, cull_margin_px: float = 96.0,
+                 cull_inflate_m: float = 0.5, device: str = "cuda"):
+        if config.unet_int8 not in ("off", "dyn", "static"):
+            raise ValueError(f"unet_int8 must be 'off', 'dyn' or 'static', not "
+                             f"{config.unet_int8!r}")
+        if config.unet_dtype not in ("bf16", "f32"):
+            raise ValueError(f"unet_dtype must be 'bf16' or 'f32', not {config.unet_dtype!r}")
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
-        if dev.type == "cuda" and config.unet_dtype != "bf16":
-            raise NotImplementedError("only the bf16 U-Net runs on the card so far")
         self.device = dev
         self.config = config
         pts, cols, valid = scene.sorted_by_block().device_arrays(pad_points_to)
         self.points = torch.from_numpy(pts).to(dev)
         self.colors = torch.from_numpy(cols).to(dev)
         self.valid = torch.from_numpy(valid).to(dev)
+        self._cull_auto = cull_budget == "auto"
+        self.cull_budget = None if self._cull_auto else cull_budget
+        self._cull_enabled = bool(cull_budget)
+        self._pad_points_to = int(pad_points_to)
+        self.cull_margin_px = float(cull_margin_px)
+        self.cull_inflate_m = float(cull_inflate_m)
+        self._cull_cache: Optional[dict] = None
+        if self._cull_enabled:
+            self._block_index = build_block_index(scene, pad_points_to, device=dev)
         self.unet: Optional[UNet] = None
+        self.act_scales: Optional[Dict[str, torch.Tensor]] = None
         if unet_variables is not None:
+            bf16 = config.unet_dtype == "bf16"
             state = from_flax_variables(unet_variables)
             self.unet = UNet(state, features=config.unet_features,
-                             out_channels=config.unet_out_channels).to(dev)
-            self.unet.prepare()  # folded bf16 weights pinned on the device once
+                             out_channels=config.unet_out_channels,
+                             quant_int8=bf16 and config.unet_int8 != "off").to(dev)
+            # weights laid out on the device once (static int8: after calibration)
+            if bf16 and config.unet_int8 == "dyn":
+                self.unet.prepare_int8()
+            elif bf16:
+                self.unet.prepare()
         self.last_timings = FrameTimings()
 
     def _cam_proj(self, camera: Camera, extrinsics: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(camera.cam_proj(extrinsics).astype(np.float32)).to(self.device)
 
+    def _view_points(self, camera: Camera, extrinsics: np.ndarray):
+        """Scene tensors for this view: the full cloud, or the cached culled
+        compaction (recomputed only when the pose leaves the cached
+        compaction's conservative validity region). If the view keeps more
+        points than the budget, the full cloud is returned (and cached for
+        the region)."""
+        if not self._cull_enabled:
+            return self.points, self.colors, self.valid
+        E = np.asarray(extrinsics, np.float64)
+        R, t = E[:3, :3], E[:3, 3]
+        C = -R.T @ t  # camera center in world space
+        f = min(camera.fx, camera.fy)
+        # rotation budget: pixel shift at the image edge <= margin/2
+        # (shift <= f * dtheta * sec^2(alpha_max), alpha_max at the corner)
+        sec2 = 1.0 + (max(camera.width, camera.height) / (2.0 * f)) ** 2
+        rot_budget_rad = self.cull_margin_px / (2.0 * f * sec2)
+        cache = self._cull_cache
+        if cache is not None and cache["wh"] == (camera.width, camera.height):
+            cosang = (np.trace(cache["R"].T @ R) - 1.0) / 2.0
+            ang = float(np.arccos(np.clip(cosang, -1.0, 1.0)))
+            if float(np.linalg.norm(C - cache["C"])) <= self.cull_inflate_m and ang <= rot_budget_rad:
+                return cache["arrays"]
+
+        keep = cull_points(self._block_index, self._cam_proj(camera, extrinsics), self.valid,
+                           width=camera.width, height=camera.height,
+                           margin=self.cull_margin_px, inflate_m=self.cull_inflate_m)
+        n_kept = int(keep.sum())
+        pad = self._pad_points_to
+        if self._cull_auto and (self.cull_budget is None or n_kept > self.cull_budget):
+            # size (or grow, on overflow) the budget to 1.5x the kept count
+            self.cull_budget = min(-(-int(1.5 * max(n_kept, 1)) // pad) * pad,
+                                   int(self.points.shape[0]))
+        overflowed = n_kept > (self.cull_budget or 0)
+        if overflowed:  # the compaction would drop visible points: render the full cloud
+            arrays = (self.points, self.colors, self.valid)
+        else:
+            arrays = compact_points(self.points, self.colors, keep, self.cull_budget)
+        self._cull_cache = {"arrays": arrays, "C": C, "R": R, "wh": (camera.width, camera.height),
+                            "n_kept": n_kept, "overflowed": overflowed}
+        return arrays
+
     def _unet(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.unet_dtype == "bf16":
-            return self.unet(x)
-        return self.unet.forward_plain(x, torch.float32)
+            return self.unet(x, act_scales=self.act_scales)
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            return self.unet.forward_plain(x, torch.float32)
+
+    def calibrate(self, camera: Camera, extrinsics: np.ndarray):
+        """Static-int8 calibration on this view's own U-Net input, once
+        (``rtnr_tpu/pipeline.py:444-472``); a no-op unless
+        ``unet_int8="static"`` runs the bf16 net. Returns ``act_scales``."""
+        if self.act_scales is None and self.unet is not None and self.unet.quant_int8 \
+                and self.config.unet_int8 == "static":
+            cfg = self.config
+            pts, cols, valid = self._view_points(camera, extrinsics)
+            mid = render_filtered(pts, cols, valid, self._cam_proj(camera, extrinsics),
+                                  width=camera.width, height=camera.height,
+                                  depth_band=cfg.depth_band, levels=cfg.pyramid_levels,
+                                  filter_strength=cfg.filter_strength,
+                                  gradient_filter=cfg.gradient_filter)
+            self.act_scales = calibrate_act_scales(self.unet, mid["unet_input"][None])
+            self.unet.prepare_int8(self.act_scales)
+        return self.act_scales
 
     def compute_rgbd(self, camera: Camera, extrinsics: np.ndarray) -> Dict[str, np.ndarray]:
+        pts, cols, valid = self._view_points(camera, extrinsics)
         clock = _Clock(self.device)
         clock.mark()
-        out = render_rgbd(self.points, self.colors, self.valid, self._cam_proj(camera, extrinsics),
+        out = render_rgbd(pts, cols, valid, self._cam_proj(camera, extrinsics),
                           width=camera.width, height=camera.height,
                           depth_band=self.config.depth_band)
         clock.mark()
@@ -223,10 +325,11 @@ class Renderer:
 
     def _stages(self, camera: Camera, extrinsics: np.ndarray, full: bool):
         cfg = self.config
+        pts, cols, valid = self._view_points(camera, extrinsics)
         clock = _Clock(self.device)
         M = self._cam_proj(camera, extrinsics)
         clock.mark()
-        out = _render(self.points, self.colors, self.valid, M, self._unet if full else None,
+        out = _render(pts, cols, valid, M, self._unet if full else None,
                       width=camera.width, height=camera.height, depth_band=cfg.depth_band,
                       levels=cfg.pyramid_levels, filter_strength=cfg.filter_strength,
                       gradient_filter=cfg.gradient_filter, mark=clock.mark)
@@ -243,6 +346,7 @@ class Renderer:
         the device)."""
         if self.unet is None:
             raise RuntimeError("No U-Net variables given; compute_full unavailable.")
+        self.calibrate(camera, extrinsics)
         return self._stages(camera, extrinsics, full=True)
 
     def compute_full(self, camera: Camera, extrinsics: np.ndarray) -> Dict[str, np.ndarray]:

@@ -2,8 +2,9 @@
 
 A point cloud plus the 0.25 m uniform block grid of the reference
 (include/Octreegrid.h:48-50, cloudreader.cpp:8-82). ``from_arrays``,
-``synthetic``, ``sorted_by_block`` and ``device_arrays`` are the same numpy
-code as the JAX package, so the block keys and the device point order match
+``synthetic``, ``decode_key``, ``block_bounds``, ``sorted_by_block`` and
+``device_arrays`` are the same numpy code as the JAX package, so the block
+keys, the block boxes (frustum culling) and the device point order match
 bit for bit.
 """
 
@@ -88,6 +89,23 @@ class Scene:
         pts = rng.uniform(-extent / 2, extent / 2, size=(n_points, 3)).astype(np.float32)
         cols = rng.integers(0, 256, size=(n_points, 3), dtype=np.uint8)
         return cls.from_arrays(pts, cols, block_size_m)
+
+    def decode_key(self, key: np.ndarray) -> np.ndarray:
+        """Linear key -> (x, y, z) block index (reference Octreegrid.h:116-121)."""
+        nx, ny, _nz = self.num_blocks
+        z = key // (nx * ny)
+        rem = key - z * nx * ny
+        y = rem // nx
+        x = rem % nx
+        return np.stack([x, y, z], axis=-1)
+
+    def block_bounds(self, key: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-block AABB (reference cloudreader.cpp:62-80)."""
+        nb = np.asarray(self.num_blocks, np.float32)
+        size = (self.bb_max - self.bb_min) / nb
+        xyz = self.decode_key(np.asarray(key)).astype(np.float32)
+        lo = self.bb_min + xyz * size
+        return lo, lo + size
 
     def sorted_by_block(self) -> "Scene":
         """Points reordered by block key (stable)."""

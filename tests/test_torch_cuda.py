@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K5) against their plain torch twins on the
-card, and the differentiable raster on the card against the CPU. Marked ``cuda``; each test skips without a CUDA device. This file
+"""The port's CUDA kernels (K1-K5, and the int8 modes of K3/K4) against their
+plain torch twins on the card, the differentiable raster and the int8
+Renderer on the card against the CPU. Marked ``cuda``; each test skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so on a machine with the card and
 no JAX it runs as
 
@@ -99,6 +100,116 @@ def test_wrappers_count_launches(cuda):
     cv.conv3x3([x], _mk((3, 3, 8, 8), 1), relu=True)
     cv.convt2x2(x, _mk((2, 2, 8, 8), 2))
     assert (cv.conv3x3.launches, cv.convt2x2.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _codes(shape, seed, lo=-127):
+    return torch.from_numpy(np.random.default_rng(seed).integers(lo, 128, size=shape)
+                            .astype(np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs,w,pool,out", [
+    ((16,), 48, True, True),  # int8 pool
+    ((32, 16), 37, False, True),  # two inputs, odd W
+    ((8,), 24, False, True),  # channels off the 16-byte loads
+    ((64,), 40, False, False),  # bf16 out (the head conv)
+])
+def test_conv3x3_static_kernel_matches_twin(cuda, cs, w, pool, out):
+    """K3 static, bit for bit: i32 sums and the same f32 epilogue."""
+    xs = [_codes((1, 20, w, c), i, 0).to(cuda) for i, c in enumerate(cs)]
+    k = torch.from_numpy(_mk((3, 3, sum(cs), 64), 3, 0.1)).to(cuda)
+    b = torch.from_numpy(_mk((64,), 4, 0.5)).to(cuda)
+    scales = [torch.tensor(v, device=cuda) for v in (0.031, 0.047)][: len(cs)]
+    wq = cv.prepare_conv3x3(k, b, quant="static", in_scales=scales, c0=cs[0],
+                            out_scale=torch.tensor(0.09, device=cuda) if out else None)
+    before = cv.conv3x3_static.launches
+    got = cv.conv3x3_prepared(xs, wq, relu=True, pool=pool)
+    want = cv.conv3x3_prepared_plain(xs, wq, relu=True, pool=pool)
+    assert cv.conv3x3_static.launches == before + 1
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs,w,head", [((16,), 48, False), ((32, 16), 37, False),
+                                       ((8,), 24, False), ((64,), 32, True)])
+def test_conv3x3_dyn_kernel_matches_twin(cuda, cs, w, head):
+    """K3 dyn with its per-pixel scale pre-pass, bit for bit (the head on
+    its bf16 output within 2 ulp)."""
+    xs = [torch.from_numpy(_mk((1, 20, w, c), i)).to(cuda, torch.bfloat16)
+          for i, c in enumerate(cs)]
+    k = torch.from_numpy(_mk((3, 3, sum(cs), 64), 3, 0.1)).to(cuda)
+    wq = cv.prepare_conv3x3(k, torch.from_numpy(_mk((64,), 4)).to(cuda), quant="dyn")
+    (got,) = cv.conv3x3_prepared(xs, wq, relu=True)
+    (want,) = cv.conv3x3_prepared_plain(xs, wq, relu=True)
+    assert torch.equal(got, want)
+    if head:
+        hw = cv.prepare_head(torch.from_numpy(_mk((64, 3), 5, 0.2)).to(cuda))
+        (hout,) = cv.conv3x3_prepared(xs, wq, relu=True, head=hw)
+        href = torch.matmul(got.float(), hw.hk.float()) + hw.hb
+        assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+
+
+@pytest.mark.cuda
+def test_conv3x3_exact_int8_out_kernel_matches_twin(cuda):
+    """The 5-channel bf16 input conv writing int8: f32 sums in another order
+    than the twin's, so at most 1 code on at most 0.1% of the elements."""
+    x = torch.from_numpy(_mk((1, 32, 48, 5), 1)).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(_mk((3, 3, 5, 64), 2, 0.3)).to(cuda)
+    wq = cv.prepare_conv3x3(k, None, out_scale=torch.tensor(0.02, device=cuda))
+    before = cv.conv3x3_i8out.launches
+    (got,) = cv.conv3x3_prepared([x], wq, relu=True)
+    (want,) = cv.conv3x3_prepared_plain([x], wq, relu=True)
+    assert cv.conv3x3_i8out.launches == before + 1 and got.dtype == torch.int8
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,w", [(32, 16, 24), (8, 8, 13)])
+def test_convt2x2_static_kernel_matches_twin(cuda, c, f, w):
+    x = _codes((1, 10, w, c), 7).to(cuda)
+    k = torch.from_numpy(_mk((2, 2, c, f), 8, 0.2)).to(cuda)
+    wq = cv.prepare_convt2x2(k, torch.from_numpy(_mk((f,), 9)).to(cuda), quant="static",
+                             in_scale=torch.tensor(0.013, device=cuda),
+                             out_scale=torch.tensor(0.037, device=cuda))
+    before = cv.convt2x2_static.launches
+    got = cv.convt2x2_prepared(x, wq)
+    assert cv.convt2x2_static.launches == before + 1
+    assert torch.equal(got, cv.convt2x2_prepared_plain(x, wq))
+
+
+@pytest.mark.cuda
+def test_int8_renderer_on_card_matches_cpu(cuda):
+    """Static and dyn Renderers on the card against the same on the CPU:
+    raster, mask and depth bit for bit, rgb_f within max 0.10 / mean 0.02 of
+    the range (the bf16 input conv's f32 sums may flip a code, and the
+    calibration reads the bf16 net), through the int8 kernels."""
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+
+    scene = Scene.synthetic(20_000, seed=3, extent=6.0)
+    cam = Camera.from_params(60.0, 60.0, 32.0, 24.0, 64, 48)
+    E = np.eye(4)
+    E[2, 3] = 8.0
+    v = init_unet_numpy(1, (16, 32))
+    for mode, counter in (("static", cv.conv3x3_static), ("dyn", cv.conv3x3_dyn)):
+        cfg = RenderConfig(unet_features=(16, 32), unet_int8=mode)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            r = Renderer(scene, cfg, v, cull_budget="auto", device=dev)
+            r.unet.quant_min_f = 1
+            before = counter.launches
+            out[dev] = r.compute_full(cam, E)
+            if dev == "cuda":
+                assert counter.launches > before
+        for k in ("raw_rgb", "raw_depth", "mask", "depth"):
+            np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k])
+        d = np.abs(out["cuda"]["rgb_f"] - out["cpu"]["rgb_f"])
+        scale = max(1e-6, float(np.abs(out["cpu"]["rgb_f"]).max()))
+        assert d.max() <= 0.10 * scale and d.mean() <= 0.02 * scale
 
 
 def _dense_cloud(n, w, h, seed, integer):

@@ -96,10 +96,28 @@ def test_renderer_defaults_to_the_card_and_raises_without_it(small_setup):
 
 
 def test_renderer_refuses_what_is_not_ported(small_setup):
+    """Everything the JAX Renderer takes is ported (int8, culling, f32);
+    what still raises is what JAX refuses too."""
     scene, cam, E = small_setup
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, cull_budget="auto", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, RenderConfig(unet_int8="static"), device="cpu")
+    with pytest.raises(ValueError, match="unet_int8"):
+        Renderer(scene, RenderConfig(unet_int8="fp8"), device="cpu")
+    with pytest.raises(ValueError, match="unet_dtype"):
+        Renderer(scene, RenderConfig(unet_dtype="f16"), device="cpu")
     with pytest.raises(RuntimeError, match="No U-Net"):
         Renderer(scene, device="cpu").compute_full(cam, E)
+    Renderer(scene, RenderConfig(unet_int8="static"), cull_budget="auto", device="cpu")
+
+
+def test_renderer_f32_net_ignores_unet_int8(small_setup):
+    """unet_dtype='f32' with unet_int8='static' renders the f32 net (no
+    calibration), as the JAX package's f32 net ignores int8."""
+    scene, cam, E = small_setup
+    raw = init_unet_numpy(2, FEAT)
+    r = Renderer(scene, RenderConfig(unet_features=FEAT, unet_dtype="f32", unet_int8="static"),
+                 raw, device="cpu")
+    out = r.compute_full(cam, E)
+    assert r.act_scales is None and not r.unet.quant_int8
+    want = Renderer(scene, RenderConfig(unet_features=FEAT, unet_dtype="f32"), raw,
+                    device="cpu").compute_full(cam, E)
+    for k in want:
+        np.testing.assert_array_equal(out[k], want[k], err_msg=k)
