@@ -18,14 +18,22 @@ Phases (any failure exits non-zero, and the result line is not printed):
    depth and sums equal to the serving raster's K1/K2 integer images; K5's
    time beside ``torch.segment_reduce`` over the same segments; forward and
    backward ms;
-5. the int8 modes: the static net's lazy calibration (timed), then every
+5. the alternative resolvers at the same shape: K6 (``winners5``) on the
+   pixel-only stream and the carrier kernel (``resolve_carriers``, K7-K9) on
+   the carrier stream bit-exact against their twins and their images against
+   K1+K2's, K6 on a 20,000-point one-pixel segment, ``rasterize_scatter``
+   (the atomics form) equal to ``rasterize``, and the 32-bit (pixel) against
+   the 64-bit (pixel, depth) sort; then K10 (``conv_direct.conv3x3_pallas``
+   on K3's kernel) at 1088x1920, inputs (64, 64) -> 64, driven once with
+   the counts reset, within 2 bf16 ulp of its f32 twin;
+6. the int8 modes: the static net's lazy calibration (timed), then every
    int8-mode call of the static and the dyn net at the frame's shapes
    against its twin -- K3 static (int8 pool included), K3 dyn and K4 static
    bit for bit, the bf16 input conv with int8 output within 1 code on
    <= 0.1% of elements -- with ms, bound (int8 at 1,979 TOP/s), twin and
    ``torch._int_mm`` (GEMM only) times; the static and dyn U-Net outputs
    within max 0.10 / mean 0.02 of max|bf16| of the bf16 kernel net's;
-6. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
+7. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
    10 timed frames with the outputs left on the card and 3 with them copied
    to host numpy, with ms/frame, the staged projection / filter / U-Net ms
    (CUDA events), finiteness, the launch count of every kernel in that run
@@ -36,17 +44,20 @@ Phases (any failure exits non-zero, and the result line is not printed):
    host copies) for ``unet_int8="static"`` and ``"dyn"``, the static frame
    against the bf16 one at a second pose (same budget), and a culled render
    (``cull_budget="auto"``, camera inside the cloud) equal bit for bit to
-   the unculled one, with its kept share and both frame times;
-7. the training paths at full width (bf16 U-Net, batch 1, targets the
+   the unculled one, with its kept share and both frame times; and 1 warm-up
+   + 5 bf16 frames under each of ``RTNR_RESOLVE=v4``, ``v5``, ``v3`` and
+   ``v2`` (counts reset before each), every one equal to the v4 frame bit for
+   bit, each through its own resolver kernel;
+8. the training paths at full width (bf16 U-Net, batch 1, targets the
    scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
    ``make_train_step`` (K1, K2 must launch) and of ``make_scene_train_step``
    (K5, K2 must launch), with ms/step, peak device memory per step, finite
    losses, moved batch statistics, colours and camera matrices, non-zero
    pose and colour gradients, and a profiler trace of one scene step; then a
    small scene step on the card against the CPU;
-8. one JSON ``kernels`` line: every kernel and int8 mode with its launches
+9. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times;
-9. the last line ``{"ok": true, "device": {...}}``.
+10. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
 """
@@ -71,6 +82,8 @@ FRAMES = 10  # timed frames after one warm-up
 INT8_FRAMES = 10  # timed frames of each int8 serving path
 CULL_FRAMES = 5  # timed frames of the culled and unculled render
 HOST_FRAMES = 3  # timed frames of compute_full, outputs copied to host numpy
+RESOLVER_FRAMES = 5  # timed frames under each RTNR_RESOLVE value
+ONE_PIXEL_POINTS = 20_000  # K6's long-segment check (the TPU kernel's lookback is ~16k)
 TRAIN_STEPS = 3  # timed steps of each train step after one warm-up
 SEED = 0
 
@@ -115,6 +128,233 @@ def card_line() -> str:
     return out[0] if out else "unknown"
 
 
+def segment_reduce_ms(sp, cnt, depth, hw, band, what, real_only=False):
+    """Time of ``torch.segment_reduce`` summing the f32 lanes (r, g, b, 1) of
+    the in-band elements of the pixel-sorted stream ``sp`` (against the
+    minimum-depth image ``depth``; ``real_only``: the carrier stream's real
+    points), one run per pixel with ``cnt`` > 0: the reduction alone, without
+    the head search, the band test or the ranks."""
+    import torch
+    from rtnr_tpu_torch.ops.raster import REAL_BIT
+
+    z = sp.zbits.view(torch.float32)
+    keep = (sp.pix < hw) & ~(z > depth[sp.pix.clamp(max=hw - 1).long()] + band)
+    if real_only:
+        keep &= (sp.packed & REAL_BIT) != 0
+    pk = sp.packed[keep]
+    data = torch.stack([pk & 255, (pk >> 8) & 255, (pk >> 16) & 255, torch.ones_like(pk)],
+                       1).float()
+    lengths = cnt[cnt > 0].to(torch.int64)
+    if int(lengths.sum()) != data.shape[0]:
+        fail(f"segment_reduce yardstick: in-band runs do not match {what}'s counts")
+    return time_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_bits(got, want) -> bool:
+    import torch
+
+    return len(got) == len(want) and all(torch.equal(_bits(g), _bits(w))
+                                         for g, w in zip(got, want))
+
+
+def check_resolvers(renderer, M, band, rows):
+    """K6 and the carrier kernel (K7-K9) at the frame's shape, bit for bit
+    against their twins and against K1+K2's images; K6 on a 20,000-point
+    one-pixel segment; rasterize_scatter against rasterize; the sorts of
+    the three stream forms. Returns the sort and projection times."""
+    import numpy as np
+    import torch
+    from rtnr_tpu_torch.camera import Camera
+    from rtnr_tpu_torch.ops import raster as tr
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+    from rtnr_tpu_torch.ops import raster_resolve5 as r5
+    from rtnr_tpu_torch.ops import raster_resolve_carriers as rc
+
+    hw = WIDTH * HEIGHT
+    args = (renderer.points, renderer.colors, M)
+    kw = dict(width=WIDTH, height=HEIGHT, valid=renderer.valid)
+    sp4 = tr.project_and_sort(*args, **kw)
+    ref = rr.raster_images_v4(sp4, hw, band)
+    ref_packed = rr.raster_images_v4(sp4, hw, band, packed_out=True)
+
+    sp5 = tr.project_and_sort(*args, depth_key=False, **kw)
+    if not torch.equal(sp5.pix, sp4.pix):
+        fail("the pixel-only stream's pixel ids differ from the (pixel, depth) stream's")
+    wimg, total = r5.winners5(sp5, hw, band)
+    wimg_p, total_p = r5.winners5_plain(sp5, hw, band)
+    t = int(total[0])
+    if t != int(total_p[0]) or not torch.equal(wimg[:, :t], wimg_p[:, :t]):
+        fail("K6 winners5 differs from its twin")
+    for packed_out, want in ((False, ref), (True, ref_packed)):
+        if not same_bits(rr.expand_winners(wimg, total, hw, packed_out=packed_out), want):
+            fail(f"K6+K2 images (packed_out={packed_out}) differ from K1+K2's")
+    n5 = sp5.pix.numel()
+    log(f"K6 winners5 bit-exact vs twin, K6+K2 images equal K1+K2's: {n5} points, {t} winners")
+
+    spc = tr.project_and_sort(*args, carriers=True, **kw)
+    nc = spc.pix.numel()
+    if nc != n5 + hw:
+        fail(f"carrier stream holds {nc} elements, not {n5} + {hw}")
+    got = rc.resolve_carriers(spc, hw, band)
+    if not same_bits(got, rc.resolve_carriers_plain(spc, hw, band)):
+        fail("carrier kernel differs from its twin")
+    if not same_bits(got, ref):
+        fail("carrier kernel images differ from K1+K2's")
+    log(f"carrier kernel bit-exact vs twin and equal to K1+K2's images: {nc} elements")
+
+    rgb_s, d_s = tr.rasterize_scatter(*args, **kw)
+    rgb, d = tr.rasterize(*args, **kw)
+    if not same_bits((rgb_s, d_s), (rgb, d)):
+        fail("rasterize_scatter differs from rasterize")
+    log("rasterize_scatter (scatter_reduce amin + index_add_) equals rasterize bit for bit")
+    del rgb_s, d_s, rgb, d
+
+    # one pixel, 20,000 points in unsorted depth, a partial band
+    g = torch.Generator(device=M.device).manual_seed(SEED)
+    n1 = ONE_PIXEL_POINTS
+    zc = 2.0 + 0.3 * torch.rand(n1, generator=g, device=M.device)
+    pts1 = torch.stack([torch.zeros_like(zc), torch.zeros_like(zc), zc], 1)
+    cols1 = torch.randint(0, 256, (n1, 3), generator=g, device=M.device).float()
+    M1 = torch.from_numpy(Camera.from_params(1100.0, 1100.0, WIDTH / 2, HEIGHT / 2, WIDTH,
+                                             HEIGHT).cam_proj(np.eye(4)).astype(np.float32))
+    M1 = M1.to(M.device)
+    sp1 = tr.project_and_sort(pts1, cols1, M1, width=WIDTH, height=HEIGHT, depth_key=False)
+    w1, t1 = r5.winners5(sp1, hw, band)
+    w1_p, t1_p = r5.winners5_plain(sp1, hw, band)
+    if not (torch.equal(t1, t1_p) and torch.equal(w1[:, :1], w1_p[:, :1])):
+        fail("K6 on the one-pixel segment differs from its twin")
+    ref1 = rr.raster_images_v4(tr.project_and_sort(pts1, cols1, M1, width=WIDTH, height=HEIGHT),
+                               hw, band)
+    if int(t1[0]) != 1 or not same_bits(rr.expand_winners(w1, t1, hw), ref1):
+        fail("K6+K2 on the one-pixel segment differ from K1+K2")
+    log(f"K6 on one pixel of {n1} points (beyond the TPU kernel's one-part lookback): "
+        f"bit-exact vs twin and K1+K2, {int(ref1[1].max())} in band")
+
+    k6_ms = time_ms(lambda: r5.winners5(sp5, hw, band))
+    k6_plain = time_ms(lambda: r5.winners5_plain(sp5, hw, band), reps=2)
+    kc_ms = time_ms(lambda: rc.resolve_carriers(spc, hw, band))
+    kc_plain = time_ms(lambda: rc.resolve_carriers_plain(spc, hw, band), reps=2)
+    # K6 reads the stream and writes a winner row (K1's traffic); the carrier
+    # kernel reads its stream and writes sums, count and depth per pixel
+    b6, by6 = bound_ms(12.0 * n5 + 24.0 * t, 0.0)
+    bc, byc = bound_ms(12.0 * nc + 20.0 * hw, 0.0)
+    lib6 = segment_reduce_ms(sp5, ref[1], ref[2], hw, band, "K6")
+    libc = segment_reduce_ms(spc, got[1], got[2], hw, band, "the carrier kernel", real_only=True)
+    rows["winners5"] = dict(ms=k6_ms, plain_ms=k6_plain, bound_ms=b6, bound_by=by6,
+                            library_ms=lib6, max_abs_err=0.0)
+    rows["resolve_carriers"] = dict(ms=kc_ms, plain_ms=kc_plain, bound_ms=bc, bound_by=byc,
+                                    library_ms=libc, max_abs_err=0.0)
+    log(f"K6 winners5: {k6_ms:.4f} ms (plain {k6_plain:.4f}, bound {b6:.4f} {by6}, "
+        f"segment_reduce {lib6:.4f})")
+    log(f"K7-K9 resolve_carriers: {kc_ms:.4f} ms (plain {kc_plain:.4f}, bound {bc:.4f} {byc}, "
+        f"segment_reduce {libc:.4f})")
+
+    # the sort: v4's 64-bit (pixel, depth) key against v5's 32-bit pixel key
+    u, v, z = tr.project_points(renderer.points, M)
+    pix, ok = tr._pixel_ids(u, v, z, renderer.valid, WIDTH, HEIGHT)
+    zb = torch.where(ok, z, torch.full_like(z, float("inf"))).view(torch.int32)
+    key64 = (pix.to(torch.int64) << 32) | zb.to(torch.int64)
+    sorts = {"sort_key64_ms": time_ms(lambda: torch.sort(key64)),
+             "sort_key32_ms": time_ms(lambda: torch.sort(pix))}
+    for name, extra in (("v4", {}), ("v5", {"depth_key": False}), ("carriers", {"carriers": True})):
+        sorts[f"project_and_sort_{name}_ms"] = time_ms(
+            lambda: tr.project_and_sort(*args, **kw, **extra))
+    log("sorts at 5M points: " + ", ".join(f"{k} {v:.4f}" for k, v in sorts.items()))
+    del sp4, sp5, spc, wimg, wimg_p, got, ref, ref_packed, key64
+    return sorts
+
+
+def check_conv_direct(rows, counted):
+    """K10's counterpart at the decoder's finest two-input shape: driven once
+    through ``conv_direct.conv3x3_pallas`` with every count reset just
+    before and read just after (its path), then against the f32 twin within
+    2 bf16 ulp of its magnitude, with ms, bound, twin and ``F.conv2d``."""
+    import torch
+    import torch.nn.functional as Fn
+    from rtnr_tpu_torch.ops import conv as cv
+    from rtnr_tpu_torch.ops.conv_direct import conv3x3_pallas
+
+    h, w, cs, F = 1088, 1920, (64, 64), 64
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn((1, h, w, c), generator=g, device="cuda").to(torch.bfloat16) for c in cs]
+    k = 0.05 * torch.randn((3, 3, sum(cs), F), generator=g, device="cuda")
+    b = torch.randn((F,), generator=g, device="cuda")
+    for fn in counted.values():
+        fn.launches = 0
+    y = conv3x3_pallas(xs, k, b, relu=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    log(f"conv_direct path (one conv3x3_pallas call): launches {launches}")
+    if launches["conv3x3_direct"] <= 0 or launches["conv3x3"] <= 0:
+        fail("conv3x3_pallas did not launch K3's kernel")
+    kb, bb = cv._bf16_values(k), cv._bf16_values(b)
+    (ref,) = cv.conv3x3_plain(xs, kb, bb, relu=True, dtype=torch.float32)
+    err = float((y.float() - ref).abs().max())
+    tol = 2 * ulp_bf16(float(ref.abs().max()))
+    if not err <= tol:
+        fail(f"K10 conv3x3_pallas: max abs err {err} > {tol}")
+    ms = time_ms(lambda: conv3x3_pallas(xs, k, b, relu=True))
+    plain = time_ms(lambda: cv.conv3x3_plain(xs, kb, bb, relu=True), reps=2)
+    xcat = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)  # channels-last NCHW view
+    wl = kb.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    lib = time_ms(lambda: Fn.conv2d(xcat, wl, bb.to(torch.bfloat16), padding=1))
+    m, ct = h * w, sum(cs)
+    flops = 2.0 * m * F * 9 * ct
+    bnd, by = bound_ms(2.0 * m * ct + 2.0 * 9 * ct * F + 4.0 * F + 2.0 * m * F, flops)
+    rows["conv3x3_direct"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                  library_ms=lib, max_abs_err=err)
+    log(f"K10 conv3x3_pallas {h}x{w}x(64+64)->64 err {err:.3g} (tol {tol:.3g}) | {ms:.4f} ms, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bnd:.4f} {by}, plain {plain:.4f}, "
+        f"F.conv2d {lib:.4f}")
+    return {"launches": launches}
+
+
+def resolver_frames(renderer, cam, E, counted):
+    """1 warm-up + RESOLVER_FRAMES bf16 frames under RTNR_RESOLVE = v4, v5,
+    v3 and v2 in turn (counts reset before each); each later frame equal to
+    the v4 frame bit for bit, each path through its own resolver (v5 never
+    launches K1; v3 and v2 neither K1 nor K2). The environment is restored."""
+    import os
+
+    import torch
+
+    need = {"v4": ("winners", "expand"), "v5": ("winners5", "expand"),
+            "v3": ("resolve_carriers",), "v2": ("resolve_carriers",)}
+    others = ("winners", "winners5", "resolve_carriers", "expand")
+    saved = os.environ.get("RTNR_RESOLVE")
+    out, ref = {}, None
+    try:
+        for mode, own in need.items():
+            os.environ["RTNR_RESOLVE"] = mode
+            res = serve_frames(renderer, cam, E, RESOLVER_FRAMES, counted,
+                               own + ("conv3x3", "convt2x2"), f"bf16 RTNR_RESOLVE={mode}")
+            stray = [k for k in others if k not in own and res["launches"][k]]
+            if stray:
+                fail(f"RTNR_RESOLVE={mode} launched {stray}")
+            frame = renderer.compute_full_tensors(cam, E)
+            keys = ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f")
+            if ref is None:
+                ref = frame
+            elif not same_bits([frame[k] for k in keys], [ref[k] for k in keys]):
+                fail(f"RTNR_RESOLVE={mode} frame differs from the v4 frame")
+            out[mode] = res
+    finally:
+        if saved is None:
+            os.environ.pop("RTNR_RESOLVE", None)
+        else:
+            os.environ["RTNR_RESOLVE"] = saved
+    log("resolver frames equal the v4 frame bit for bit (raw_rgb, raw_depth, depth, mask, "
+        "rgb_f): " + ", ".join(f"{m} {r['ms_per_frame']:.3f} ms/frame (projection "
+                               f"{r['stage_ms']['projection']:.3f})" for m, r in out.items()))
+    return out
+
+
 def check_resolve(sp, hw, band, rows):
     """K1 + K2 against their twins, bit for bit, on the frame's stream."""
     import torch
@@ -150,19 +390,11 @@ def check_resolve(sp, hw, band, rows):
     # the ranks), K2 as one index_copy_ of the winner rows into a dense
     # (H*W, 6) image (without the integer average and the packing)
     _, cnt_i, depth_i = rr.expand_winners(wimg, total, hw, packed_out=False)
-    z = sp.zbits.view(torch.float32)
-    in_band = (sp.pix < hw) & ~(z > depth_i[sp.pix.clamp(max=hw - 1).long()] + band)
-    pk = sp.packed[in_band]
-    data = torch.stack([pk & 255, (pk >> 8) & 255, (pk >> 16) & 255, torch.ones_like(pk)],
-                       1).float()
-    lengths = cnt_i[cnt_i > 0].to(torch.int64)
-    if int(lengths.sum()) != data.shape[0] or lengths.numel() != t:
-        fail("segment_reduce yardstick: in-band runs do not match K1's winners")
-    lib1 = time_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+    lib1 = segment_reduce_ms(sp, cnt_i, depth_i, hw, band, "K1")
     rows_t = wimg[:, :t].t().contiguous()
     dense = torch.zeros((hw, 6), dtype=torch.int32, device=wimg.device)
     lib2 = time_ms(lambda: dense.index_copy_(0, wimg[5, :t].long(), rows_t))
-    del data, lengths, in_band, pk, rows_t, dense
+    del rows_t, dense
     rows["winners"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
                            library_ms=lib1, max_abs_err=0.0)
     rows["expand"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=b2, bound_by=by2,
@@ -861,7 +1093,10 @@ def main() -> int:
         from rtnr_tpu_torch.config import RenderConfig
         from rtnr_tpu_torch.models.convert import init_unet_numpy
         from rtnr_tpu_torch.ops import conv as cv
+        from rtnr_tpu_torch.ops import conv_direct
         from rtnr_tpu_torch.ops import raster_resolve4 as rr
+        from rtnr_tpu_torch.ops import raster_resolve5 as r5
+        from rtnr_tpu_torch.ops import raster_resolve_carriers as rc
         from rtnr_tpu_torch.ops.raster import project_and_sort
         from rtnr_tpu_torch.pipeline import Renderer, render_filtered
         from rtnr_tpu_torch.scene import Scene
@@ -920,6 +1155,16 @@ def main() -> int:
                                 cfg.depth_band, rows)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    counted = {"winners": rr.winners, "expand": rr.expand_winners,
+               "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32,
+               "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
+               "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static,
+               "winners5": r5.winners5, "resolve_carriers": rc.resolve_carriers,
+               "conv3x3_direct": conv_direct.conv3x3_pallas}
+    sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
+    conv_direct_path = check_conv_direct(rows, counted)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # ---- the int8 modes: calibration, kernels and nets at the frame's shapes ----
     torch.cuda.synchronize()
@@ -938,16 +1183,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the main path: bf16 ----
-    counted = {"winners": rr.winners, "expand": rr.expand_winners,
-               "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32,
-               "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
-               "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static}
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
                          ("winners", "expand", "conv3x3", "convt2x2"), "bf16",
                          host_frames=HOST_FRAMES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     trace_frames(renderer, cam, E, serve["ms_per_frame"])
+    resolvers = resolver_frames(renderer, cam, E, counted)
 
     # ---- the bf16 U-Net against the plain f32 twin net at the full shape ----
     with torch.no_grad():
@@ -1013,13 +1255,23 @@ def main() -> int:
         "conv3x3_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_dyn": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1310"),
+        "winners5": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
+                     "rtnr_tpu/ops/raster_pallas5.py:516"),
+        "resolve_carriers": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
+                             "rtnr_tpu/ops/raster_pallas3.py:448, "
+                             "rtnr_tpu/ops/raster_pallas2.py:334, "
+                             "rtnr_tpu/ops/raster_pallas.py:303"),
+        "conv3x3_direct": ("cuda", conv_src, "rtnr_tpu/ops/conv_pallas.py:272"),
     }
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
-             "train_step": train["train_step"], "scene_step": train["scene_step"]}
+             "train_step": train["train_step"], "scene_step": train["scene_step"],
+             "conv_direct": conv_direct_path,
+             **{f"resolve_{m}": r for m, r in resolvers.items()}}
     own = {"winners_f32": "scene_step", "conv3x3_i8out": "serve_static",
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
-           "conv3x3_dyn": "serve_dyn"}
+           "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
+           "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct"}
     kernels = []
     for name, (route, src, repl) in sources.items():
         r = rows[name]
@@ -1038,7 +1290,11 @@ def main() -> int:
                "static_int8": {**serve_static, "calibration_ms": calib_ms,
                                "unet_err": int8_err["static"], "e2e_second_pose": e2e},
                "dyn_int8": {**serve_dyn, "unet_err": int8_err["dyn"]},
-               "culled": culled}
+               "culled": culled,
+               "resolvers": {m: {k: r[k] for k in ("ms_per_frame", "all_ms", "stage_ms",
+                                                   "launches")}
+                             for m, r in resolvers.items()},
+               "sorts": sorts}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-// Raster resolve for Hopper: winners (K1) and expansion (K2).
+// Raster resolve for Hopper: winners (K1), expansion (K2), float winners (K5),
+// pixel-only winners (K6) and the carrier-stream resolve (K7-K9).
 //
 // Replaces rtnr_tpu/ops/raster_pallas4.py::_winners_kernel4 (K1, wrapper
 // raster_images_pallas4) and ::_expand_kernel4 (K2, wrapper expand_winners).
@@ -55,8 +56,37 @@
 // GB at 5M points / 1080p, ~45 us at 3.35 TB/s. As in K1, one thread walks
 // a very long segment, which is slow but exact.
 //
-// Built with -fmad=false: K1/K2/K5 must be bit-identical to their plain
-// twins. Every entry returns cudaGetLastError().
+// K6 (rtnr_winners5): replaces rtnr_tpu/ops/raster_pallas5.py::
+// _winners_kernel5 (wrapper raster_images_pallas5, RTNR_RESOLVE=v5). Input:
+// the carrier-free stream sorted by pixel id ONLY, so depth order inside a
+// segment is arbitrary. Each head walks its segment twice: first the min of
+// the depth bits (positive f32 or +inf, so the int order is the float
+// order), then the sums of r, g, b and count over the elements with
+// !(z > zmin + band) (the f32 add of reference render.cu:106). It writes
+// K1's row (totals, min depth bits, pixel) at column = winner rank, with
+// K1's head-count scan, so K2 expands it unchanged. The TPU kernel carries
+// a segment across 16k-element parts with a one-part lookback and, past
+// it, sets an overflow flag that re-sorts by depth and runs v4; here one
+// thread walks any segment, so there is no window, flag or fallback: a
+// 20,000-point one-pixel segment is slow (two serial walks) but exact.
+// Bound: bytes, as K1 (12 B a point read, 24 B a winner written).
+//
+// K7-K9 (rtnr_resolve_carriers): replaces raster_pallas3.py::
+// _resolve_kernel3, raster_pallas2.py::_resolve_kernel2 and raster_pallas.py::
+// _resolve_kernel, three tilings of one function (raster.raster_images).
+// Input: the carrier stream sorted by (pixel id, depth bits): the points
+// plus one FLT_MAX carrier per pixel, real points flagged by bit 24 of
+// packed. Every pixel has a segment, so each head walks its band prefix,
+// summing the real elements only, and writes straight to column = pixel:
+// sums (3 x i32), count and depth = the head's z. No rank, no expansion. An
+// empty pixel's head is its carrier: depth FLT_MAX and count 0, because
+// FLT_MAX + 0.02f == FLT_MAX keeps the carrier in its own band but it is not
+// real. A black point at FLT_MAX is counted: only the flag tells them
+// apart. Bound: bytes. 12 B read per element and 20 B written per pixel:
+// ~126 MB for 5M points + 1080p carriers, ~38 us at 3.35 TB/s.
+//
+// Built with -fmad=false: every kernel here must be bit-identical to its
+// plain twin. Every entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +96,7 @@
 #define WIN_BLOCK (WIN_THREADS * WIN_PER_THREAD)
 #define SCAN_THREADS 1024
 #define FLT_MAX_BITS 0x7F7FFFFF
+#define REAL_BIT (1 << 24)
 
 __device__ __forceinline__ int head_flag(const int* __restrict__ pix, int i, int hw) {
   const int p = pix[i];
@@ -131,6 +162,10 @@ __global__ void winners_scan(const int* __restrict__ block_counts, int nb,
   if (threadIdx.x == 0) *total = carry;
 }
 
+// K1 (SEG_MIN false: depth ascends in a segment, the head is its minimum and
+// the band a prefix) and K6 (SEG_MIN true: any order, the minimum is walked
+// for and the band tested on every element)
+template <bool SEG_MIN>
 __global__ void winners_write(const int* __restrict__ pix, const int* __restrict__ zbits,
                               const int* __restrict__ packed, int n, int hw, float band,
                               const int* __restrict__ block_offsets,
@@ -152,11 +187,17 @@ __global__ void winners_write(const int* __restrict__ pix, const int* __restrict
     if (!f[k]) continue;
     const int i = base + k;
     const int p = pix[i];
-    const int zb_head = zbits[i];
+    int zb_head = zbits[i];
+    if (SEG_MIN) {
+      for (int j = i + 1; j < n && pix[j] == p; ++j) zb_head = min(zb_head, zbits[j]);
+    }
     const float lim = __fadd_rn(__int_as_float(zb_head), band);
     int sr = 0, sg = 0, sb = 0, cnt = 0;
     for (int j = i; j < n && pix[j] == p; ++j) {
-      if (__int_as_float(zbits[j]) > lim) break;
+      if (__int_as_float(zbits[j]) > lim) {
+        if (SEG_MIN) continue;
+        break;
+      }
       const int pk = packed[j];
       sr += pk & 255;
       sg += (pk >> 8) & 255;
@@ -214,6 +255,33 @@ __global__ void winners_write_f32(const int* __restrict__ pix, const int* __rest
   }
 }
 
+__global__ void resolve_carriers_kernel(const int* __restrict__ pix,
+                                        const int* __restrict__ zbits,
+                                        const int* __restrict__ packed, int n, int hw,
+                                        float band, int* __restrict__ sums,
+                                        int* __restrict__ count, int* __restrict__ depth_bits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || !head_flag(pix, i, hw)) return;
+  const int p = pix[i];
+  const int zb_head = zbits[i];
+  const float lim = __fadd_rn(__int_as_float(zb_head), band);
+  int sr = 0, sg = 0, sb = 0, cnt = 0;
+  for (int j = i; j < n && pix[j] == p; ++j) {
+    if (__int_as_float(zbits[j]) > lim) break;
+    const int pk = packed[j];
+    if (!(pk & REAL_BIT)) continue;
+    sr += pk & 255;
+    sg += (pk >> 8) & 255;
+    sb += (pk >> 16) & 255;
+    cnt += 1;
+  }
+  sums[3 * p + 0] = sr;
+  sums[3 * p + 1] = sg;
+  sums[3 * p + 2] = sb;
+  count[p] = cnt;
+  depth_bits[p] = zb_head;
+}
+
 __global__ void expand_kernel(const int* __restrict__ wimg, int cap,
                               const int* __restrict__ total_p, int hw, int packed_out,
                               int* __restrict__ out0, int* __restrict__ out_cnt,
@@ -248,40 +316,73 @@ __global__ void expand_kernel(const int* __restrict__ wimg, int cap,
   out_depth[q] = __int_as_float(zb);
 }
 
-extern "C" int rtnr_winners(const void* pix, const void* zbits, const void* packed,
-                            int n, int hw, float band, void* block_scratch,
-                            void* wimg, int cap, void* total, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// The first two launches of every winners entry: per-block head counts, then
+// one block scanning them into block offsets (and the winner total).
+static const int* head_offsets(const int* pix, int n, int hw, void* block_scratch,
+                               void* total, cudaStream_t s) {
   const int nb = (n + WIN_BLOCK - 1) / WIN_BLOCK;
   int* counts = (int*)block_scratch;
   int* offsets = counts + (nb > 0 ? nb : 1);
   if (nb > 0) {
-    winners_count<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, n, hw, counts);
+    winners_count<<<nb, WIN_THREADS, 0, s>>>(pix, n, hw, counts);
   }
   winners_scan<<<1, SCAN_THREADS, 0, s>>>(counts, nb, offsets, (int*)total);
+  return offsets;
+}
+
+template <bool SEG_MIN>
+static int run_winners(const void* pix, const void* zbits, const void* packed, int n, int hw,
+                       float band, void* block_scratch, void* wimg, int cap, void* total,
+                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* offsets = head_offsets((const int*)pix, n, hw, block_scratch, total, s);
+  const int nb = (n + WIN_BLOCK - 1) / WIN_BLOCK;
   if (nb > 0) {
-    winners_write<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
-                                             (const int*)packed, n, hw, band, offsets,
-                                             (int*)wimg, cap);
+    winners_write<SEG_MIN><<<nb, WIN_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
+                                                      (const int*)packed, n, hw, band, offsets,
+                                                      (int*)wimg, cap);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int rtnr_winners(const void* pix, const void* zbits, const void* packed,
+                            int n, int hw, float band, void* block_scratch,
+                            void* wimg, int cap, void* total, void* stream) {
+  return run_winners<false>(pix, zbits, packed, n, hw, band, block_scratch, wimg, cap, total,
+                            stream);
+}
+
+extern "C" int rtnr_winners5(const void* pix, const void* zbits, const void* packed,
+                             int n, int hw, float band, void* block_scratch,
+                             void* wimg, int cap, void* total, void* stream) {
+  return run_winners<true>(pix, zbits, packed, n, hw, band, block_scratch, wimg, cap, total,
+                           stream);
 }
 
 extern "C" int rtnr_winners_f32(const void* pix, const void* zbits, const void* rgb,
                                 int n, int hw, float band, void* block_scratch,
                                 void* wimg, int cap, void* total, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int* offsets = head_offsets((const int*)pix, n, hw, block_scratch, total, s);
   const int nb = (n + WIN_BLOCK - 1) / WIN_BLOCK;
-  int* counts = (int*)block_scratch;
-  int* offsets = counts + (nb > 0 ? nb : 1);
-  if (nb > 0) {
-    winners_count<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, n, hw, counts);
-  }
-  winners_scan<<<1, SCAN_THREADS, 0, s>>>(counts, nb, offsets, (int*)total);
   if (nb > 0) {
     winners_write_f32<<<nb, WIN_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
                                                  (const float*)rgb, n, hw, band, offsets,
                                                  (int*)wimg, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnr_resolve_carriers(const void* pix, const void* zbits, const void* packed,
+                                     int n, int hw, float band, void* sums, void* count,
+                                     void* depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  if (blocks > 0) {
+    resolve_carriers_kernel<<<blocks, threads, 0, s>>>((const int*)pix, (const int*)zbits,
+                                                       (const int*)packed, n, hw, band,
+                                                       (int*)sums, (int*)count, (int*)depth);
   }
   return (int)cudaGetLastError();
 }

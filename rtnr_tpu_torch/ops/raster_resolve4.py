@@ -6,7 +6,8 @@ becomes ``raster_images_v4``; ``expand_winners`` keeps its name;
 ``winners_f32`` takes the place of ``compact_rows_by_rank`` (K5) and of the
 prefix sums and ranks the differentiable forward computes before it. The
 CUDA kernels are in ``csrc/raster_resolve.cu`` (its header notes what each
-replaces, its bound and its design).
+replaces, its bound and its design); ``_lib`` loads and binds that library
+for this module, ``raster_resolve5`` and ``raster_resolve_carriers``.
 
 Intermediate contract: a winner image ``wimg`` (6, cap) int32, rows (r sum,
 g sum, b sum, count, head depth bits, pixel id), one column per winner (=
@@ -37,11 +38,15 @@ _I = ctypes.c_int
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for fn in (lib.rtnr_winners, lib.rtnr_winners_f32):
+    """Argument types of every entry of ``csrc/raster_resolve.cu`` (K6 and
+    the carrier kernel included: ``_build.load`` binds a library once)."""
+    for fn in (lib.rtnr_winners, lib.rtnr_winners_f32, lib.rtnr_winners5):
         fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P, _P]
         fn.restype = _I
     lib.rtnr_expand.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
-    lib.rtnr_expand.restype = _I
+    lib.rtnr_resolve_carriers.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
+    for fn in (lib.rtnr_expand, lib.rtnr_resolve_carriers):
+        fn.restype = _I
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,28 +61,37 @@ def _check_stream(sp: SortedPoints) -> None:
         raise ValueError("sorted stream tensors must share a device")
 
 
-def _winner_rows(pix, zbits, hw, depth_band, lanes: torch.Tensor, acc_dtype, out_bits):
-    """Shared twin body: heads, band membership (``!(z > z_head + band)``)
+def _winner_rows(pix, zbits, hw, depth_band, lanes: torch.Tensor, acc_dtype, out_bits,
+                 seg_min: bool = False):
+    """Shared twin body: heads, band membership (``!(z > z_ref + band)``)
     and per-segment in-band sums of the four ``lanes`` (4, n) in
-    ``acc_dtype``, turned to int32 rows by ``out_bits``."""
+    ``acc_dtype``, turned to int32 rows by ``out_bits``. ``z_ref`` is the
+    head's depth, or with ``seg_min`` (K6, any order inside a segment) the
+    segment's minimum; row 4 holds it."""
     n = pix.numel()
     dev = pix.device
     cap = max(min(n, hw), 1)
     ok = pix < hw
     prev = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev), pix[:-1]])
     head = ok & (pix != prev)
-    idx = torch.arange(n, device=dev)
-    head_pos = torch.cummax(torch.where(head, idx, torch.zeros_like(idx)), dim=0).values
-    z = zbits.view(torch.float32)
-    lim = z[head_pos] + torch.tensor(depth_band, dtype=torch.float32, device=dev)
-    in_band = ok & ~(z > lim)
     seg = torch.cumsum(head.to(torch.int64), 0) - 1
     total = int(head.sum())
+    if seg_min:
+        # positive depths (and +inf) order as their int32 bit patterns
+        zmin = torch.full((cap,), 0x7FFFFFFF, dtype=torch.int32, device=dev)
+        zmin.scatter_reduce_(0, seg[ok], zbits[ok], "amin")
+        zref, zhead = zmin[seg.clamp(min=0)], zmin[:total]
+    else:
+        idx = torch.arange(n, device=dev)
+        head_pos = torch.cummax(torch.where(head, idx, torch.zeros_like(idx)), dim=0).values
+        zref, zhead = zbits[head_pos], zbits[head]
+    lim = zref.view(torch.float32) + torch.tensor(depth_band, dtype=torch.float32, device=dev)
+    in_band = ok & ~(zbits.view(torch.float32) > lim)
     wimg = torch.zeros((6, cap), dtype=torch.int32, device=dev)
     acc = torch.zeros((4, cap), dtype=acc_dtype, device=dev)
     acc.index_add_(1, seg[in_band], lanes[:, in_band].to(acc_dtype))
     wimg[:4] = out_bits(acc)
-    wimg[4, :total] = zbits[head]
+    wimg[4, :total] = zhead
     wimg[5, :total] = pix[head]
     return wimg, torch.tensor([total], dtype=torch.int32, device=dev)
 
@@ -101,13 +115,14 @@ def _launch_winners(fn: str, pix, zbits, payload, hw: int, depth_band: float):
     return wimg, total
 
 
-def winners_plain(sp: SortedPoints, hw: int, depth_band: float):
-    """Plain torch twin of K1: same (wimg, total) contract."""
+def winners_plain(sp: SortedPoints, hw: int, depth_band: float, seg_min: bool = False):
+    """Plain torch twin of K1 (with ``seg_min``, of K6): same (wimg, total)
+    contract."""
     pix, zbits, packed = sp
     lanes = torch.stack([packed & 255, (packed >> 8) & 255, (packed >> 16) & 255,
                          torch.ones_like(packed)], 0)
     return _winner_rows(pix, zbits, hw, depth_band, lanes, torch.int64,
-                        lambda acc: acc.to(torch.int32))
+                        lambda acc: acc.to(torch.int32), seg_min)
 
 
 def winners(sp: SortedPoints, hw: int, depth_band: float):

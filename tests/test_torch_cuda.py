@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K5, and the int8 modes of K3/K4) against their
-plain torch twins on the card, the differentiable raster and the int8
-Renderer on the card against the CPU. Marked ``cuda``; each test skips without a CUDA device. This file
+"""The port's CUDA kernels (K1-K6, the carrier kernel for K7-K9, K10 on K3,
+and the int8 modes of K3/K4) against their plain torch twins on the card,
+the differentiable raster and the int8 Renderer on the card against the
+CPU, and Renderer frames under every RTNR_RESOLVE value. Marked ``cuda``; each test skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so on a machine with the card and
 no JAX it runs as
 
@@ -16,6 +17,9 @@ from rtnr_tpu_torch.ops import conv as cv
 from rtnr_tpu_torch.ops import raster as tr
 from rtnr_tpu_torch.ops import raster_diff as td
 from rtnr_tpu_torch.ops import raster_resolve4 as rr
+from rtnr_tpu_torch.ops import raster_resolve5 as r5
+from rtnr_tpu_torch.ops import raster_resolve_carriers as rc
+from rtnr_tpu_torch.ops.conv_direct import conv3x3_pallas
 
 
 @pytest.fixture
@@ -267,3 +271,104 @@ def test_diff_raster_on_card_matches_cpu(cuda):
     for a, b in zip(card[:6], cpu[:6]):
         assert torch.equal(a, b)
     torch.testing.assert_close(card[6], cpu[6], rtol=1e-5, atol=1e-5 * float(cpu[6].abs().max()))
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for x, y in zip(a, b))
+
+
+def _resolver_cloud(cuda, n, w, h, seed, one_pixel=0):
+    """A dense cloud of ``n`` points at odd sizes, plus ``one_pixel`` points
+    on the centre pixel in unsorted depth (a partial band)."""
+    rng = np.random.default_rng(seed)
+    px, py = rng.integers(0, w, n), rng.integers(0, h // 4, n)
+    z = rng.uniform(2.0, 8.0, n)
+    pts = np.stack([(px - w / 2) * z / 40.0, (py - h / 2) * z / 40.0, z], 1)
+    zc = rng.uniform(2.0, 2.3, one_pixel)
+    pts = np.concatenate([pts, np.stack([np.zeros(one_pixel), np.zeros(one_pixel), zc], 1)])
+    cols = rng.integers(0, 256, (n + one_pixel, 3))
+    cols[: n // 50] = 0  # black points
+    M = Camera.from_params(40.0, 40.0, w / 2, h / 2, w, h).cam_proj(np.eye(4)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    return t(pts), t(cols), t(M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,one_pixel", [(1, 0), (50_000, 0), (3_000, 20_000)])
+def test_winners5_and_carrier_kernels_match_twins(cuda, n, one_pixel):
+    """K6 and the carrier kernel against their twins bit for bit at odd
+    image sizes, and their dense images against K1+K2's; the 20,000-point
+    one-pixel segment is far beyond the TPU kernel's lookback."""
+    w, h = 97, 61
+    hw = w * h
+    pts, cols, M = _resolver_cloud(cuda, n, w, h, 21, one_pixel)
+    kw = dict(width=w, height=h)
+    ref = rr.raster_images_v4(tr.project_and_sort(pts, cols, M, **kw), hw, 0.02)
+    sp5 = tr.project_and_sort(pts, cols, M, depth_key=False, **kw)
+    before = (rr.winners.launches, r5.winners5.launches)
+    wimg, total = r5.winners5(sp5, hw, 0.02)
+    assert (rr.winners.launches, r5.winners5.launches) == (before[0], before[1] + 1)
+    wimg_p, total_p = r5.winners5_plain(sp5, hw, 0.02)
+    k = int(total_p[0])
+    assert int(total[0]) == k and torch.equal(wimg[:, :k], wimg_p[:, :k])
+    assert _same_bits(rr.expand_winners(wimg, total, hw), ref)
+    if one_pixel:
+        assert int(ref[1].max()) >= 1000
+    spc = tr.project_and_sort(pts, cols, M, carriers=True, **kw)
+    before = rc.resolve_carriers.launches
+    got = rc.resolve_carriers(spc, hw, 0.02)
+    assert rc.resolve_carriers.launches == before + 1
+    assert _same_bits(got, rc.resolve_carriers_plain(spc, hw, 0.02))
+    assert _same_bits(got, ref)
+    rgb_s, d_s = tr.rasterize_scatter(pts, cols, M, **kw)
+    rgb, d = tr.rasterize(pts, cols, M, **kw)
+    assert torch.equal(rgb_s, rgb) and _same_bits((d_s,), (d,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cs,bias", [(1, (64, 64), True), (2, (24,), False)])
+def test_conv3x3_direct_matches_twin(cuda, n, cs, bias):
+    """K10 on K3's kernel: within 2 bf16 ulp of the f32 twin's magnitude,
+    one K3 launch per image."""
+    xs = [torch.from_numpy(_mk((n, 24, 40, c), i)).to(cuda, torch.bfloat16)
+          for i, c in enumerate(cs)]
+    k = torch.from_numpy(_mk((3, 3, sum(cs), 32), 3, 0.05)).to(cuda)
+    b = torch.from_numpy(_mk((32,), 4)).to(cuda) if bias else None
+    before = (conv3x3_pallas.launches, cv.conv3x3.launches)
+    y = conv3x3_pallas(xs, k, b, relu=True)
+    assert (conv3x3_pallas.launches, cv.conv3x3.launches) == (before[0] + n, before[1] + n)
+    bb = torch.zeros(32, device=cuda) if b is None else cv._bf16_values(b)
+    for i in range(n):
+        (ref,) = cv.conv3x3_plain([x[i:i + 1] for x in xs], cv._bf16_values(k), bb, relu=True,
+                                  dtype=torch.float32)
+        assert float((y[i:i + 1].float() - ref).abs().max()) <= _ulp2(ref)
+
+
+@pytest.mark.cuda
+def test_renderer_frames_equal_under_each_resolve(cuda, monkeypatch):
+    """A Renderer frame under RTNR_RESOLVE = v5, v3 and v2 equals the v4
+    frame bit for bit, through each resolver's own kernel (v5 launches K6
+    and never K1)."""
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+
+    scene = Scene.synthetic(20_000, seed=3, extent=6.0)
+    cam = Camera.from_params(60.0, 60.0, 32.0, 24.0, 64, 48)
+    E = np.eye(4)
+    E[2, 3] = 8.0
+    r = Renderer(scene, RenderConfig(unet_features=(16, 32)), init_unet_numpy(1, (16, 32)),
+                 device="cuda")
+    monkeypatch.setenv("RTNR_RESOLVE", "v4")
+    ref = r.compute_full(cam, E)
+    for mode, own in (("v5", r5.winners5), ("v3", rc.resolve_carriers),
+                      ("v2", rc.resolve_carriers)):
+        monkeypatch.setenv("RTNR_RESOLVE", mode)
+        k1, mine = rr.winners.launches, own.launches
+        out = r.compute_full(cam, E)
+        assert rr.winners.launches == k1 and own.launches == mine + 1
+        for key in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
+            assert np.array_equal(out[key], ref[key]), (mode, key)

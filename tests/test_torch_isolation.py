@@ -35,7 +35,7 @@ def test_port_imports_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split()[-1])
-    assert n >= 14  # every module of the port was imported
+    assert n >= 24  # every module of the port was imported
     # importing chip_smoke must not run it
     assert "card:" not in res.stdout
 
@@ -49,7 +49,7 @@ _IMPORT_RE = re.compile(
 
 def test_port_sources_never_import_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 25
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files for m in _IMPORT_RE.finditer(f.read_text())
