@@ -12,7 +12,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    [64,128,256,512] with seeded random weights): K1+K2 bit-exact; K3 at
    all 18 conv shapes (pool, head and two-input variants included) and K4 at
    its 4 shapes within 2 bf16 ulp of the output's magnitude against the f32
-   ``F.conv2d`` / ``F.conv_transpose2d`` twin (TF32 off);
+   ``F.conv2d`` / ``F.conv_transpose2d`` twin (TF32 off); at each K3 shape,
+   in turns, the routed kernel (``conv_sm90.cu`` at the 17 shapes whose
+   channels are multiples of 64), ``conv.cu``'s gemm<0,0> launched directly,
+   and ``F.conv2d``;
 4. the differentiable raster at the same shape: K5 (``winners_f32``) and
    the K2 ``float_sums`` expansion bit-exact against their twins; its count,
    depth and sums equal to the serving raster's K1/K2 integer images; K5's
@@ -24,8 +27,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    K1+K2's, K6 on a 20,000-point one-pixel segment, ``rasterize_scatter``
    (the atomics form) equal to ``rasterize``, and the 32-bit (pixel) against
    the 64-bit (pixel, depth) sort; then K10 (``conv_direct.conv3x3_pallas``
-   on K3's kernel) at 1088x1920, inputs (64, 64) -> 64, driven once with
-   the counts reset, within 2 bf16 ulp of its f32 twin;
+   on ``conv_sm90.cu``) at 1088x1920, inputs (64, 64) -> 64, driven once
+   with the counts reset, within 2 bf16 ulp of its f32 twin, beside gemm<0,0>;
 6. the int8 modes: the static net's lazy calibration (timed), then every
    int8-mode call of the static and the dyn net at the frame's shapes
    against its twin -- K3 static (int8 pool included), K3 dyn and K4 static
@@ -37,7 +40,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    10 timed frames with the outputs left on the card and 3 with them copied
    to host numpy, with ms/frame, the staged projection / filter / U-Net ms
    (CUDA events), finiteness, the launch count of every kernel in that run
-   (each must be > 0), a ``torch.profiler`` trace of a few frames
+   (each must be > 0; ``conv_sm90.cu`` exactly 17 a bf16 frame and 7 a dyn
+   frame), a ``torch.profiler`` trace of a few frames
    (device busy/idle share, top kernels), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
    against the same render on the CPU; then the same frames (without the
@@ -291,8 +295,8 @@ def check_conv_direct(rows, counted):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
     log(f"conv_direct path (one conv3x3_pallas call): launches {launches}")
-    if launches["conv3x3_direct"] <= 0 or launches["conv3x3"] <= 0:
-        fail("conv3x3_pallas did not launch K3's kernel")
+    if launches["conv3x3_direct"] <= 0 or launches["conv3x3_wgmma"] <= 0:
+        fail("conv3x3_pallas did not launch conv_sm90.cu")
     kb, bb = cv._bf16_values(k), cv._bf16_values(b)
     (ref,) = cv.conv3x3_plain(xs, kb, bb, relu=True, dtype=torch.float32)
     err = float((y.float() - ref).abs().max())
@@ -300,6 +304,8 @@ def check_conv_direct(rows, counted):
     if not err <= tol:
         fail(f"K10 conv3x3_pallas: max abs err {err} > {tol}")
     ms = time_ms(lambda: conv3x3_pallas(xs, k, b, relu=True))
+    wp = cv.prepare_conv3x3(k, b, xs[0].device)
+    prev = time_ms(lambda: cv._conv3x3_gemm(xs, wp, relu=True, pool=False, head=None))
     plain = time_ms(lambda: cv.conv3x3_plain(xs, kb, bb, relu=True), reps=2)
     xcat = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)  # channels-last NCHW view
     wl = kb.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -308,10 +314,10 @@ def check_conv_direct(rows, counted):
     flops = 2.0 * m * F * 9 * ct
     bnd, by = bound_ms(2.0 * m * ct + 2.0 * 9 * ct * F + 4.0 * F + 2.0 * m * F, flops)
     rows["conv3x3_direct"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                  library_ms=lib, max_abs_err=err)
+                                  library_ms=lib, max_abs_err=err, previous_ms=prev)
     log(f"K10 conv3x3_pallas {h}x{w}x(64+64)->64 err {err:.3g} (tol {tol:.3g}) | {ms:.4f} ms, "
         f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bnd:.4f} {by}, plain {plain:.4f}, "
-        f"F.conv2d {lib:.4f}")
+        f"F.conv2d {lib:.4f}, gemm<0,0> {prev:.4f}")
     return {"launches": launches}
 
 
@@ -646,17 +652,20 @@ def record_unet_calls(unet, x, p=None):
 
 
 def check_convs(unet, x, rows):
-    """K3 at its 18 shapes and K4 at its 4 against the f32 twins."""
+    """K3 at its 18 shapes and K4 at its 4 against the f32 twins. At each K3
+    shape, in turns: the kernel the route picks, conv.cu's gemm<0,0> (with
+    its pool / head kernels, launched directly) and ``F.conv2d``; the 17
+    routed shapes (conv_sm90.cu) are also summed on their own."""
     import torch
     import torch.nn.functional as Fn
     from rtnr_tpu_torch.ops import conv as cv
 
     p = unet.prepare()
     head_w = p["final_conv"]
-    acc = {"conv3x3": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
-                           flops=0.0, nbytes=0.0),
-           "convt2x2": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
-                            flops=0.0, nbytes=0.0)}
+    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, flops=0.0,
+                   nbytes=0.0, previous_ms=0.0, calls=0)
+           for k in ("conv3x3", "conv3x3_wgmma", "convt2x2")}
+    slower = []
     calls = record_unet_calls(unet, x)
     if len([c for c in calls if c[0] == "conv3x3"]) != 18 or \
             len([c for c in calls if c[0] == "convt2x2"]) != 4:
@@ -696,7 +705,9 @@ def check_convs(unet, x, rows):
             out_bytes = 2.0 * M * (oc if head else F) + (2.0 * M * F / 4 if pool else 0.0)
             nbytes = 2.0 * M * ct + 2.0 * 9 * ct * F + 4.0 * F + out_bytes
             hd = head_w if head else None
+            routed = cv.takes_wgmma([int(t.shape[3]) for t in xs], F, head=head)
             ms = time_ms(lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd))
+            prev = time_ms(lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=hd))
             hk = unet.param("final_conv/kernel") if head else None
             hb = unet.param("final_conv/bias") if head else None
             plain = time_ms(lambda: cv.conv3x3_plain(xs, kern, w.bias, relu=True, pool=pool,
@@ -707,6 +718,10 @@ def check_convs(unet, x, rows):
             bl = w.bias.to(torch.bfloat16)
             lib = time_ms(lambda: Fn.conv2d(xcat, wl, bl, padding=1))
             shape = f"{h}x{wd}x({'+'.join(str(int(t.shape[3])) for t in xs)})->{F}"
+            extra += (f" | {'wgmma' if routed else 'gemm<0,0>'} {ms:.4f} ms, gemm<0,0> "
+                      f"{prev:.4f} ms, F.conv2d {lib:.4f} ms")
+            if routed and not ms < prev:
+                slower.append(name)
         else:
             hx = xin
             _, h, wd, c = hx.shape
@@ -723,6 +738,7 @@ def check_convs(unet, x, rows):
             flops = 2.0 * M * 4 * F * c
             nbytes = 2.0 * M * c + 2.0 * 4 * c * F + 4.0 * F + 2.0 * 4 * M * F
             ms = time_ms(lambda: cv.convt2x2_prepared(hx, w))
+            prev, routed = ms, False
             plain = time_ms(lambda: cv.convt2x2_plain(hx, kern, w.bias), reps=2)
             xl = hx.permute(0, 3, 1, 2)
             wt = torch.flip(kern, dims=(0, 1)).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
@@ -730,23 +746,37 @@ def check_convs(unet, x, rows):
             lib = time_ms(lambda: Fn.conv_transpose2d(xl, wt, bl, stride=2))
             shape = f"{h}x{wd}x{c}->{2 * h}x{2 * wd}x{F}"
         b, by = bound_ms(nbytes, flops)
-        a["ms"] += ms
-        a["plain_ms"] += plain
-        a["bound_ms"] += b
-        a["library_ms"] += lib
-        a["err"] = max(a["err"], err)
-        a["flops"] += flops
-        a["nbytes"] += nbytes
+        for t in (a, acc["conv3x3_wgmma"]) if routed else (a,):
+            t["ms"] += ms
+            t["previous_ms"] += prev
+            t["plain_ms"] += plain
+            t["bound_ms"] += b
+            t["library_ms"] += lib
+            t["err"] = max(t["err"], err)
+            t["flops"] += flops
+            t["nbytes"] += nbytes
+            t["calls"] += 1
         log(f"{kind} {name:16s} {shape:24s} err {err:.3g} (tol {tol:.3g}, mean {mean:.3g})"
             f"{extra} | {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound {b:.4f} {by}, "
             f"plain {plain:.4f}, library {lib:.4f}")
+    if acc["conv3x3_wgmma"]["calls"] != 17:
+        fail(f"{acc['conv3x3_wgmma']['calls']} of the 18 conv3x3 shapes take conv_sm90.cu, not 17")
     for kind, a in acc.items():
         _, by = bound_ms(a["nbytes"], a["flops"])
         rows[kind] = dict(ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                           bound_by=by, library_ms=a["library_ms"], max_abs_err=a["err"])
-        log(f"{kind} per frame: {a['ms']:.4f} ms ({a['flops'] / 1e12:.4f} TFLOP, "
-            f"{a['flops'] / a['ms'] / 1e9:.1f} TFLOP/s), bound {a['bound_ms']:.4f}, "
-            f"plain {a['plain_ms']:.4f}, library {a['library_ms']:.4f}")
+        if kind != "convt2x2":
+            rows[kind]["previous_ms"] = a["previous_ms"]
+        log(f"{kind} per frame: {a['calls']} calls, {a['ms']:.4f} ms ({a['flops'] / 1e12:.4f} "
+            f"TFLOP, {a['flops'] / a['ms'] / 1e9:.1f} TFLOP/s), bound {a['bound_ms']:.4f}, "
+            f"plain {a['plain_ms']:.4f}, library {a['library_ms']:.4f}"
+            + (f", gemm<0,0> {a['previous_ms']:.4f}" if kind != "convt2x2" else ""))
+    a = acc["conv3x3_wgmma"]
+    log(f"conv_sm90.cu on its 17 shapes: {a['ms']:.4f} ms against gemm<0,0> "
+        f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x) and F.conv2d "
+        f"{a['library_ms']:.4f} ({a['library_ms'] / a['ms']:.2f}x); half its bound "
+        f"{2 * a['bound_ms']:.4f} ms {'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'}; "
+        f"slower than gemm<0,0> at {slower or 'no shape'}")
 
 
 def _im2col_i8(xs):
@@ -986,11 +1016,12 @@ def check_small_vs_cpu(features):
         f"{d.max():.3g} mean {d.mean():.3g}")
 
 
-def serve_frames(r, cam, E, n, counted, need, label, host_frames=0):
+def serve_frames(r, cam, E, n, counted, need, label, host_frames=0, per_frame=None):
     """One warm-up frame through ``compute_full`` (numpy out), ``n`` timed
     frames of ``compute_full_tensors`` and ``host_frames`` of ``compute_full``;
     every launch count is set to 0 just before and read just after, and each
-    kernel in ``need`` must have launched."""
+    kernel in ``need`` must have launched (each in ``per_frame`` exactly that
+    many times a frame)."""
     import numpy as np
     import torch
 
@@ -1020,6 +1051,10 @@ def serve_frames(r, cam, E, n, counted, need, label, host_frames=0):
     for k in need:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {label} path")
+    for k, m in (per_frame or {}).items():
+        if launches[k] != m * (1 + n + host_frames):
+            fail(f"{label}: {k} launched {launches[k]} times in {1 + n + host_frames} frames, "
+                 f"not {m} a frame")
     res = {"ms_per_frame": statistics.median(frame_ms), "frames": len(frame_ms),
            "all_ms": frame_ms, "launches": launches,
            "stage_ms": {k: statistics.median(getattr(s, f"{k}_ms") for s in stages)
@@ -1160,7 +1195,7 @@ def main() -> int:
                "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
                "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static,
                "winners5": r5.winners5, "resolve_carriers": rc.resolve_carriers,
-               "conv3x3_direct": conv_direct.conv3x3_pallas}
+               "conv3x3_direct": conv_direct.conv3x3_pallas, "conv3x3_wgmma": cv.conv3x3_wgmma}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
     torch.cuda.synchronize()
@@ -1185,8 +1220,8 @@ def main() -> int:
     # ---- the main path: bf16 ----
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
-                         ("winners", "expand", "conv3x3", "convt2x2"), "bf16",
-                         host_frames=HOST_FRAMES)
+                         ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma"), "bf16",
+                         host_frames=HOST_FRAMES, per_frame={"conv3x3_wgmma": 17})
     peak = torch.cuda.max_memory_allocated() / 2**30
     trace_frames(renderer, cam, E, serve["ms_per_frame"])
     resolvers = resolver_frames(renderer, cam, E, counted)
@@ -1211,8 +1246,8 @@ def main() -> int:
                                 ("winners", "expand", "conv3x3_i8out", "conv3x3_static",
                                  "convt2x2_static"), "static int8")
     serve_dyn = serve_frames(dyn_r, cam, E, INT8_FRAMES, counted,
-                             ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2"),
-                             "dyn int8")
+                             ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2",
+                              "conv3x3_wgmma"), "dyn int8", per_frame={"conv3x3_wgmma": 7})
     trace_frames(static_r, cam, E, serve_static["ms_per_frame"], label="static int8")
     trace_frames(dyn_r, cam, E, serve_dyn["ms_per_frame"], label="dyn int8")
     # end to end at a second pose, away from the calibration view
@@ -1242,12 +1277,15 @@ def main() -> int:
     check_small_train_vs_cpu()
 
     conv_src = "rtnr_tpu_torch/csrc/conv.cu"
+    sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
     sources = {
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
         "expand": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                    "rtnr_tpu/ops/raster_pallas4.py:920"),
-        "conv3x3": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        # every K3 bf16 call of a frame: 17 on conv_sm90.cu, the 5-channel input conv on conv.cu
+        "conv3x3": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "conv3x3_wgmma": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1310"),
         "winners_f32": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                         "rtnr_tpu/ops/raster_pallas4.py:872"),
@@ -1261,7 +1299,7 @@ def main() -> int:
                              "rtnr_tpu/ops/raster_pallas3.py:448, "
                              "rtnr_tpu/ops/raster_pallas2.py:334, "
                              "rtnr_tpu/ops/raster_pallas.py:303"),
-        "conv3x3_direct": ("cuda", conv_src, "rtnr_tpu/ops/conv_pallas.py:272"),
+        "conv3x3_direct": ("cuda", sm90_src, "rtnr_tpu/ops/conv_pallas.py:272"),
     }
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
@@ -1282,6 +1320,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
         })
     summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
                "host_out_ms_per_frame": serve["host_out_ms_per_frame"],

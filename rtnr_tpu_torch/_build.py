@@ -33,6 +33,9 @@ SOURCES: Dict[str, tuple] = {
     # -fmad=false: the resolve must be bit-identical to its plain twin
     "raster_resolve": ("raster_resolve.cu", ["-fmad=false"]),
     "conv": ("conv.cu", []),
+    # TMA + wgmma; cuTensorMapEncodeTiled comes through the CUDA runtime's
+    # entry-point query (see the source's header), so no -lcuda
+    "conv_sm90": ("conv_sm90.cu", []),
 }
 
 _BASE_FLAGS = [

@@ -3,8 +3,15 @@
 Counterpart of ``rtnr_tpu/ops/conv_phase.py``. The TPU's polyphase layout is
 not carried over: tensors are NHWC (1, H, W, C), bf16 or int8 codes, at
 every public function, as in the JAX package's NHWC API. The CUDA kernels
-are in ``csrc/conv.cu`` (its header notes what each replaces, its bound and
-its design).
+are in ``csrc/conv.cu`` and ``csrc/conv_sm90.cu`` (their headers note what
+each replaces, its bound and its design).
+
+K3's exact bf16 mode has two kernels. ``takes_wgmma`` decides which: a call
+with channel counts and F all multiples of 64 (every U-Net conv but the
+5-channel input conv, and K10) runs the TMA + wgmma implicit GEMM of
+``conv_sm90.cu`` with the pool and the head fused; everything else (the input
+conv, the int8-output conv, narrow nets, and the int8 modes) runs
+``conv.cu``'s GEMM. ``conv3x3_wgmma_plain`` contracts as that kernel walks K.
 
 - ``conv3x3(xs, kernel, bias, *, relu, pool, head_kernel, head_bias, quant,
   in_scales, out_scale)``: 3x3 s1 same conv over the virtual concat of one
@@ -43,7 +50,8 @@ stay device tensors, so nothing returns to the host. The ``*_prepared``
 wrappers launch the kernels for CUDA tensors and run the plain torch twins
 (``*_prepared_plain``, the same function on int64-exact f64 sums) only for
 CPU tensors. Launch counters: ``conv3x3.launches`` / ``convt2x2.launches``
-(bf16 mode), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn`` and
+(bf16 mode, either kernel), ``conv3x3_wgmma`` (the calls of those that ran
+``conv_sm90.cu``), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn`` and
 ``convt2x2_static`` (``.launches``).
 """
 
@@ -63,6 +71,8 @@ _I = ctypes.c_int
 # K step of the GEMM kernel in elements (64 bytes): weight rows pad to a multiple
 _BK = {torch.bfloat16: 32, torch.int8: 64}
 _KIND = {"": 0, "static": 1, "dyn": 2}
+# channels of one K step of conv_sm90.cu: C0, C1 and F must be multiples
+_WG_CHUNK = 64
 # f32(1/127), the quantiser's constant (conv_phase.py:329, :870)
 INV127 = float(np.float32(1.0 / 127.0))
 
@@ -87,6 +97,12 @@ def _lib() -> ctypes.CDLL:
     return _build.load("conv", _bind)
 
 
+def _bind_sm90(lib: ctypes.CDLL) -> None:
+    lib.rtnr_conv3x3_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                                       _I, _I, _P]
+    lib.rtnr_conv3x3_wgmma.restype = _I
+
+
 class LaunchCount:
     """Launch counter of one kernel mode: its wrapper adds one to
     ``launches`` per call that launches the mode's kernels."""
@@ -95,6 +111,7 @@ class LaunchCount:
         self.launches = 0
 
 
+conv3x3_wgmma = LaunchCount()  # K3 exact bf16 on conv_sm90.cu (TMA + wgmma)
 conv3x3_i8out = LaunchCount()  # K3 exact bf16 GEMM with int8 output codes
 conv3x3_static = LaunchCount()  # K3 static int8
 conv3x3_dyn = LaunchCount()  # K3 dyn int8
@@ -142,6 +159,9 @@ class Conv3x3Weights(NamedTuple):
     quant: str = ""  # "" | "static" | "dyn"
     scale: Optional[torch.Tensor] = None  # (F,) f32 dequantisation scale (int8 modes)
     out_i8: bool = False  # int8 output codes at out_scale
+    # exact bf16 with cin and F multiples of 64: (F, 9*cin) bf16, the K-major
+    # copy of wmat[:9*cin] that conv_sm90.cu reads
+    wmat_t: Optional[torch.Tensor] = None
 
 
 class ConvT2x2Weights(NamedTuple):
@@ -157,6 +177,8 @@ class ConvT2x2Weights(NamedTuple):
 class HeadWeights(NamedTuple):
     hk: torch.Tensor  # (F, OC) bf16
     hb: torch.Tensor  # (OC,) f32 values of the bf16 bias
+    # OC <= 8: (F, 8) bf16, hk zero-padded, one 16-byte row a channel (conv_sm90.cu)
+    hk8: Optional[torch.Tensor] = None
 
 
 def prepare_conv3x3(kernel, bias=None, device=None, *, quant: str = "", in_scales=None,
@@ -177,8 +199,12 @@ def prepare_conv3x3(kernel, bias=None, device=None, *, quant: str = "", in_scale
     if quant == "":
         if inv_out is not None:
             k = k * inv_out
-        return Conv3x3Weights(_pad_rows(k.reshape(9 * c, f), torch.bfloat16),
-                              _bf16_values(b).contiguous(), c, "", None, inv_out is not None)
+        kmat = k.reshape(9 * c, f)
+        wmat_t = None
+        if inv_out is None and c % _WG_CHUNK == 0 and f % _WG_CHUNK == 0:
+            wmat_t = kmat.t().to(torch.bfloat16).contiguous()
+        return Conv3x3Weights(_pad_rows(kmat, torch.bfloat16), _bf16_values(b).contiguous(), c,
+                              "", None, inv_out is not None, wmat_t)
     kf = k
     if quant == "static":
         if in_scales is None or len(in_scales) not in (1, 2):
@@ -232,7 +258,22 @@ def prepare_head(head_kernel, head_bias=None, device=None) -> HeadWeights:
         hk = hk[0, 0]
     oc = hk.shape[1]
     hb = torch.zeros(oc, device=hk.device) if head_bias is None else _as_tensor(head_bias, device)
-    return HeadWeights(hk.to(torch.bfloat16).contiguous(), _bf16_values(hb).contiguous())
+    hk = hk.to(torch.bfloat16).contiguous()
+    hk8 = None
+    if oc <= 8:
+        hk8 = torch.zeros((hk.shape[0], 8), dtype=torch.bfloat16, device=hk.device)
+        hk8[:, :oc] = hk
+    return HeadWeights(hk, _bf16_values(hb).contiguous(), hk8)
+
+
+def takes_wgmma(cs: Sequence[int], f: int, *, quant: str = "", out_i8: bool = False,
+                head: bool = False) -> bool:
+    """Whether a K3 call on a CUDA tensor runs ``conv_sm90.cu`` (else
+    ``conv.cu``'s GEMM): exact bf16 with bf16 output, every input's channel
+    count and F multiples of 64, and with the head, F <= 128 (one output
+    tile holds every channel; the head's OC <= 8 either way)."""
+    return (quant == "" and not out_i8 and all(c % _WG_CHUNK == 0 for c in cs)
+            and f % _WG_CHUNK == 0 and not (head and f > 128))
 
 
 # ---------------------------------------------------------------- plain twins
@@ -279,6 +320,40 @@ def conv3x3_plain(
     if pool:
         return y, _pool2(y)
     return (y,)
+
+
+def conv3x3_wgmma_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool = False,
+                        pool: bool = False, head: Optional[HeadWeights] = None,
+                        dtype: torch.dtype = torch.bfloat16):
+    """Plain torch twin of ``conv_sm90.cu`` that contracts as the kernel
+    walks K: f32 sums, over (tap, input, 64-channel chunk), of the input's
+    window shifted by the tap (zeros past the edges) times rows ``tap *
+    (C0 + C1) + (C0 if input 1) + c`` of the K-major weights ``w.wmat_t``;
+    then bias and ReLU in f32 and, with ``dtype=bfloat16``, one bf16
+    rounding. The pool and the head read that output."""
+    if w.wmat_t is None:
+        raise ValueError("conv3x3_wgmma_plain needs exact bf16 weights with cin, F % 64 == 0")
+    cs = [int(x.shape[3]) for x in xs]
+    ct = sum(cs)
+    _, h, wd, _ = xs[0].shape
+    wt = w.wmat_t.to(torch.float32)
+    acc = torch.zeros((h * wd, wt.shape[0]), dtype=torch.float32, device=xs[0].device)
+    padded = [Fn.pad(x[0].to(torch.float32), (0, 0, 1, 1, 1, 1)) for x in xs]
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        for i, xp in enumerate(padded):
+            win = xp[dy:dy + h, dx:dx + wd].reshape(h * wd, cs[i])
+            for c in range(0, cs[i], _WG_CHUNK):
+                k0 = tap * ct + (cs[0] if i else 0) + c
+                acc += win[:, c:c + _WG_CHUNK] @ wt[:, k0:k0 + _WG_CHUNK].t()
+    y = acc + w.bias
+    if relu:
+        y = torch.clamp(y, min=0.0)
+    y = y.reshape(1, h, wd, -1).to(dtype)
+    if head is not None:
+        return ((torch.matmul(y.to(torch.float32), head.hk.to(torch.float32))
+                 + head.hb).to(dtype),)
+    return (y, _pool2(y)) if pool else (y,)
 
 
 def dyn_scales_plain(xs: Sequence[torch.Tensor]):
@@ -410,9 +485,22 @@ def conv3x3_prepared(
         return conv3x3_prepared_plain(xs, w, relu=relu, pool=pool, head=head)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("conv3x3: activations and weights must be on one CUDA device")
-    lib = _lib()
+    if takes_wgmma(cs, int(w.wmat.shape[1]), quant=w.quant, out_i8=w.out_i8,
+                   head=head is not None):
+        return _conv3x3_wgmma(xs, w, relu=relu, pool=pool, head=head)
+    return _conv3x3_gemm(xs, w, relu=relu, pool=pool, head=head)
+
+
+def _conv3x3_gemm(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
+                  pool: bool, head: Optional[HeadWeights]):
+    """Launch ``conv.cu``'s GEMM (every mode) and its pool / head kernels on
+    checked CUDA inputs."""
+    dev = xs[0].device
+    _, h, wd, _ = xs[0].shape
+    cs = [int(x.shape[3]) for x in xs]
     stream = torch.cuda.current_stream(dev).cuda_stream
     F = int(w.wmat.shape[1])
+    lib = _lib()
     odt = torch.int8 if w.out_i8 else torch.bfloat16
     out = torch.empty((1, h, wd, F), dtype=odt, device=dev)
     x1 = xs[1].data_ptr() if len(xs) == 2 else None
@@ -452,6 +540,39 @@ def conv3x3_prepared(
     else:
         conv3x3.launches += 1
     return result
+
+
+def _conv3x3_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
+                   pool: bool, head: Optional[HeadWeights]):
+    """Launch ``conv_sm90.cu`` on checked CUDA inputs that ``takes_wgmma``
+    accepts."""
+    if w.wmat_t is None:
+        raise ValueError("conv3x3: these weights lack the K-major copy conv_sm90.cu reads")
+    if head is not None and head.hk8 is None:
+        raise ValueError("conv3x3: the fused head takes at most 8 output channels")
+    dev = xs[0].device
+    _, h, wd, _ = xs[0].shape
+    cs = [int(x.shape[3]) for x in xs]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    F = int(w.wmat.shape[1])
+    new = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    out = new(1, h, wd, F) if head is None else None
+    pooled = new(1, h // 2, wd // 2, F) if pool else None
+    oc = 0 if head is None else int(head.hk.shape[1])
+    hout = new(1, h, wd, oc) if head is not None else None
+    lib = _build.load("conv_sm90", _bind_sm90)
+    rc = lib.rtnr_conv3x3_wgmma(
+        xs[0].data_ptr(), xs[1].data_ptr() if len(xs) == 2 else None, cs[0],
+        cs[1] if len(xs) == 2 else 0, h, wd, w.wmat_t.data_ptr(), w.bias.data_ptr(), ptr(out),
+        ptr(pooled), None if head is None else head.hk8.data_ptr(),
+        None if head is None else head.hb.data_ptr(), oc, ptr(hout), F, int(relu), stream)
+    _build.check(rc, "rtnr_conv3x3_wgmma")
+    conv3x3_wgmma.launches += 1
+    conv3x3.launches += 1
+    if head is not None:
+        return (hout,)
+    return (out, pooled) if pool else (out,)
 
 
 def conv3x3(xs: Sequence[torch.Tensor], kernel, bias=None, *, relu: bool = False,

@@ -1,4 +1,4 @@
-"""Direct 3x3 conv (K10) on the K3 kernel.
+"""Direct 3x3 conv (K10) on the K3 kernels.
 
 Counterpart of ``rtnr_tpu/ops/conv_pallas.py`` (``_conv_kernel``, wrappers
 ``conv3x3_planar`` and ``conv3x3_pallas``): a 3x3 stride-1 same conv over
@@ -6,9 +6,10 @@ one input or the virtual channel concat of two, with the weights and the
 bias rounded to bf16 (``conv_pallas.py:252, 258``), f32 sums, the bias and
 ReLU in f32 and one bf16 rounding of the output. Those are exactly the
 numerics of K3's exact bf16 mode (``ops/conv.py``), which also reads two
-input pointers without building the concat, so K10 runs on K3's CUDA
-kernel (``csrc/conv.cu``, ``rtnr_conv3x3``, the bf16 GEMM) through a wrapper
-with K10's signature.
+inputs without building the concat, so K10 runs on K3's CUDA kernels
+through a wrapper with K10's signature: ``conv.takes_wgmma`` sends channel
+counts and F that are multiples of 64 to the TMA + wgmma kernel
+(``csrc/conv_sm90.cu``) and other shapes to ``csrc/conv.cu``'s bf16 GEMM.
 
 The TPU's planar layout (``to_planar``, ``from_planar``,
 ``conv3x3_planar``: channels on sublanes, x on lanes, to fill the MXU) is a

@@ -372,3 +372,49 @@ def test_renderer_frames_equal_under_each_resolve(cuda, monkeypatch):
         assert rr.winners.launches == k1 and own.launches == mine + 1
         for key in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
             assert np.array_equal(out[key], ref[key]), (mode, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cs,f", [((20, 36), (64,), 64), ((20, 36), (64, 64), 128),
+                                     ((68, 120), (128,), 256), ((68, 120), (64, 64), 64),
+                                     ((20, 36), (128, 64), 256)])
+def test_conv3x3_wgmma_matches_f32_twin(cuda, hw, cs, f):
+    """conv_sm90.cu at ragged shapes, one input and two: within 2 bf16 ulp
+    of the f32 twin, the pool equal to the max-pool of the output bit for
+    bit, the head within 2 ulp of hk/hb on the kernel's own output, two runs
+    equal bit for bit, one launch counted per call."""
+    h, w = hw
+    xs = [torch.from_numpy(_mk((1, h, w, c), 20 + i)).to(cuda, torch.bfloat16)
+          for i, c in enumerate(cs)]
+    k = torch.from_numpy(_mk((3, 3, sum(cs), f), 23, 0.05)).to(cuda)
+    b = torch.from_numpy(_mk((f,), 24)).to(cuda)
+    wts = cv.prepare_conv3x3(k, b, cuda)
+    before = (cv.conv3x3_wgmma.launches, cv.conv3x3.launches)
+    (y,) = cv.conv3x3_prepared(xs, wts, relu=True)
+    assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (before[0] + 1, before[1] + 1)
+    (ref,) = cv.conv3x3_plain(xs, cv._bf16_values(k), cv._bf16_values(b), relu=True,
+                              dtype=torch.float32)
+    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    y2, pooled = cv.conv3x3_prepared(xs, wts, relu=True, pool=True)
+    assert torch.equal(y2, y) and torch.equal(pooled, cv._pool2(y))
+    (y3,) = cv.conv3x3_prepared(xs, wts, relu=True)
+    assert torch.equal(y3, y)
+    if f <= 128:
+        head = cv.prepare_head(_mk((f, 3), 25, 0.2), _mk((3,), 26), cuda)
+        (hout,) = cv.conv3x3_prepared(xs, wts, relu=True, head=head)
+        href = torch.matmul(y.float(), head.hk.float()) + head.hb
+        assert hout.shape == (1, h, w, 3)
+        assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+
+
+@pytest.mark.cuda
+def test_conv3x3_wgmma_counts_only_routed_calls(cuda):
+    """The 5-channel conv stays on conv.cu's GEMM; a 64-channel one takes
+    conv_sm90.cu; conv3x3.launches counts both."""
+    x5 = torch.from_numpy(_mk((1, 16, 32, 5), 30)).to(cuda, torch.bfloat16)
+    x64 = torch.from_numpy(_mk((1, 16, 32, 64), 31)).to(cuda, torch.bfloat16)
+    n, m = cv.conv3x3_wgmma.launches, cv.conv3x3.launches
+    cv.conv3x3([x5], _mk((3, 3, 5, 64), 32, 0.1), relu=True)
+    assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (n, m + 1)
+    cv.conv3x3([x64], _mk((3, 3, 64, 64), 33, 0.05), relu=True)
+    assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (n + 1, m + 2)
