@@ -29,6 +29,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the 64-bit (pixel, depth) sort; then K10 (``conv_direct.conv3x3_pallas``
    on ``conv_sm90.cu``) at 1088x1920, inputs (64, 64) -> 64, driven once
    with the counts reset, within 2 bf16 ulp of its f32 twin, beside gemm<0,0>;
+   then K3's fused-ConvTranspose kernel at the fused levels updc2 and updc3
+   on the net's own activations, within 2 bf16 ulp of its f32 twin, with
+   the share of outputs that differ from the card's unfused K4 ->
+   ``conv_sm90.cu`` pair, timed in turns against that pair and against
+   ``F.conv_transpose2d`` + ``F.conv2d``; and the int8 gate: at 960x720
+   (outside JAX's phase shapes) the static and dyn Renderers equal the bf16
+   frame bit for bit, with no int8 launch and no calibration;
 6. the int8 modes: the static net's lazy calibration (timed), then every
    int8-mode call of the static and the dyn net at the frame's shapes
    against its twin -- K3 static (int8 pool included), K3 dyn and K4 static
@@ -51,7 +58,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the unculled one, with its kept share and both frame times; and 1 warm-up
    + 5 bf16 frames under each of ``RTNR_RESOLVE=v4``, ``v5``, ``v3`` and
    ``v2`` (counts reset before each), every one equal to the v4 frame bit for
-   bit, each through its own resolver kernel;
+   bit, each through its own resolver kernel; 1 warm-up + 5 bf16 frames
+   under ``RTNR_FUSE_UP=1`` (``conv3x3_up`` 2, K4 2 and ``conv_sm90.cu``'s
+   plain conv 15 a frame) with a trace, the fused net against the f32 twin
+   net, its frame against the unfused one, and one dyn frame fused at
+   levels 2 and 3; the environment is restored;
 8. the training paths at full width (bf16 U-Net, batch 1, targets the
    scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
    ``make_train_step`` (K1, K2 must launch) and of ``make_scene_train_step``
@@ -319,6 +330,186 @@ def check_conv_direct(rows, counted):
         f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bnd:.4f} {by}, plain {plain:.4f}, "
         f"F.conv2d {lib:.4f}, gemm<0,0> {prev:.4f}")
     return {"launches": launches}
+
+
+def check_conv_up(unet, x, rows):
+    """K3's fused-ConvTranspose mode at the full-width net's fused levels
+    (updc2, updc3) on the bf16 net's own activations at the frame's shape:
+    within 2 bf16 ulp of its f32 twin (the up values rounded to bf16 once, as
+    the contract has it), two runs equal; the share of elements that differ
+    from the card's unfused K4 -> ``conv_sm90.cu`` pair and the largest
+    difference; timed in turns against that pair and against
+    ``F.conv_transpose2d`` + ``F.conv2d`` on the concat (two library calls,
+    a yardstick only)."""
+    import torch
+    import torch.nn.functional as Fn
+    from rtnr_tpu_torch.ops import conv as cv
+
+    p = unet.prepare()
+    calls = record_unet_calls(unet, x)
+    deeps = {name: xin for kind, name, xin, _, _ in calls if kind == "convt2x2"}
+    skips = {name: xin[0] for kind, name, xin, _, _ in calls if kind == "conv3x3"}
+    levels = sorted(unet.fuse_levels(int(x.shape[1])))
+    if levels != [2, 3]:
+        fail(f"fuse_up_ok picks decoder levels {levels} at {tuple(x.shape)}, not [2, 3]")
+    acc = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, pair_ms=0.0, err=0.0,
+               flops=0.0, nbytes=0.0)
+    per_shape = {}
+    for i in levels:
+        deep, skip = deeps[f"up{i}"], skips[f"updc{i}/conv0"]
+        w, up = p[f"updc{i}/conv0"], p[f"up{i}"]
+        _, h, wd, cs = skip.shape
+        cd, F = up.cin, int(w.wmat.shape[1])
+        if not cv.takes_up(cs, cd, up.f, F):
+            fail(f"updc{i}: the fused kernel does not take ({cs}, {cd}, {up.f}, {F})")
+        n0 = cv.conv3x3_up.launches
+        (y,) = cv.conv3x3_prepared([skip, deep], w, relu=True, up=up)
+        torch.cuda.synchronize()
+        if cv.conv3x3_up.launches != n0 + 1:
+            fail(f"updc{i}: the fused call did not launch conv3x3_up_wgmma")
+        kern = cv._bf16_values(unet.param(f"updc{i}/conv0/kernel"))
+        (ref,) = cv.conv3x3_plain([skip, cv.convt2x2_prepared_plain(deep, up)], kern, w.bias,
+                                  relu=True, dtype=torch.float32)
+        err = float((y.float() - ref).abs().max())
+        tol = 2 * ulp_bf16(float(ref.abs().max()))
+        if not err <= tol:
+            fail(f"K3-up updc{i} {tuple(skip.shape)}: max abs err {err} > {tol}")
+        (y2,) = cv.conv3x3_prepared([skip, deep], w, relu=True, up=up)
+        if not torch.equal(y2, y):
+            fail(f"K3-up updc{i}: two runs differ")
+        (yp,) = cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], w, relu=True)
+        d = (y.float() - yp.float()).abs()
+        share, dmax = float((d > 0).float().mean()), float(d.max())
+        del y2, yp, d, ref
+
+        kt = cv._bf16_values(unet.param(f"up{i}/kernel"))
+        wt = torch.flip(kt, dims=(0, 1)).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
+        wl = kern.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bt, bl = up.bias.to(torch.bfloat16), w.bias.to(torch.bfloat16)
+        dl, sl = deep.permute(0, 3, 1, 2), skip.permute(0, 3, 1, 2)  # channels-last views
+        fns = {
+            "fused": lambda: cv.conv3x3_prepared([skip, deep], w, relu=True, up=up),
+            "pair": lambda: cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], w,
+                                                relu=True),
+            "library": lambda: Fn.conv2d(
+                torch.cat([sl, Fn.conv_transpose2d(dl, wt, bt, stride=2)], dim=1), wl, bl,
+                padding=1),
+        }
+        t = {k: [] for k in fns}
+        for k in ("fused", "pair", "library", "library", "pair", "fused"):
+            t[k].append(time_ms(fns[k]))
+        ms, pair_ms, lib = (statistics.mean(t[k]) for k in ("fused", "pair", "library"))
+        plain = time_ms(lambda: cv.conv3x3_prepared_plain([skip, deep], w, relu=True, up=up),
+                        reps=2)
+        M = h * wd
+        flops = 2.0 * M * F * 9 * (cs + F) + 2.0 * (M // 4) * 4 * F * cd  # conv + ConvTranspose
+        nbytes = (2.0 * M * cs + 2.0 * (M // 4) * cd + 2.0 * 4 * cd * F
+                  + 2.0 * 9 * (cs + F) * F + 8.0 * F + 2.0 * M * F)
+        b, by = bound_ms(nbytes, flops)
+        for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b), ("library_ms", lib),
+                     ("pair_ms", pair_ms), ("flops", flops), ("nbytes", nbytes)):
+            acc[k] += v
+        acc["err"] = max(acc["err"], err)
+        per_shape[f"updc{i}"] = {"ms": ms, "pair_ms": pair_ms, "library_ms": lib,
+                                 "plain_ms": plain, "bound_ms": b, "err": err, "tol": tol,
+                                 "differs_from_pair": share, "max_diff_from_pair": dmax,
+                                 "all_ms": t}
+        log(f"K3-up updc{i} {h}x{wd}x({cs}+up {cd}->{F})->{F} err {err:.3g} (tol {tol:.3g}); "
+            f"differs from the card's K4 -> conv_sm90 pair on {share:.4g} of elements, max "
+            f"{dmax:.3g} | fused {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), pair "
+            f"{pair_ms:.4f}, F.conv_transpose2d + F.conv2d {lib:.4f}, bound {b:.4f} {by}, "
+            f"plain {plain:.4f}; turns {t}")
+    _, by = bound_ms(acc["nbytes"], acc["flops"])
+    rows["conv3x3_up"] = dict(ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+                              bound_by=by, library_ms=acc["library_ms"], max_abs_err=acc["err"],
+                              pair_ms=acc["pair_ms"])
+    log(f"K3-up per frame (2 shapes): fused {acc['ms']:.4f} ms against the card's pair "
+        f"{acc['pair_ms']:.4f} ({acc['pair_ms'] / acc['ms']:.2f}x) and the library pair "
+        f"{acc['library_ms']:.4f}; bound {acc['bound_ms']:.4f}, plain {acc['plain_ms']:.4f}")
+    return per_shape
+
+
+def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
+    """``RTNR_FUSE_UP=1``: 1 warm-up + RESOLVER_FRAMES bf16 frames
+    (``conv3x3_up`` 2 and K4 2 a frame) and a trace of 3, the U-Net
+    against the f32 twin net within the bf16 budget, the largest difference from the unfused frame;
+    then one dyn frame with its launch counts. The environment is restored."""
+    import os
+
+    import torch
+
+    ref = renderer.compute_full_tensors(cam, E)["rgb_f"]  # unfused: the variable is unset
+    saved = os.environ.get("RTNR_FUSE_UP")
+    os.environ["RTNR_FUSE_UP"] = "1"
+    try:
+        res = serve_frames(renderer, cam, E, RESOLVER_FRAMES, counted,
+                           ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
+                            "conv3x3_up"), "bf16 RTNR_FUSE_UP=1",
+                           per_frame={"conv3x3_up": 2, "convt2x2": 2, "conv3x3_wgmma": 15})
+        trace_frames(renderer, cam, E, res["ms_per_frame"], label="bf16 RTNR_FUSE_UP=1")
+        dframe = float((renderer.compute_full_tensors(cam, E)["rgb_f"] - ref).abs().max())
+        with torch.no_grad():
+            yk = renderer.unet(x).float()
+            yr = renderer.unet.forward_plain(x, torch.float32)
+        d = (yk - yr).abs()
+        scale = max(1.0, float(yr.abs().max()))
+        dmax, dmean = float(d.max()), float(d.mean())
+        log(f"U-Net under RTNR_FUSE_UP=1 vs f32 twin: max {dmax:.4g}, mean {dmean:.4g} (budget "
+            f"max 5e-2, mean 5e-3 x {scale:.4g}); rgb_f max difference from the unfused frame "
+            f"{dframe:.4g}")
+        if not (dmax <= 5e-2 * scale and dmean <= 5e-3 * scale):
+            fail("U-Net under RTNR_FUSE_UP=1 outside the budget against the f32 twin")
+        del yk, yr, d
+        for fn in counted.values():
+            fn.launches = 0
+        out = dyn_r.compute_full_tensors(cam, E)
+        torch.cuda.synchronize()
+        dyn = {k: fn.launches for k, fn in counted.items()}
+        log(f"dyn int8 frame under RTNR_FUSE_UP=1: launches {dyn}, unet "
+            f"{dyn_r.last_timings.unet_ms:.3f} ms")
+        if dyn["conv3x3_up"] != 2 or dyn["conv3x3_dyn"] != 10 or dyn["convt2x2"] != 2:
+            fail("the dyn frame under RTNR_FUSE_UP=1 did not fuse levels 2 and 3")
+        if not bool(torch.isfinite(out["rgb_f"]).all()):
+            fail("the dyn frame under RTNR_FUSE_UP=1 is not finite")
+    finally:
+        if saved is None:
+            os.environ.pop("RTNR_FUSE_UP", None)
+        else:
+            os.environ["RTNR_FUSE_UP"] = saved
+    return {"serve": res, "unet_err": {"max": dmax, "mean": dmean, "scale": scale},
+            "max_diff_from_unfused_frame": dframe, "dyn_launches": dyn}
+
+
+def check_int8_gate(renderer, static_r, dyn_r, counted):
+    """At 960x720 (padded 720 rows: 720 % 64 != 0, outside the shape terms
+    of JAX's phase path) the static and the dyn Renderer give the bf16
+    Renderer's frame bit for bit, launch no int8 kernel, and the static one
+    keeps ``act_scales`` None. Run before the static Renderer calibrates."""
+    import numpy as np
+    import torch
+    from rtnr_tpu_torch.camera import Camera
+
+    cam = Camera.from_params(600.0, 600.0, 480.0, 360.0, 960, 720)
+    E = np.eye(4)
+    E[2, 3] = 12.0
+    ref = renderer.compute_full_tensors(cam, E)
+    keys = ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb")
+    int8 = ("conv3x3_i8out", "conv3x3_static", "conv3x3_dyn", "convt2x2_static")
+    for label, r in (("static", static_r), ("dyn", dyn_r)):
+        for fn in counted.values():
+            fn.launches = 0
+        out = r.compute_full_tensors(cam, E)
+        torch.cuda.synchronize()
+        if any(counted[k].launches for k in int8):
+            fail(f"the {label} Renderer launched int8 kernels at 960x720")
+        if not same_bits([out[k] for k in keys], [ref[k] for k in keys]):
+            fail(f"the {label} Renderer's 960x720 frame differs from the bf16 frame")
+    if static_r.act_scales is not None:
+        fail("the static Renderer calibrated at 960x720")
+    log("int8 gate: at 960x720 the static and dyn Renderers equal the bf16 frame bit for bit "
+        "(no int8 launch; act_scales None)")
+    return {"equal": True, "shape": [720, 960]}
 
 
 def resolver_frames(renderer, cam, E, counted):
@@ -1195,11 +1386,16 @@ def main() -> int:
                "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
                "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static,
                "winners5": r5.winners5, "resolve_carriers": rc.resolve_carriers,
-               "conv3x3_direct": conv_direct.conv3x3_pallas, "conv3x3_wgmma": cv.conv3x3_wgmma}
+               "conv3x3_direct": conv_direct.conv3x3_pallas, "conv3x3_wgmma": cv.conv3x3_wgmma,
+               "conv3x3_up": cv.conv3x3_up}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
+    conv_up = check_conv_up(renderer.unet, x, rows)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    # ---- int8 only where JAX quantises: 960x720 is outside its phase path ----
+    int8_gate = check_int8_gate(renderer, static_r, dyn_r, counted)
 
     # ---- the int8 modes: calibration, kernels and nets at the frame's shapes ----
     torch.cuda.synchronize()
@@ -1221,10 +1417,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
                          ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma"), "bf16",
-                         host_frames=HOST_FRAMES, per_frame={"conv3x3_wgmma": 17})
+                         host_frames=HOST_FRAMES, per_frame={"conv3x3_wgmma": 17, "conv3x3_up": 0})
     peak = torch.cuda.max_memory_allocated() / 2**30
     trace_frames(renderer, cam, E, serve["ms_per_frame"])
     resolvers = resolver_frames(renderer, cam, E, counted)
+    fuse_up = fuse_up_frames(renderer, dyn_r, cam, E, x, counted)
 
     # ---- the bf16 U-Net against the plain f32 twin net at the full shape ----
     with torch.no_grad():
@@ -1300,16 +1497,20 @@ def main() -> int:
                              "rtnr_tpu/ops/raster_pallas2.py:334, "
                              "rtnr_tpu/ops/raster_pallas.py:303"),
         "conv3x3_direct": ("cuda", sm90_src, "rtnr_tpu/ops/conv_pallas.py:272"),
+        # K3's up_kernel= mode (conv_phase.py:720-780), the same pallas_call site
+        "conv3x3_up": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
     }
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
              "train_step": train["train_step"], "scene_step": train["scene_step"],
-             "conv_direct": conv_direct_path,
+             "conv_direct": conv_direct_path, "serve_fuse_up": fuse_up["serve"],
+             "serve_fuse_up_dyn": {"launches": fuse_up["dyn_launches"]},
              **{f"resolve_{m}": r for m, r in resolvers.items()}}
     own = {"winners_f32": "scene_step", "conv3x3_i8out": "serve_static",
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
            "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
-           "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct"}
+           "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct",
+           "conv3x3_up": "serve_fuse_up"}
     kernels = []
     for name, (route, src, repl) in sources.items():
         r = rows[name]
@@ -1321,6 +1522,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
+            **({"pair_ms": r["pair_ms"]} if "pair_ms" in r else {}),
         })
     summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
                "host_out_ms_per_frame": serve["host_out_ms_per_frame"],
@@ -1333,7 +1535,13 @@ def main() -> int:
                "resolvers": {m: {k: r[k] for k in ("ms_per_frame", "all_ms", "stage_ms",
                                                    "launches")}
                              for m, r in resolvers.items()},
-               "sorts": sorts}
+               "sorts": sorts,
+               "fuse_up": {"kernel": conv_up, "unet_err": fuse_up["unet_err"],
+                           "max_diff_from_unfused_frame": fuse_up["max_diff_from_unfused_frame"],
+                           **{k: fuse_up["serve"][k] for k in ("ms_per_frame", "all_ms",
+                                                               "stage_ms", "launches")},
+                           "dyn_launches": fuse_up["dyn_launches"]},
+               "int8_gate": int8_gate}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
     log(json.dumps({"kernels": kernels}))

@@ -80,6 +80,46 @@
 //   16-byte-multiple strides: C % 64 == 0 gives the strides, the wrapper
 //   checks the alignment.
 //
+// conv3x3_up_wgmma is K3's fused-ConvTranspose mode (conv3x3_phase with
+// up_kernel=, conv_phase.py:276-315, :720-780): input 1 is the decoder's
+// half-resolution deep tensor and the conv reads [skip, up] with up = bf16(
+// flax ConvTranspose 2x2/s2 of deep + bias), the up pixels past the image
+// being the conv's zero padding. It runs the full-width U-Net's decoder
+// levels 2 and 3 (skip 128 + up 128 -> 128 from 256 deep channels; 64 + 64
+// -> 64 from 128), where JAX's fuse_up_ok fuses, and takes C_up == F in
+// {64, 128}, so one tile (BN == F) holds every channel and computes its up
+// values once. Bound: operations, 342 GFLOP a level (308 of conv, 34 of
+// ConvTranspose) against ~0.27 GB moved: 0.346 ms at 989 TFLOP/s; the
+// unfused pair writes and reads the up tensor (267 MB at updc3) besides.
+// - Per tile, first a small implicit GEMM: the tile's up halo (10 x 18 up
+//   pixels, rows y0-1 .. y0+8, columns x0-1 .. x0+16) comes from 6 x 10 =
+//   60 deep pixels, one TMA box (64 c, 10 x, 6 y) a 64-channel chunk of
+//   C_deep that fills 60 rows of an m64 wgmma. B is the K-major (4 C_up,
+//   C_deep) copy of the flipped up kernel (ConvT2x2Weights.wmat_t), one
+//   (64 k, 256 n) box a stage: 4 subpixels x 64 up channels. Consumer cw
+//   takes subpixel row dy = cw (n 128, both dx). Its epilogue adds the bias,
+//   rounds to bf16, writes zeros for up pixels outside [0,H) x [0,W) (the
+//   ragged edges included), and puts each value at its place in a shared
+//   up tile of 18-pixel rows (23 KB a 64-channel chunk, 16-byte chunks
+//   XOR-swizzled by pixel).
+// - Then the conv: the skip input's stages exactly as conv3x3_wgmma's; the
+//   up tile's stages load only the three dy taps' weights, and take A from
+//   registers (wgmma's RS form), ldmatrix'd from the up tile at the tap's
+//   pixel shift. A TMA box or a wgmma descriptor would need each dx shift
+//   of one pixel (128 bytes) on a 1024-byte swizzle boundary, three copies
+//   of the tile: 120 KB at F = 128, more than the ring leaves.
+// - Two 256-thread barriers a tile order the two consumers' up-tile writes
+//   against their reads. The up GEMM and the RS stages wait for their wgmma
+//   group before the next (the A registers are read asynchronously); the
+//   skip stages keep one group in flight, as conv3x3_wgmma does.
+// - Shared memory: a ring of 4 stages at F = 64 and 2 at F = 128 (an up
+//   GEMM stage is 8 KB of deep box + 32 KB of weights, within a conv
+//   stage), the up tile, the epilogue staging: 215 KB / 197 KB, one block
+//   an SM; its own occupancy query.
+// - It sums the up GEMM in another order than conv.cu's gemm<1,0> (K4), so
+//   it is not bit-equal to the unfused card pair; no split-K and no
+//   atomics, so a call gives the same bits every time.
+//
 // Every entry returns a cudaError_t (0 on success): cudaErrorInvalidValue
 // for shapes it does not take or a tensor map that does not encode, else
 // cudaGetLastError() after the launch.
@@ -122,6 +162,41 @@ struct Sm90Args {
   const bf16* hk8;    // (F, 8) head kernel, zero past OC, or null
   const float* hb;    // (OC,) head bias
   bf16* hout;         // (H, W, OC) or null
+};
+
+// the fused-ConvTranspose kernel: the deep box, the up weights, the up tile
+#define UP_DX 10                              // deep columns of a tile's up halo
+#define UP_DY 6                               // deep rows
+#define DEEP_BYTES (UP_DX * UP_DY * BK * 2)   // the deep box of a 64-channel chunk: 7,680
+#define DEEP_SLOT 8192                        // ... padded to the m64 operand
+#define UPB_BYTES (256 * BK * 2)              // 4 subpixels x 64 up channels x 64 k: 32 KB
+#define UT_W 18                               // up tile columns x0-1 .. x0+16
+#define UT_H 10                               // up tile rows y0-1 .. y0+8
+#define UT_CHUNK (UT_W * UT_H * BK * 2)       // the up tile, a 64-channel chunk: 23,040
+
+template <int BN> struct UpCfg;
+template <> struct UpCfg<64> { enum { STAGES = 4 }; };
+template <> struct UpCfg<128> { enum { STAGES = 2 }; };
+
+template <int BN> struct UpLayout {
+  enum {
+    STAGES = UpCfg<BN>::STAGES,
+    STAGE_BYTES = Layout<BN>::STAGE_BYTES,  // a conv stage, or the deep box + up weights
+    UT_OFF = STAGES * STAGE_BYTES,
+    STG_OFF = UT_OFF + (BN / 64) * UT_CHUNK,  // C_up == F == BN
+    BAR_OFF = STG_OFF + 2 * STG_BYTES,
+    SMEM = BAR_OFF + 2 * STAGES * 8,
+  };
+};
+static_assert(DEEP_SLOT + UPB_BYTES <= Layout<64>::STAGE_BYTES, "an up GEMM stage fits a stage");
+static_assert(UpLayout<64>::SMEM <= 232448 && UpLayout<128>::SMEM <= 232448, "shared memory");
+
+struct UpArgs {
+  int Cs, Cd, H, W;    // skip and deep channels; the output's (even) H and W
+  int relu;
+  const float* bias;   // (F,) conv bias, f32 values of bf16
+  const float* ubias;  // (F,) up bias, f32 values of bf16
+  bf16* out;           // (H, W, F)
 };
 
 // ------------------------------------------------------------ PTX wrappers
@@ -254,6 +329,67 @@ __device__ __forceinline__ void wgmma<128>(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D(64 x N, f32) += A(64 x 16, bf16, registers) * B(16 x N, bf16, K-major smem):
+// warp w holds rows 16w..16w+15 of A as mma.m16n8k16 does (ldmatrix.x4 order)
+template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// four 8x8 bf16 matrices from shared memory; lane i gives row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t saddr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr)
+               : "memory");
+}
+
+// both consumer warpgroups (256 threads)
+__device__ __forceinline__ void consumers_bar() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
+
 // byte offset of 16-byte chunk `ch` (0..7) of staged row `r` (rows of 64 bf16)
 __device__ __forceinline__ int stg_off(int r, int ch) { return r * 128 + ((ch ^ (r & 7)) << 4); }
 
@@ -266,6 +402,42 @@ __device__ __forceinline__ uint32_t bmax2(uint32_t a, uint32_t b) {
 
 __device__ __forceinline__ uint4 bmax8(uint4 a, uint4 b) {
   return make_uint4(bmax2(a.x, b.x), bmax2(a.y, b.y), bmax2(a.z, b.z), bmax2(a.w, b.w));
+}
+
+// 64-channel block nb of a consumer's accumulator: bias (channels of
+// `bias`), ReLU, one bf16 rounding, staged as 64 rows of 128 bytes
+__device__ __forceinline__ void stage_block(const float* acc, int nb, const float* bias, int relu,
+                                            unsigned char* stg, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * (lane & 3);
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + (lane >> 2) + 8 * h;
+      float v0 = acc[32 * nb + 4 * i + 2 * h] + b0;
+      float v1 = acc[32 * nb + 4 * i + 2 * h + 1] + b1;
+      if (relu) {
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(stg + stg_off(r, i) + 4 * (lane & 3)) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// the staged block to channels nc.. of out (H, W, F), rows yb.., columns
+// x0..: 16-byte coalesced stores masked at the ragged edge
+__device__ __forceinline__ void store_block(const unsigned char* stg, bf16* out, int H, int W,
+                                            int F, int yb, int x0, int nc, int t) {
+  for (int idx = t; idx < 64 * 8; idx += 128) {
+    const int r = idx >> 3, ch = idx & 7;
+    const int y = yb + (r >> 4), x = x0 + (r & 15);
+    if (y < H && x < W)
+      *reinterpret_cast<uint4*>(out + ((size_t)y * W + x) * F + nc + ch * 8) =
+          *reinterpret_cast<const uint4*>(stg + stg_off(r, ch));
+  }
 }
 
 // ------------------------------------------------------------ the kernel
@@ -389,33 +561,9 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<BN>::MINB)
       for (int nb = 0; nb < BN / 64; ++nb) {
         const int nc = n0 + 64 * nb;  // first channel of the block
         named_bar(1 + cw);  // every thread is done reading the staged block
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int col = 8 * i + 2 * (lane & 3);
-          const float b0 = a.bias[nc + col], b1 = a.bias[nc + col + 1];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = warp * 16 + (lane >> 2) + 8 * h;
-            float v0 = acc[32 * nb + 4 * i + 2 * h] + b0;
-            float v1 = acc[32 * nb + 4 * i + 2 * h + 1] + b1;
-            if (a.relu) {
-              v0 = fmaxf(v0, 0.0f);
-              v1 = fmaxf(v1, 0.0f);
-            }
-            *reinterpret_cast<__nv_bfloat162*>(stg + stg_off(r, i) + 4 * (lane & 3)) =
-                __floats2bfloat162_rn(v0, v1);
-          }
-        }
+        stage_block(acc, nb, a.bias + nc, a.relu, stg, warp, lane);
         named_bar(1 + cw);
-        if (a.out) {
-          for (int idx = t; idx < 64 * 8; idx += 128) {
-            const int r = idx >> 3, ch = idx & 7;
-            const int y = yb + (r >> 4), x = x0 + (r & 15);
-            if (y < a.H && x < a.W)
-              *reinterpret_cast<uint4*>(a.out + ((size_t)y * a.W + x) * a.F + nc + ch * 8) =
-                  *reinterpret_cast<const uint4*>(stg + stg_off(r, ch));
-          }
-        }
+        if (a.out) store_block(stg, a.out, a.H, a.W, a.F, yb, x0, nc, t);
         if (a.pooled) {
           const int hp = a.H / 2, wp = a.W / 2;
           {
@@ -465,6 +613,232 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<BN>::MINB)
   }
 }
 
+// ------------------------------------------------------------ the fused-ConvTranspose kernel
+
+template <int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    conv3x3_up_wgmma(const __grid_constant__ CUtensorMap map_skip,
+                     const __grid_constant__ CUtensorMap map_deep,
+                     const __grid_constant__ CUtensorMap map_wup,
+                     const __grid_constant__ CUtensorMap map_w, const UpArgs a) {
+  typedef UpLayout<BN> L;
+  constexpr int STAGES = L::STAGES;
+  constexpr int B_BYTES = Layout<BN>::B_BYTES;
+  constexpr int NU = BN / 64;  // 64-channel chunks of the up tile
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t full0 = base + L::BAR_OFF;
+  const uint32_t empty0 = full0 + 8 * STAGES;
+
+  if (threadIdx.x == 0) {
+    if (base & 1023) __trap();
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int TX = (a.W + TILE_X - 1) / TILE_X;
+  const int TY = (a.H + TILE_Y - 1) / TILE_Y;
+  const int ntiles = TX * TY;
+  const int ct = a.Cs + BN;  // the conv's input channels: skip, then up (C_up == F == BN)
+  const int nkd = a.Cd / BK, nkc = a.Cs / BK;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    // ---- producer. A tile's stages: NU * nkd up GEMM stages (u, deep
+    // chunk), 3 * nkc skip stages (dx, chunk), 3 * NU up tile stages (dx, u)
+    if (threadIdx.x != 0) return;
+    const int n_up = NU * nkd, n_skip = 3 * nkc;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int x0 = (tile % TX) * TILE_X, y0 = (tile / TX) * TILE_Y;
+      for (int ks = 0; ks < n_up + n_skip + 3 * NU; ++ks) {
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t sa = base + stage * L::STAGE_BYTES;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        if (ks < n_up) {
+          const int u = ks / nkd, c = (ks % nkd) * BK;
+          mbar_expect_tx(full, DEEP_BYTES + UPB_BYTES);
+          // deep rows y0/2-1 .. y0/2+4, columns x0/2-1 .. x0/2+8 (zeros outside)
+          tma_load_3d(sa, &map_deep, full, c, x0 / 2 - 1, y0 / 2 - 1);
+          tma_load_2d(sa + DEEP_SLOT, &map_wup, full, c, 256 * u);
+        } else {
+          int dx, k0;  // the stage's weight rows: tap (dy, dx) at (3dy + dx) * ct + k0
+          if (ks < n_up + n_skip) {
+            dx = (ks - n_up) / nkc;
+            k0 = ((ks - n_up) % nkc) * BK;
+            mbar_expect_tx(full, A_BYTES + 3 * B_BYTES);
+            tma_load_3d(sa, &map_skip, full, k0, x0 + dx - 1, y0 - 1);
+          } else {
+            dx = (ks - n_up - n_skip) / NU;
+            k0 = a.Cs + 64 * ((ks - n_up - n_skip) % NU);
+            mbar_expect_tx(full, 3 * B_BYTES);
+          }
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+            tma_load_2d(sa + A_BYTES + dy * B_BYTES, &map_w, full, (3 * dy + dx) * ct + k0, 0);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    const int cw = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31;
+    unsigned char* stg = smem + L::STG_OFF + cw * STG_BYTES;
+    unsigned char* ut = smem + L::UT_OFF;
+    // this lane's ldmatrix row: pixel column lcol of the warp's 16, 16-byte
+    // chunk lhalf of each k16 step
+    const int lcol = (lane & 7) + 8 * ((lane >> 3) & 1), lhalf = lane >> 4;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int x0 = (tile % TX) * TILE_X, y0 = (tile / TX) * TILE_Y;
+
+      // ---- 1. the up GEMM, a 64-channel chunk u of C_up at a time: rows =
+      // the 6 x 10 deep pixels (60 of the m64), columns = subpixels (cw, 0)
+      // and (cw, 1), 64 channels each
+#pragma unroll 1
+      for (int u = 0; u < NU; ++u) {
+        float uacc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) uacc[i] = 0.0f;
+        for (int kc = 0; kc < nkd; ++kc) {
+          mbar_wait(full0 + 8 * stage, phase);
+          const uint32_t sa = base + stage * L::STAGE_BYTES;
+          fence_acc<64>(uacc);
+          __syncwarp();
+          wg_fence();
+          const uint64_t da = sw128_desc(sa);
+          const uint64_t db = sw128_desc(sa + DEEP_SLOT + cw * (UPB_BYTES / 2));
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) wgmma<128>(uacc, da + 2 * kk, db + 2 * kk);
+          wg_commit();
+          fence_acc<64>(uacc);
+          wg_wait<0>();
+          fence_acc<64>(uacc);
+          if (t == 0) mbar_arrive(empty0 + 8 * stage);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        // the other consumer is done reading the previous tile's up values
+        if (u == 0) consumers_bar();
+        // bias, one bf16 rounding, zeros outside the image, into the up tile
+        unsigned char* utu = ut + u * UT_CHUNK;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int j = 8 * (i & 7) + 2 * (lane & 3);  // up channel within the chunk
+          const float b0 = a.ubias[64 * u + j], b1 = a.ubias[64 * u + j + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = warp * 16 + (lane >> 2) + 8 * h;  // deep pixel of the halo
+            const int ur = 2 * (m / UP_DX) + cw - 1;        // up tile row and column
+            const int uc = 2 * (m % UP_DX) + (i >> 3) - 1;
+            if (m < UP_DX * UP_DY && ur >= 0 && ur < UT_H && uc >= 0 && uc < UT_W) {
+              const int uy = y0 - 1 + ur, ux = x0 - 1 + uc;
+              const bool in = uy >= 0 && uy < a.H && ux >= 0 && ux < a.W;
+              const float v0 = in ? uacc[4 * i + 2 * h] + b0 : 0.0f;
+              const float v1 = in ? uacc[4 * i + 2 * h + 1] + b1 : 0.0f;
+              const int p = ur * UT_W + uc;
+              *reinterpret_cast<__nv_bfloat162*>(utu + p * 128 + (((i & 7) ^ (p & 7)) << 4) +
+                                                 4 * (lane & 3)) = __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+      }
+
+      // ---- 2. the skip input, A by TMA as in conv3x3_wgmma
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+      int prev = 0;
+      for (int ks = 0; ks < 3 * nkc; ++ks) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t sa = base + stage * L::STAGE_BYTES;
+        fence_acc<BN / 2>(acc);
+        __syncwarp();
+        wg_fence();
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const uint64_t da = sw128_desc(sa + (dy + 4 * cw) * ROW_BYTES);
+          const uint64_t db = sw128_desc(sa + A_BYTES + dy * B_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk);
+        }
+        wg_commit();
+        fence_acc<BN / 2>(acc);
+        wg_wait<1>();
+        fence_acc<BN / 2>(acc);
+        if (ks > 0 && t == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_wait<0>();
+      fence_acc<BN / 2>(acc);
+      if (t == 0) mbar_arrive(empty0 + 8 * prev);
+
+      // ---- 3. the up tile, A from registers at the tap's shift; every up
+      // value of the tile is written once both consumers pass the barrier
+      consumers_bar();
+      for (int s = 0; s < 3 * NU; ++s) {
+        const int dx = s / NU;
+        const uint32_t utu = base + L::UT_OFF + (s % NU) * UT_CHUNK;
+        uint32_t af[3][BK / 16][4];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          // output row 4cw + warp at tap dy reads up tile row 4cw + warp + dy
+          const int p = (4 * cw + warp + dy) * UT_W + lcol + dx;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            ldmatrix_x4(af[dy][kk], utu + p * 128 + (((2 * kk + lhalf) ^ (p & 7)) << 4));
+        }
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t sa = base + stage * L::STAGE_BYTES;
+        fence_acc<BN / 2>(acc);
+        __syncwarp();
+        wg_fence();
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const uint64_t db = sw128_desc(sa + A_BYTES + dy * B_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<BN>(acc, af[dy][kk], db + 2 * kk);
+        }
+        wg_commit();
+        fence_acc<BN / 2>(acc);
+        wg_wait<0>();
+        fence_acc<BN / 2>(acc);
+        if (t == 0) mbar_arrive(empty0 + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // ---- epilogue: bias, ReLU, bf16, staged, stored
+      const int yb = y0 + 4 * cw;
+#pragma unroll
+      for (int nb = 0; nb < NU; ++nb) {
+        named_bar(1 + cw);
+        stage_block(acc, nb, a.bias + 64 * nb, a.relu, stg, warp, lane);
+        named_bar(1 + cw);
+        store_block(stg, a.out, a.H, a.W, BN, yb, x0, 64 * nb, t);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ host side
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -488,11 +862,13 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (H, W, C) bf16 activation, box (64 c, 16 x, 10 y): a tile's rows and their halo
-static bool encode_act(EncodeTiled enc, CUtensorMap* m, const void* x, int C, int H, int W) {
+// (H, W, C) bf16 activation, box (64 c, bx x, by y); by default a tile's
+// rows and their halo (16 x, 10 y)
+static bool encode_act(EncodeTiled enc, CUtensorMap* m, const void* x, int C, int H, int W,
+                       int bx = TILE_X, int by = TILE_Y + 2) {
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H};
   const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2};
-  const cuuint32_t box[3] = {BK, TILE_X, TILE_Y + 2};
+  const cuuint32_t box[3] = {BK, (cuuint32_t)bx, (cuuint32_t)by};
   const cuuint32_t es[3] = {1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, es,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -510,28 +886,51 @@ static bool encode_w(EncodeTiled enc, CUtensorMap* m, const void* wt, int K, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// resident blocks of `kernel` on the card (SMs x blocks an SM, from the
+// occupancy query) into *grid, after allowing it `smem` bytes
+template <typename Kern>
+static int query_grid(Kern kernel, int smem, int* grid) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, nsm = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem)) !=
+      cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = nsm * per_sm;
+  return 0;
+}
+
 template <int BN>
 static int launch(const CUtensorMap& m0, const CUtensorMap& m1, const CUtensorMap& mw,
                   const Sm90Args& a, cudaStream_t s) {
   constexpr int smem = Layout<BN>::SMEM;
-  static int grid_max = 0;  // resident blocks on the card, from the occupancy query
+  static int grid_max = 0;  // resident blocks on the card
   if (grid_max == 0) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_wgmma<BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    int dev = 0, nsm = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_wgmma<BN>, NTHREADS,
-                                                           smem)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_max = nsm * per_sm;
+    const int e = query_grid(conv3x3_wgmma<BN>, smem, &grid_max);
+    if (e) return e;
   }
   const int ntiles = ((a.W + TILE_X - 1) / TILE_X) * ((a.H + TILE_Y - 1) / TILE_Y) * (a.F / BN);
   if (ntiles == 0) return (int)cudaGetLastError();
   conv3x3_wgmma<BN><<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, smem, s>>>(m0, m1, mw, a);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+static int launch_up(const CUtensorMap& ms, const CUtensorMap& md, const CUtensorMap& mu,
+                     const CUtensorMap& mw, const UpArgs& a, cudaStream_t s) {
+  constexpr int smem = UpLayout<BN>::SMEM;
+  static int grid_max = 0;  // resident blocks on the card, this kernel's own
+  if (grid_max == 0) {
+    const int e = query_grid(conv3x3_up_wgmma<BN>, smem, &grid_max);
+    if (e) return e;
+  }
+  const int ntiles = ((a.W + TILE_X - 1) / TILE_X) * ((a.H + TILE_Y - 1) / TILE_Y);
+  conv3x3_up_wgmma<BN><<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, smem, s>>>(ms, md, mu,
+                                                                                     mw, a);
   return (int)cudaGetLastError();
 }
 
@@ -572,4 +971,34 @@ extern "C" int rtnr_conv3x3_wgmma(const void* x0, const void* x1, int C0, int C1
   a.hout = (bf16*)hout;
   cudaStream_t s = (cudaStream_t)stream;
   return BN == 128 ? launch<128>(m0, m1, mw, a, s) : launch<64>(m0, m1, mw, a, s);
+}
+
+// The fused-ConvTranspose mode. skip (H, W, Cs) and deep (H/2, W/2, Cd)
+// bf16, H and W even; wup_t (4F, Cd) bf16 (ConvT2x2Weights.wmat_t), ubias
+// (F,) f32; wt (F, 9*(Cs+F)) bf16 (the conv over [skip, up], C_up == F),
+// bias (F,) f32; out (H, W, F) bf16. F is 64 or 128; Cs, Cd multiples of 64.
+extern "C" int rtnr_conv3x3_up_wgmma(const void* skip, const void* deep, int Cs, int Cd, int H,
+                                     int W, const void* wup_t, const void* ubias, const void* wt,
+                                     const void* bias, void* out, int F, int relu, void* stream) {
+  if (Cs <= 0 || Cs % BK || Cd <= 0 || Cd % BK || (F != 64 && F != 128) || H <= 0 || W <= 0 ||
+      H % 2 || W % 2 || !skip || !deep || !out)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorInvalidValue;
+  CUtensorMap ms, md, mu, mw;
+  if (!encode_act(enc, &ms, skip, Cs, H, W) ||
+      !encode_act(enc, &md, deep, Cd, H / 2, W / 2, UP_DX, UP_DY) ||
+      !encode_w(enc, &mu, wup_t, Cd, 4 * F, 256) || !encode_w(enc, &mw, wt, 9 * (Cs + F), F, F))
+    return (int)cudaErrorInvalidValue;
+  UpArgs a;
+  a.Cs = Cs;
+  a.Cd = Cd;
+  a.H = H;
+  a.W = W;
+  a.relu = relu;
+  a.bias = (const float*)bias;
+  a.ubias = (const float*)ubias;
+  a.out = (bf16*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  return F == 128 ? launch_up<128>(ms, md, mu, mw, a, s) : launch_up<64>(ms, md, mu, mw, a, s);
 }

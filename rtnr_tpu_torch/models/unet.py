@@ -20,6 +20,16 @@ torch twin net (``dtype=float32`` is the f32 reference, ``bfloat16``
 repeats the kernels' rounding; with ``quant_int8`` the same int8 topology on
 the int8 twins).
 
+What JAX runs only on its phase path runs here only where that path would
+run (``int8_applies``: the shape terms of ``phase_input_ok``, and the
+caller's pyramid levels equal to ``len(features)``): int8, and, with
+``RTNR_FUSE_UP=1`` read at each forward, the ConvTranspose fused into
+``updc{i}/conv0`` on the levels where JAX's ``fuse_up_ok`` holds
+(``unet.py:578-588, 670-678``; never static, never in calibration).
+Elsewhere a ``quant_int8`` net runs exact bf16, as JAX's XLA path does. The
+backend term of ``phase_input_ok`` (a TPU and >= 2^20 pixels) is not
+mirrored.
+
 ``UNetTrain`` is the un-folded net for training (``UNet.__call__`` with
 BatchNorm, ``rtnr_tpu/models/unet.py:478-522``): plain ``F.conv2d`` /
 ``F.conv_transpose2d``, as the JAX package trains on XLA's own convs.
@@ -27,7 +37,8 @@ BatchNorm, ``rtnr_tpu/models/unet.py:478-522``): plain ``F.conv2d`` /
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import os
+from typing import AbstractSet, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +54,7 @@ from rtnr_tpu_torch.ops.conv import (
     convt2x2_plain,
     convt2x2_prepared,
     convt2x2_prepared_plain,
+    fuse_up_ok,
     prepare_conv3x3,
     prepare_convt2x2,
     prepare_head,
@@ -107,7 +119,8 @@ class UNet(nn.Module):
             self._prepared = self._prepare_plan({})
         return self._prepared
 
-    def int8_plan(self, act_scales: Optional[dict] = None) -> Dict[str, dict]:
+    def int8_plan(self, act_scales: Optional[dict] = None,
+                  fused: AbstractSet[int] = frozenset()) -> Dict[str, dict]:
         """Each layer's int8 mode (``_phase_forward``, ``unet.py:607-706``).
 
         Static (``act_scales``): ``down0/conv0`` exact bf16 with int8 output
@@ -115,8 +128,9 @@ class UNet(nn.Module):
         input's scale to its output's; ``updc{i}/conv0`` reads [skip, up] at
         (``down{n-1-i}/c1``, ``u{i}t``); the last conv writes bf16 for the
         head. Dyn: a level quantises when ``f >= quant_min_f``, except the
-        encoder's level-0 conv0; the bottleneck uses ``2*features[-1]``; the
-        ConvTranspose stays bf16."""
+        encoder's level-0 conv0 and the conv0 of a ``fused`` decoder level
+        (the fused ConvTranspose is bf16 only, ``unet.py:678``); the
+        bottleneck uses ``2*features[-1]``; the ConvTranspose stays bf16."""
         n = len(self.features)
         plan: Dict[str, dict] = {}
         if act_scales is not None:
@@ -149,21 +163,63 @@ class UNet(nn.Module):
         qb = 2 * self.features[-1] >= self.quant_min_f
         plan["bottleneck/conv0"] = plan["bottleneck/conv1"] = dyn(qb)
         for i, f in enumerate(reversed(self.features)):
-            plan[f"updc{i}/conv0"] = plan[f"updc{i}/conv1"] = dyn(f >= self.quant_min_f)
+            q = f >= self.quant_min_f
+            plan[f"updc{i}/conv0"] = dyn(q and i not in fused)
+            plan[f"updc{i}/conv1"] = dyn(q)
         return plan
 
-    def prepare_int8(self, act_scales: Optional[dict] = None) -> dict:
+    def prepare_int8(self, act_scales: Optional[dict] = None,
+                     fused: AbstractSet[int] = frozenset()) -> dict:
         """Prepared weights of the int8 topology (static with ``act_scales``,
-        else dyn), made once per scales object, ``quant_min_f`` and device."""
+        else dyn with the ``fused`` levels), made once per scales object,
+        fused levels, ``quant_min_f`` and device."""
         c = self._prepared_int8
-        key = (self.quant_min_f, self._device())
+        key = (self.quant_min_f, self._device(), frozenset(fused))
         if c is None or c["scales"] is not act_scales or c["key"] != key:
             c = {"scales": act_scales, "key": key,
-                 "p": self._prepare_plan(self.int8_plan(act_scales))}
+                 "p": self._prepare_plan(self.int8_plan(act_scales, fused))}
             self._prepared_int8 = c
         return c["p"]
 
-    def _run(self, x, conv, convt):
+    def int8_applies(self, h: int, w: int) -> bool:
+        """The shape terms of JAX's ``phase_input_ok`` (``unet.py:210-228``)
+        for an (h, w) input, n = len(features): ``h % (4 << n) == 0``,
+        ``w % 2^n == 0``, ``w / 2^n <= 128`` and ``features[0] % 8 == 0``.
+        Where they fail, JAX's net runs its XLA path: exact bf16, unfused."""
+        n = len(self.features)
+        return (h % (4 << n) == 0 and w % (1 << n) == 0 and w >> n <= 128
+                and self.features[0] % 8 == 0)
+
+    def fuse_levels(self, h: int) -> frozenset:
+        """The decoder levels whose ConvTranspose JAX fuses for an h-row
+        input (``fuse_up_ok(hs, 2P, f, f, cc, f)`` per level, ``unet.py:
+        670-671``): level i has ``h >> (n-1-i)`` rows at ``2 << i`` phases
+        and reads ``cc`` deep channels."""
+        n = len(self.features)
+        out, cc = set(), 2 * self.features[-1]
+        for i, f in enumerate(reversed(self.features)):
+            if fuse_up_ok(h >> (n - 1 - i), 2 << i, f, f, cc, f):
+                out.add(i)
+            cc = f
+        return frozenset(out)
+
+    def _plan(self, x: torch.Tensor, act_scales: Optional[dict], levels: Optional[int]):
+        """(prepared weights, fused levels) of a forward on ``x``; ``levels``
+        is the caller's pyramid levels (None: the net's own)."""
+        _, h, w, _ = x.shape
+        phase = levels in (None, len(self.features)) and self.int8_applies(h, w)
+        static = self.quant_int8 and act_scales is not None
+        fused = frozenset()
+        if phase and not static and os.environ.get("RTNR_FUSE_UP") == "1":
+            fused = self.fuse_levels(h)
+        if self.quant_int8 and phase:
+            return self.prepare_int8(act_scales, fused), fused
+        return self.prepare(), fused
+
+    def _run(self, x, conv, convt, convup=None, fused: AbstractSet[int] = frozenset()):
+        """The net's topology over the layer callables; a level in ``fused``
+        runs ``convup(skip, deep, i)`` in place of ``up{i}`` and
+        ``updc{i}/conv0``."""
         n = len(self.features)
         skips = []
         h = x
@@ -174,12 +230,15 @@ class UNet(nn.Module):
         (y,) = conv([h], "bottleneck/conv0")
         (h,) = conv([y], "bottleneck/conv1")
         for i in range(n):
-            up = convt(h, f"up{i}")
             skip = skips[-(i + 1)]
-            assert up.shape[:3] == skip.shape[:3], (
-                f"decoder level {i}: up {tuple(up.shape)} vs skip {tuple(skip.shape)}; "
-                f"pad the input to a multiple of {1 << n}")
-            (y,) = conv([skip, up], f"updc{i}/conv0")
+            if i in fused:
+                (y,) = convup(skip, h, i)
+            else:
+                up = convt(h, f"up{i}")
+                assert up.shape[:3] == skip.shape[:3], (
+                    f"decoder level {i}: up {tuple(up.shape)} vs skip {tuple(skip.shape)}; "
+                    f"pad the input to a multiple of {1 << n}")
+                (y,) = conv([skip, up], f"updc{i}/conv0")
             (h,) = conv([y], f"updc{i}/conv1", head=i == n - 1)
         return h
 
@@ -189,7 +248,8 @@ class UNet(nn.Module):
             raise ValueError(f"U-Net input must be (1, H, W, C) with H, W multiples of {m}; "
                              f"got {tuple(x.shape)}")
 
-    def _run_prepared(self, x: torch.Tensor, p: dict, conv3x3_fn, convt2x2_fn) -> torch.Tensor:
+    def _run_prepared(self, x: torch.Tensor, p: dict, conv3x3_fn, convt2x2_fn,
+                      fused: AbstractSet[int] = frozenset()) -> torch.Tensor:
         def conv(xs, name, pool=False, head=False):
             return conv3x3_fn(xs, p[name], relu=True, pool=pool,
                               head=p["final_conv"] if head else None)
@@ -197,28 +257,35 @@ class UNet(nn.Module):
         def convt(h, name):
             return convt2x2_fn(h, p[name])
 
-        return self._run(x.to(torch.bfloat16).contiguous(), conv, convt)
+        def convup(skip, deep, i):
+            return conv3x3_fn([skip, deep], p[f"updc{i}/conv0"], relu=True, up=p[f"up{i}"])
 
-    def _weights(self, act_scales: Optional[dict]) -> dict:
-        return self.prepare_int8(act_scales) if self.quant_int8 else self.prepare()
+        return self._run(x.to(torch.bfloat16).contiguous(), conv, convt, convup, fused)
 
-    def forward(self, x: torch.Tensor, act_scales: Optional[dict] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act_scales: Optional[dict] = None, *,
+                levels: Optional[int] = None) -> torch.Tensor:
         """Forward on the K3/K4 kernels: (1,H,W,5) -> (1,H,W,out) bf16. Exact
         bf16, or with ``quant_int8`` static int8 (``act_scales``) or dyn
-        int8; ``act_scales`` is ignored without ``quant_int8``, as in JAX."""
+        int8 where ``int8_applies`` and ``levels`` (the caller's pyramid
+        levels, None: the net's own) equals ``len(features)``, else exact
+        bf16; ``act_scales`` is ignored without ``quant_int8``, as in JAX.
+        ``RTNR_FUSE_UP=1`` fuses the ConvTranspose where JAX would (module
+        doc)."""
         self._check_input(x)
-        return self._run_prepared(x, self._weights(act_scales), conv3x3_prepared,
-                                  convt2x2_prepared)
+        p, fused = self._plan(x, act_scales, levels)
+        return self._run_prepared(x, p, conv3x3_prepared, convt2x2_prepared, fused)
 
     def forward_plain(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                       act_scales: Optional[dict] = None) -> torch.Tensor:
         """Plain torch twin net in ``dtype`` (float32: the f32 reference).
-        With ``quant_int8`` it is ``forward``'s int8 topology on the int8
-        twins (bf16 out; ``dtype`` is not read)."""
+        With ``quant_int8`` it is ``forward``'s topology (int8 where it
+        applies, else exact bf16) on the twins (bf16 out; ``dtype`` is not
+        read)."""
         self._check_input(x)
         if self.quant_int8:
-            return self._run_prepared(x, self.prepare_int8(act_scales), conv3x3_prepared_plain,
-                                      convt2x2_prepared_plain)
+            p, fused = self._plan(x, act_scales, None)
+            return self._run_prepared(x, p, conv3x3_prepared_plain, convt2x2_prepared_plain,
+                                      fused)
 
         def conv(xs, name, pool=False, head=False):
             kw = {}

@@ -22,6 +22,14 @@ conv, the int8-output conv, narrow nets, and the int8 modes) runs
 - ``convt2x2(x, kernel, bias, *, quant, in_scale, out_scale)``: flax's 2x2
   stride-2 ConvTranspose (output subpixel (dy, dx) reads
   ``kernel[1-dy, 1-dx]``) plus bias.
+- ``conv3x3(..., up_kernel=, up_bias=)``, K3's fused-ConvTranspose mode
+  (``conv3x3_phase(up_kernel=)``, ``conv_phase.py:720-780``): ``xs =
+  [skip, deep]`` with ``deep`` at half resolution; the conv runs over
+  ``[skip, convt2x2(deep)]``, the up values rounded to bf16 once and the
+  up pixels past the image the conv's zero padding. bf16 only, no pool, no
+  head. On the card ``takes_up`` shapes (C_up == F in {64, 128}) run
+  ``conv_sm90.cu``'s fused kernel; any other shape runs the card's K4 then
+  K3. ``fuse_up_ok`` is the JAX package's rule of which decoder levels fuse.
 
 Modes, as ``conv3x3_phase(quant=, in_scales=, out_scale=)`` and
 ``convt2x2_phase`` (numerics of ``conv_phase.py:846-943, 1259-1290``):
@@ -51,8 +59,9 @@ wrappers launch the kernels for CUDA tensors and run the plain torch twins
 (``*_prepared_plain``, the same function on int64-exact f64 sums) only for
 CPU tensors. Launch counters: ``conv3x3.launches`` / ``convt2x2.launches``
 (bf16 mode, either kernel), ``conv3x3_wgmma`` (the calls of those that ran
-``conv_sm90.cu``), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn`` and
-``convt2x2_static`` (``.launches``).
+``conv_sm90.cu``), ``conv3x3_up`` (the fused-ConvTranspose kernel; its calls
+count nowhere else), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn``
+and ``convt2x2_static`` (``.launches``).
 """
 
 from __future__ import annotations
@@ -100,7 +109,9 @@ def _lib() -> ctypes.CDLL:
 def _bind_sm90(lib: ctypes.CDLL) -> None:
     lib.rtnr_conv3x3_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                                        _I, _I, _P]
-    lib.rtnr_conv3x3_wgmma.restype = _I
+    lib.rtnr_conv3x3_up_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]
+    for fn in (lib.rtnr_conv3x3_wgmma, lib.rtnr_conv3x3_up_wgmma):
+        fn.restype = _I
 
 
 class LaunchCount:
@@ -112,6 +123,7 @@ class LaunchCount:
 
 
 conv3x3_wgmma = LaunchCount()  # K3 exact bf16 on conv_sm90.cu (TMA + wgmma)
+conv3x3_up = LaunchCount()  # K3's fused-ConvTranspose mode on conv_sm90.cu
 conv3x3_i8out = LaunchCount()  # K3 exact bf16 GEMM with int8 output codes
 conv3x3_static = LaunchCount()  # K3 static int8
 conv3x3_dyn = LaunchCount()  # K3 dyn int8
@@ -172,6 +184,10 @@ class ConvT2x2Weights(NamedTuple):
     quant: str = ""  # "" | "static"
     scale: Optional[torch.Tensor] = None  # (F,) f32 dequantisation scale (static)
     out_i8: bool = False
+    # bf16 with cin and F multiples of 64: (4F, cin) bf16, the K-major B of
+    # the fused kernel's up GEMM; row (u*4 + dy*2 + dx)*64 + j holds
+    # kernel[1-dy, 1-dx, :, 64u + j] (64 up channels a chunk u)
+    wmat_t: Optional[torch.Tensor] = None
 
 
 class HeadWeights(NamedTuple):
@@ -239,7 +255,11 @@ def prepare_convt2x2(kernel, bias=None, device=None, *, quant: str = "", in_scal
         if out_scale is not None:
             raise ValueError("the bf16 K4 writes bf16; int8 output needs quant='static'")
         wmat = _pad_rows(w4.permute(2, 0, 1, 3).reshape(c, 4 * f), torch.bfloat16)
-        return ConvT2x2Weights(wmat, _bf16_values(b).contiguous(), c, f)
+        wmat_t = None
+        if c % _WG_CHUNK == 0 and f % _WG_CHUNK == 0:
+            wmat_t = (w4.reshape(2, 2, c, f // _WG_CHUNK, _WG_CHUNK).permute(3, 0, 1, 4, 2)
+                      .reshape(4 * f, c).to(torch.bfloat16).contiguous())
+        return ConvT2x2Weights(wmat, _bf16_values(b).contiguous(), c, f, wmat_t=wmat_t)
     if in_scale is None:
         raise ValueError("static mode needs in_scale")
     swv, wq = _quant_weights(w4, (0, 1, 2))
@@ -274,6 +294,57 @@ def takes_wgmma(cs: Sequence[int], f: int, *, quant: str = "", out_i8: bool = Fa
     tile holds every channel; the head's OC <= 8 either way)."""
     return (quant == "" and not out_i8 and all(c % _WG_CHUNK == 0 for c in cs)
             and f % _WG_CHUNK == 0 and not (head and f > 128))
+
+
+def takes_up(c_skip: int, c_deep: int, c_up: int, f: int) -> bool:
+    """Whether a fused-ConvTranspose K3 call on CUDA tensors runs
+    ``conv_sm90.cu``'s fused kernel (else the card's K4, then K3): skip and
+    deep channels multiples of 64, and C_up == F in {64, 128}, so that one
+    output tile holds every channel and computes its up values once (JAX's
+    fused kernel makes the same one-F-block demand, ``conv_phase.py:837``)."""
+    return (c_skip % _WG_CHUNK == 0 and c_deep % _WG_CHUNK == 0 and c_up == f
+            and f in (64, 128))
+
+
+# The JAX package's rule of which decoder levels fuse their ConvTranspose
+# (``conv_phase.py:644-712``, the arithmetic ``fuse_up_ok`` reaches): a TPU
+# VMEM budget, kept as integer arithmetic because it decides which levels
+# JAX's dyn-int8 net runs in exact bf16 (a fused level's conv0).
+_WS = 128  # lanes of one phase (conv_phase.py WS)
+
+
+def _pick_tr_fb_up(h: int, P: int, cs: Sequence[int], F: int, up_cd: int):
+    """``_pick_tr_fb(h, P, cs, F, pool=False, head=False, up_cd)``."""
+    budget = 11_000_000
+    lb = P * _WS
+    for tr in (32, 16, 8, 4, 2):
+        if h % tr or (up_cd and tr % 2):
+            continue
+        base = 0
+        for i, c in enumerate(cs):
+            if up_cd and i == 1:
+                base += 2 * (tr // 2 + 2) * up_cd * (lb // 2) * 2
+                base += (tr + 2) * c * lb * 2
+                base += 2 * 4 * c * up_cd * 2
+                base += 4 * c * (lb // 2) * 4
+            else:
+                base += 2 * (tr + 2) * c * lb * 2
+        fbs = [f for f in (F, F // 2, F // 4, F // 8) if f >= 8 and f % 8 == 0]
+        k128 = _round_up(3 * sum(cs), 128)
+        for fbl in fbs:
+            if (up_cd and fbl != F) or (tr > 8 and fbl != F):
+                continue
+            est = base + 2 * 3 * fbl * k128 * 2 + 3 * fbl * lb * 4 + 2 * fbl * tr * lb * 2
+            if est <= budget:
+                return tr, fbl
+    return 2, 8
+
+
+def fuse_up_ok(h: int, P: int, c_skip: int, c_up: int, up_cd: int, F: int) -> bool:
+    """``conv_phase.fuse_up_ok``: whether JAX fuses a decoder level's
+    ConvTranspose (h rows at P phases, skip/up/deep channels, F outputs)."""
+    tr, fb = _pick_tr_fb_up(h, P, (c_skip, c_up), F, up_cd)
+    return fb == F and tr % 2 == 0 and h % tr == 0
 
 
 # ---------------------------------------------------------------- plain twins
@@ -387,10 +458,15 @@ def _tap_sums(xs: Sequence[torch.Tensor], wq: torch.Tensor, rinv=None) -> torch.
 
 def conv3x3_prepared_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *,
                            relu: bool = False, pool: bool = False,
-                           head: Optional[HeadWeights] = None):
+                           head: Optional[HeadWeights] = None,
+                           up: Optional[ConvT2x2Weights] = None):
     """Plain torch twin of ``conv3x3_prepared`` on the same prepared weights
     (any device): the bf16 mode through ``conv3x3_plain``, the int8 modes
-    through exact integer sums and the kernels' f32 epilogue, op for op."""
+    through exact integer sums and the kernels' f32 epilogue, op for op.
+    With ``up`` (``xs = [skip, deep]``) it is the unfused pair's twins,
+    ``convt2x2_prepared_plain(deep)`` then the conv over ``[skip, up]``."""
+    if up is not None:
+        xs = [xs[0], convt2x2_prepared_plain(xs[1], up)]
     _, h, wd, _ = xs[0].shape
     F = int(w.wmat.shape[1])
     K = 9 * w.cin
@@ -464,8 +540,12 @@ def _check_act(x: torch.Tensor, what: str, dtype: torch.dtype) -> None:
 def conv3x3_prepared(
     xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool = False,
     pool: bool = False, head: Optional[HeadWeights] = None,
+    up: Optional[ConvT2x2Weights] = None,
 ):
-    """conv3x3 on prepared weights (see ``conv3x3``)."""
+    """conv3x3 on prepared weights (see ``conv3x3``); ``up`` is the fused
+    ConvTranspose's (``xs = [skip, deep]``)."""
+    if up is not None:
+        return _conv3x3_up(xs, w, up, relu=relu, pool=pool, head=head)
     assert len(xs) in (1, 2)
     act = torch.int8 if w.quant == "static" else torch.bfloat16
     for i, x in enumerate(xs):
@@ -575,17 +655,58 @@ def _conv3x3_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
     return (out, pooled) if pool else (out,)
 
 
+def _conv3x3_up(xs: Sequence[torch.Tensor], w: Conv3x3Weights, up: ConvT2x2Weights, *,
+                relu: bool, pool: bool, head: Optional[HeadWeights]):
+    """K3's fused-ConvTranspose mode: the conv over ``[skip,
+    convt2x2(deep)]`` (module doc)."""
+    if len(xs) != 2:
+        raise ValueError("the fused ConvTranspose takes xs = [skip, deep]")
+    if pool or head is not None or w.quant or w.out_i8 or up.quant:
+        raise ValueError("the fused ConvTranspose is bf16 only, with no pool or head")
+    skip, deep = xs
+    _check_act(skip, "skip", torch.bfloat16)
+    _check_act(deep, "deep", torch.bfloat16)
+    _, h, wd, cs = skip.shape
+    if tuple(deep.shape[1:]) != (h // 2, wd // 2, up.cin) or h % 2 or wd % 2:
+        raise ValueError(f"deep {tuple(deep.shape)} is not the (1, H/2, W/2, {up.cin}) of skip "
+                         f"{tuple(skip.shape)}")
+    if cs + up.f != w.cin:
+        raise ValueError(f"skip {cs} + up {up.f} channels do not match the kernel's {w.cin}")
+    dev = skip.device
+    if dev.type == "cpu":
+        return conv3x3_prepared_plain(xs, w, relu=relu, up=up)
+    if dev.type != "cuda" or w.wmat.device != dev or up.wmat.device != dev:
+        raise ValueError("conv3x3: activations and weights must be on one CUDA device")
+    F = int(w.wmat.shape[1])
+    if not takes_up(int(cs), up.cin, up.f, F):
+        # the unfused pair of card kernels, each counted as itself
+        return conv3x3_prepared([skip, convt2x2_prepared(deep, up)], w, relu=relu)
+    if w.wmat_t is None or up.wmat_t is None:
+        raise ValueError("conv3x3: these weights lack the K-major copies conv_sm90.cu reads")
+    out = torch.empty((1, h, wd, F), dtype=torch.bfloat16, device=dev)
+    lib = _build.load("conv_sm90", _bind_sm90)
+    rc = lib.rtnr_conv3x3_up_wgmma(
+        skip.data_ptr(), deep.data_ptr(), int(cs), up.cin, h, wd, up.wmat_t.data_ptr(),
+        up.bias.data_ptr(), w.wmat_t.data_ptr(), w.bias.data_ptr(), out.data_ptr(), F,
+        int(relu), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rtnr_conv3x3_up_wgmma")
+    conv3x3_up.launches += 1
+    return (out,)
+
+
 def conv3x3(xs: Sequence[torch.Tensor], kernel, bias=None, *, relu: bool = False,
             pool: bool = False, head_kernel=None, head_bias=None, quant: str = "",
-            in_scales=None, out_scale=None):
+            in_scales=None, out_scale=None, up_kernel=None, up_bias=None):
     """K3: 3x3 same conv over the virtual concat of ``xs`` (one or two
     (1,H,W,C) tensors: bf16, or int8 codes in static mode), flax kernel
-    (3,3,sumC,F). See module doc."""
+    (3,3,sumC,F). With ``up_kernel`` (2,2,C_deep,C_up) ``xs = [skip, deep]``
+    and the ConvTranspose of ``deep`` is fused in. See module doc."""
     dev = xs[0].device
     w = prepare_conv3x3(kernel, bias, dev, quant=quant, in_scales=in_scales,
                         out_scale=out_scale, c0=int(xs[0].shape[3]))
     head = None if head_kernel is None else prepare_head(head_kernel, head_bias, dev)
-    return conv3x3_prepared(xs, w, relu=relu, pool=pool, head=head)
+    up = None if up_kernel is None else prepare_convt2x2(up_kernel, up_bias, dev)
+    return conv3x3_prepared(xs, w, relu=relu, pool=pool, head=head, up=up)
 
 
 conv3x3.launches = 0

@@ -121,10 +121,13 @@ def render_full(points, colors, valid, cam_proj, unet: UNet, *, width: int, heig
                 gradient_filter: float = 0.03, act_scales=None) -> Dict[str, torch.Tensor]:
     """Stage 3: raster + prefilter + U-Net (reference computeFull).
     ``rgb_f`` is the float output, ``rgb`` its saturating x255 uint8 frame.
-    ``act_scales`` feeds a static-int8 net (``UNet(quant_int8=True)``)."""
-    return _render(points, colors, valid, cam_proj, functools.partial(unet, act_scales=act_scales),
-                   width=width, height=height, depth_band=depth_band, levels=levels,
-                   filter_strength=filter_strength, gradient_filter=gradient_filter)
+    ``act_scales`` feeds a static-int8 net (``UNet(quant_int8=True)``); an
+    int8 net runs exact bf16 unless ``levels == len(unet.features)`` and
+    ``unet.int8_applies`` the padded shape (``rtnr_tpu/pipeline.py:167``)."""
+    net = functools.partial(unet, act_scales=act_scales, levels=levels)
+    return _render(points, colors, valid, cam_proj, net, width=width, height=height,
+                   depth_band=depth_band, levels=levels, filter_strength=filter_strength,
+                   gradient_filter=gradient_filter)
 
 
 @dataclasses.dataclass
@@ -184,7 +187,10 @@ class Renderer:
     XLA's own convs; ``unet_int8`` has no effect on it. ``config.unet_int8``
     (bf16 only): "off" exact, "dyn" dynamic int8, "static" static int8,
     calibrated lazily on the first ``compute_full`` view's own U-Net input
-    (``calibrate``); the scales stay on the device (``act_scales``).
+    (``calibrate``); the scales stay on the device (``act_scales``). As in
+    JAX, int8 applies only where ``pyramid_levels == len(unet_features)``
+    and the padded frame passes ``UNet.int8_applies``; elsewhere the frame
+    is the exact bf16 one.
 
     ``cull_budget`` enables frustum culling on the 0.25 m block grid
     (``rtnr_tpu/pipeline.py:257-384``): per view, the points of out-of-
@@ -288,7 +294,7 @@ class Renderer:
 
     def _unet(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.unet_dtype == "bf16":
-            return self.unet(x, act_scales=self.act_scales)
+            return self.unet(x, act_scales=self.act_scales, levels=self.config.pyramid_levels)
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
                          deterministic=cudnn.deterministic, allow_tf32=False):
@@ -297,10 +303,16 @@ class Renderer:
     def calibrate(self, camera: Camera, extrinsics: np.ndarray):
         """Static-int8 calibration on this view's own U-Net input, once
         (``rtnr_tpu/pipeline.py:444-472``); a no-op unless
-        ``unet_int8="static"`` runs the bf16 net. Returns ``act_scales``."""
+        ``unet_int8="static"`` runs the bf16 net, and at a view where the net
+        runs exact bf16 (``pyramid_levels != len(features)`` or a padded
+        shape outside ``UNet.int8_applies``), so a later view at a shape that
+        quantises still calibrates. Returns ``act_scales``."""
         if self.act_scales is None and self.unet is not None and self.unet.quant_int8 \
                 and self.config.unet_int8 == "static":
             cfg = self.config
+            ph, pw = pyramid_pad_shape(camera.height, camera.width, cfg.pyramid_levels)
+            if cfg.pyramid_levels != len(self.unet.features) or not self.unet.int8_applies(ph, pw):
+                return None
             pts, cols, valid = self._view_points(camera, extrinsics)
             mid = render_filtered(pts, cols, valid, self._cam_proj(camera, extrinsics),
                                   width=camera.width, height=camera.height,

@@ -1,9 +1,10 @@
 """The port's CUDA kernels (K1-K6, the carrier kernel for K7-K9, K10 on K3,
-and the int8 modes of K3/K4) against their plain torch twins on the card,
-the differentiable raster and the int8 Renderer on the card against the
-CPU, and Renderer frames under every RTNR_RESOLVE value. Marked ``cuda``; each test skips without a CUDA device. This file
-imports neither JAX nor the JAX package, so on a machine with the card and
-no JAX it runs as
+K3's fused-ConvTranspose mode, and the int8 modes of K3/K4) against their
+plain torch twins on the card, the differentiable raster and the int8
+Renderer on the card against the CPU, and Renderer frames under every
+RTNR_RESOLVE value. Marked ``cuda``; each test skips without a CUDA
+device. This file imports neither JAX nor the JAX package, so on a machine
+with the card and no JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -200,7 +201,7 @@ def test_int8_renderer_on_card_matches_cpu(cuda):
     E[2, 3] = 8.0
     v = init_unet_numpy(1, (16, 32))
     for mode, counter in (("static", cv.conv3x3_static), ("dyn", cv.conv3x3_dyn)):
-        cfg = RenderConfig(unet_features=(16, 32), unet_int8=mode)
+        cfg = RenderConfig(unet_features=(16, 32), pyramid_levels=2, unet_int8=mode)
         out = {}
         for dev in ("cuda", "cpu"):
             r = Renderer(scene, cfg, v, cull_budget="auto", device=dev)
@@ -418,3 +419,50 @@ def test_conv3x3_wgmma_counts_only_routed_calls(cuda):
     assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (n, m + 1)
     cv.conv3x3([x64], _mk((3, 3, 64, 64), 33, 0.05), relu=True)
     assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (n + 1, m + 2)
+
+
+def _up_inputs(cuda, h, w, cs, cd, f, seed=40):
+    skip = torch.from_numpy(_mk((1, h, w, cs), seed)).to(cuda, torch.bfloat16)
+    deep = torch.from_numpy(_mk((1, h // 2, w // 2, cd), seed + 1)).to(cuda, torch.bfloat16)
+    wts = cv.prepare_conv3x3(_mk((3, 3, cs + f, f), seed + 2, 0.05), _mk((f,), seed + 3), cuda)
+    up = cv.prepare_convt2x2(_mk((2, 2, cd, f), seed + 4, 0.1), _mk((f,), seed + 5), cuda)
+    return skip, deep, wts, up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cs,cd,f", [((14, 18), 64, 128, 64), ((14, 18), 128, 256, 128),
+                                        ((34, 50), 64, 128, 64), ((34, 50), 128, 256, 128),
+                                        ((16, 32), 192, 64, 64)])
+def test_conv3x3_up_matches_f32_twin(cuda, hw, cs, cd, f):
+    """The fused-ConvTranspose kernel at ragged H and W (2*7 x 2*9, 2*17 x
+    2*25): within 2 bf16 ulp of the f32 twin (the up values rounded to bf16
+    once, as the contract has it), two runs equal bit for bit, one launch
+    counted on its own counter and none on K3's or K4's."""
+    h, w = hw
+    skip, deep, wts, up = _up_inputs(cuda, h, w, cs, cd, f)
+    assert cv.takes_up(cs, cd, f, f)
+    before = (cv.conv3x3_up.launches, cv.conv3x3.launches, cv.convt2x2.launches)
+    (y,) = cv.conv3x3_prepared([skip, deep], wts, relu=True, up=up)
+    torch.cuda.synchronize()
+    assert (cv.conv3x3_up.launches, cv.conv3x3.launches, cv.convt2x2.launches) == (
+        before[0] + 1, before[1], before[2])
+    up_ref = cv.convt2x2_prepared_plain(deep, up)
+    kern = wts.wmat[:9 * (cs + f)].float().reshape(3, 3, cs + f, f)
+    (ref,) = cv.conv3x3_plain([skip, up_ref], kern, wts.bias, relu=True, dtype=torch.float32)
+    assert y.shape == (1, h, w, f)
+    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    (y2,) = cv.conv3x3_prepared([skip, deep], wts, relu=True, up=up)
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+def test_conv3x3_up_unfused_route_runs_the_card_pair(cuda):
+    """A shape the fused kernel does not take (F = 32) runs K4 then K3 on
+    the card, each counted as itself, bit-equal to calling them in turn."""
+    skip, deep, wts, up = _up_inputs(cuda, 12, 20, 32, 64, 32)
+    before = (cv.conv3x3_up.launches, cv.conv3x3.launches, cv.convt2x2.launches)
+    (y,) = cv.conv3x3_prepared([skip, deep], wts, relu=True, up=up)
+    assert (cv.conv3x3_up.launches, cv.conv3x3.launches, cv.convt2x2.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    (want,) = cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], wts, relu=True)
+    assert torch.equal(y, want)

@@ -1,17 +1,20 @@
 """The int8 serving path of the port's pipeline: render_full with a static
 int8 U-Net against the JAX package's at JAX's own scales, the Renderer's
-lazy calibration and modes on the CPU, and the trajectory-drift test of
+lazy calibration and modes on the CPU (pyramid_levels = len(features),
+where JAX's Renderer quantises), and the trajectory-drift test of
 tests/test_unet_split.py:167 through the port's Renderer(device="cpu")."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from rtnr_tpu.models.fold_bn import fold_batchnorm as j_fold
 from rtnr_tpu.models.unet import UNet as JUNet
 from rtnr_tpu.models.unet import calibrate_act_scales as j_calibrate
+from rtnr_tpu.models.unet import init_unet as j_init_unet
 from rtnr_tpu.pipeline import render_filtered as j_render_filtered
 from rtnr_tpu.pipeline import render_full as j_render_full
 from rtnr_tpu_torch.camera import Camera
@@ -23,6 +26,8 @@ from rtnr_tpu_torch.scene import Scene
 
 FEAT = (16, 32)
 W, H = 32, 16
+# int8 applies only where the pyramid levels equal the net's (JAX's phase path)
+LEVELS = len(FEAT)
 
 
 def _pose(cam, zdist, xshift, yaw):
@@ -74,10 +79,12 @@ def small():
 def test_renderer_int8_modes_on_cpu(small):
     scene, cam, raw = small
     E = _pose(cam, 8.0, 0.0, 0.0)
-    exact = Renderer(scene, RenderConfig(unet_features=FEAT), raw, device="cpu")
+    exact = Renderer(scene, RenderConfig(unet_features=FEAT, pyramid_levels=LEVELS), raw,
+                     device="cpu")
     ref = exact.compute_full(cam, E)
     for mode in ("static", "dyn"):
-        r = Renderer(scene, RenderConfig(unet_features=FEAT, unet_int8=mode), raw, device="cpu")
+        r = Renderer(scene, RenderConfig(unet_features=FEAT, pyramid_levels=LEVELS, unet_int8=mode),
+                     raw, device="cpu")
         r.unet.quant_min_f = 1  # cover every level at these widths
         assert r.unet.quant_int8 and r.act_scales is None
         out = r.compute_full(cam, E)
@@ -100,11 +107,17 @@ def test_static_int8_calibration_survives_trajectory(small):
     """Calibrate on pose 0 (lazily, in the first compute_full), then render
     12 poses from far to inside the cloud with lateral shifts and yaw: the
     static-int8 frame stays within the budget of the exact one at every
-    pose (max 0.12, mean 0.02 of the range, as the JAX test)."""
-    scene, cam, raw = small
-    exact = Renderer(scene, RenderConfig(unet_features=FEAT), raw, device="cpu")
-    static = Renderer(scene, RenderConfig(unet_features=FEAT, unet_int8="static"), raw,
-                      device="cpu")
+    pose (max 0.12, mean 0.02 of the range, as the JAX test). Its net, its
+    pyramid levels (= len(features), where int8 applies) and its weights
+    (JAX's own ``init_unet`` at PRNGKey(0)) are the JAX test's."""
+    scene, cam, _ = small
+    with jax.default_device(jax.devices("cpu")[0]):
+        _, jraw = j_init_unet(jax.random.PRNGKey(0), H, W, features=FEAT)
+    raw = jax.tree_util.tree_map(np.asarray, jraw)
+    exact = Renderer(scene, RenderConfig(unet_features=FEAT, pyramid_levels=LEVELS), raw,
+                     device="cpu")
+    static = Renderer(scene, RenderConfig(unet_features=FEAT, pyramid_levels=LEVELS,
+                                          unet_int8="static"), raw, device="cpu")
     static.unet.quant_min_f = 1
     trajectory = [_pose(cam, 8.0, 0.0, 0.0)]
     for k in range(1, 12):
