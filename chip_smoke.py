@@ -41,14 +41,19 @@ Phases (any failure exits non-zero, and the result line is not printed):
    against its twin -- K3 static (int8 pool included), K3 dyn and K4 static
    bit for bit, the bf16 input conv with int8 output within 1 code on
    <= 0.1% of elements -- with ms, bound (int8 at 1,979 TOP/s), twin and
-   ``torch._int_mm`` (GEMM only) times; the static and dyn U-Net outputs
+   ``torch._int_mm`` (GEMM only) times; K4 static and K3 dyn on
+   ``conv_i8_sm90.cu`` (one launch of its counter a call), each also equal
+   to ``conv.cu``'s kernel and two runs equal, timed in turns against that
+   kernel and ``_int_mm`` (K3 dyn also against the bf16 ``conv_sm90.cu``
+   conv of the same shape); the static and dyn U-Net outputs
    within max 0.10 / mean 0.02 of max|bf16| of the bf16 kernel net's;
 7. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
    10 timed frames with the outputs left on the card and 3 with them copied
    to host numpy, with ms/frame, the staged projection / filter / U-Net ms
    (CUDA events), finiteness, the launch count of every kernel in that run
    (each must be > 0; ``conv_sm90.cu`` exactly 17 a bf16 frame and 7 a dyn
-   frame), a ``torch.profiler`` trace of a few frames
+   frame; ``conv_i8_sm90.cu`` 10 a dyn frame and 4 a static frame, K3
+   static 17 a static frame), a ``torch.profiler`` trace of a few frames
    (device busy/idle share, top kernels), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
    against the same render on the CPU; then the same frames (without the
@@ -468,7 +473,8 @@ def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
         dyn = {k: fn.launches for k, fn in counted.items()}
         log(f"dyn int8 frame under RTNR_FUSE_UP=1: launches {dyn}, unet "
             f"{dyn_r.last_timings.unet_ms:.3f} ms")
-        if dyn["conv3x3_up"] != 2 or dyn["conv3x3_dyn"] != 10 or dyn["convt2x2"] != 2:
+        if (dyn["conv3x3_up"] != 2 or dyn["conv3x3_dyn"] != 10 or dyn["convt2x2"] != 2
+                or dyn["conv3x3_dyn_wgmma"] != 10):
             fail("the dyn frame under RTNR_FUSE_UP=1 did not fuse levels 2 and 3")
         if not bool(torch.isfinite(out["rgb_f"]).all()):
             fail("the dyn frame under RTNR_FUSE_UP=1 is not finite")
@@ -495,7 +501,8 @@ def check_int8_gate(renderer, static_r, dyn_r, counted):
     E[2, 3] = 12.0
     ref = renderer.compute_full_tensors(cam, E)
     keys = ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb")
-    int8 = ("conv3x3_i8out", "conv3x3_static", "conv3x3_dyn", "convt2x2_static")
+    int8 = ("conv3x3_i8out", "conv3x3_static", "conv3x3_dyn", "convt2x2_static",
+            "conv3x3_dyn_wgmma", "convt2x2_static_wgmma")
     for label, r in (("static", static_r), ("dyn", dyn_r)):
         for fn in counted.values():
             fn.launches = 0
@@ -983,9 +990,9 @@ def _im2col_i8(xs):
                        dim=2).reshape(h * w, 9 * c)
 
 
-def int_mm_ms(a, b):
-    """Time of ``torch._int_mm(a, b)`` (the int8 GEMM yardstick), or None
-    where the call refuses the operands in either layout of ``b``."""
+def int_mm_fn(a, b):
+    """A call of ``torch._int_mm(a, b)`` (the int8 GEMM yardstick), or None
+    where it refuses the operands in either layout of ``b``."""
     import torch
 
     err = None
@@ -996,7 +1003,7 @@ def int_mm_ms(a, b):
         except RuntimeError as e:
             err = e
             continue
-        return time_ms(lambda: torch._int_mm(a, bb))
+        return lambda: torch._int_mm(a, bb)
     log(f"  torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {str(err)[:120]}")
     return None
 
@@ -1006,36 +1013,53 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
     shapes against its plain twin on the card, on the same inputs: K3 static
     (int8 pool included) and K4 static bit for bit, K3 dyn bit for bit, the
     bf16 input conv with int8 output within 1 code on <= 0.1% of elements
-    (f32 sums in another order); ms, bound, twin and library per mode."""
+    (f32 sums in another order); ms, bound, twin and library per mode. K4
+    static and K3 dyn run ``conv_i8_sm90.cu``: each call is also held equal
+    to ``conv.cu``'s kernel and timed in turns against it and
+    ``torch._int_mm`` (K3 dyn also against the bf16 ``conv_sm90.cu`` conv of
+    the same shape, a yardstick the dyn route never calls)."""
     import torch
     import torch.nn.functional as Fn
     from rtnr_tpu_torch.ops import conv as cv
 
     modes = ("conv3x3_i8out", "conv3x3_static", "convt2x2_static", "conv3x3_dyn")
     acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, ops=0.0,
-                   nbytes=0.0, calls=0) for k in modes}
+                   nbytes=0.0, calls=0, previous_ms=0.0, bf16_ms=0.0) for k in modes}
+    slower, per_shape = [], {}
     nets = ((static_unet, static_unet.prepare_int8(act_scales)),
             (dyn_unet, dyn_unet.prepare_int8(None)))
+    bf16_w = dyn_unet.prepare()
     for unet, p in nets:
         head_w = p["final_conv"]
         for kind, name, xin, pool, head in record_unet_calls(unet, x, p):
             w = p[name]
+            prev = bf16 = None
             if kind == "convt2x2":
                 if w.quant != "static":
                     continue  # the bf16 K4 is checked with the bf16 net
                 mode = "convt2x2_static"
                 _, h, wd, c = xin.shape
+                if cv.k4_route(c, w) != "conv_i8_sm90":
+                    fail(f"K4 static {name}: {c} -> {w.f} does not take conv_i8_sm90.cu")
+                n0 = cv.convt2x2_static_wgmma.launches
                 y = cv.convt2x2_prepared(xin, w)
-                ref = cv.convt2x2_prepared_plain(xin, w)
-                if not torch.equal(y, ref):
+                torch.cuda.synchronize()
+                if cv.convt2x2_static_wgmma.launches != n0 + 1:
+                    fail(f"K4 static {name}: the call did not launch convt2x2_i8_wgmma")
+                if not torch.equal(y, cv.convt2x2_prepared_plain(xin, w)):
                     fail(f"K4 static {name}: kernel differs from its twin")
-                err, extra = 0.0, ""
+                if not torch.equal(y, cv._convt2x2_gemm(xin, w)):
+                    fail(f"K4 static {name}: kernel differs from conv.cu's gemm<1,1>")
+                if not torch.equal(cv.convt2x2_prepared(xin, w), y):
+                    fail(f"K4 static {name}: two runs differ")
+                err, extra = 0.0, " = gemm<1,1>"
                 M, F = h * wd, w.f
                 ops = 2.0 * M * 4 * F * c
                 nbytes = 1.0 * M * c + 4.0 * c * F + 8.0 * F + 4.0 * M * F
-                ms = time_ms(lambda: cv.convt2x2_prepared(xin, w))
+                fns = {"new": lambda: cv.convt2x2_prepared(xin, w),
+                       "old": lambda: cv._convt2x2_gemm(xin, w)}
+                lib_fn = int_mm_fn(xin[0].reshape(M, c), w.wmat[:c])
                 plain = time_ms(lambda: cv.convt2x2_prepared_plain(xin, w), reps=2)
-                lib = int_mm_ms(xin[0].reshape(M, c), w.wmat[:c])
                 shape = f"{h}x{wd}x{c}->{2 * h}x{2 * wd}x{F}"
                 rate = INT8_OPS_PER_S
             else:
@@ -1046,9 +1070,18 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                     mode = "conv3x3_i8out"
                 xs = xin
                 _, h, wd, _ = xs[0].shape
+                cs = [int(t.shape[3]) for t in xs]
                 ct, F = w.cin, int(w.wmat.shape[1])
                 hd = head_w if head else None
+                dyn = mode == "conv3x3_dyn"
+                if dyn and cv.k3_route(cs, w, head=head) != "conv_i8_sm90":
+                    fail(f"K3 dyn {name}: {cs} -> {F} does not take conv_i8_sm90.cu")
+                n0 = cv.conv3x3_dyn_wgmma.launches
                 got = cv.conv3x3_prepared(xs, w, relu=True, pool=pool)
+                torch.cuda.synchronize()
+                if cv.conv3x3_dyn_wgmma.launches != n0 + dyn:
+                    fail(f"K3 {name}: conv3x3_dyn_wgmma launched "
+                         f"{cv.conv3x3_dyn_wgmma.launches - n0} times, not {int(dyn)}")
                 ref = cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool)
                 if mode == "conv3x3_i8out":
                     d = (got[0].int() - ref[0].int()).abs()
@@ -1063,6 +1096,14 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                             fail(f"K3 {w.quant} {name}: kernel differs from its twin")
                     err = 0.0
                     extra = " +int8 pool exact" if pool else ""
+                if dyn:
+                    old = cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=None)
+                    if not all(torch.equal(g, o) for g, o in zip(got, old)):
+                        fail(f"K3 dyn {name}: kernel differs from conv.cu's gemm<0,2>")
+                    again = cv.conv3x3_prepared(xs, w, relu=True, pool=pool)
+                    if not all(torch.equal(g, o) for g, o in zip(got, again)):
+                        fail(f"K3 dyn {name}: two runs differ")
+                    extra += " = gemm<0,2>"
                 if pool and not torch.equal(got[1], cv._pool2(got[0])):
                     fail(f"K3 {name}: pooled output differs from the 2x2 max of the conv")
                 if head:
@@ -1080,21 +1121,40 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                 out_bytes = (2.0 * M * oc if head else out_b * M * F) + (
                     out_b * M * F / 4 if pool else 0.0)
                 nbytes = in_b * M * ct + (1.0 if w.quant else 2.0) * 9 * ct * F + 8.0 * F + out_bytes
-                ms = time_ms(lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd))
+                fns = {"new": lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd)}
+                if dyn:
+                    wb = bf16_w[name]
+                    fns["old"] = lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=None)
+                    fns["bf16"] = lambda: cv._conv3x3_wgmma(xs, wb, relu=True, pool=pool,
+                                                            head=None)
                 plain = time_ms(lambda: cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool,
                                                                   head=hd), reps=2)
                 if mode == "conv3x3_i8out":  # the bf16 GEMM: F.conv2d in bf16
                     xl = xs[0].permute(0, 3, 1, 2)
                     wl = w.wmat[:9 * ct].reshape(3, 3, ct, F).permute(3, 2, 0, 1).contiguous(
                         memory_format=torch.channels_last)
-                    lib = time_ms(lambda: Fn.conv2d(xl, wl, padding=1))
+                    lib_fn = lambda: Fn.conv2d(xl, wl, padding=1)
                     rate = BF16_FLOP_PER_S
                 else:  # GEMM only, over an explicit int8 im2col
-                    a_col = _im2col_i8(xs)
-                    lib = int_mm_ms(a_col, w.wmat[:9 * ct])
-                    del a_col
+                    lib_fn = int_mm_fn(_im2col_i8(xs), w.wmat[:9 * ct])
                     rate = INT8_OPS_PER_S
-                shape = f"{h}x{wd}x({'+'.join(str(int(t.shape[3])) for t in xs)})->{F}"
+                shape = f"{h}x{wd}x({'+'.join(str(c) for c in cs)})->{F}"
+            # in turns: the routed kernel, conv.cu's where replaced, the library, the bf16 conv
+            if lib_fn is not None:
+                fns["library"] = lib_fn
+            order = list(fns) + list(reversed(list(fns)))
+            turns = {k: [] for k in fns}
+            for k in order:
+                turns[k].append(time_ms(fns[k]))
+            ms = statistics.mean(turns["new"])
+            lib = statistics.mean(turns["library"]) if "library" in turns else None
+            if "old" in turns:
+                prev = statistics.mean(turns["old"])
+                if not ms < prev:
+                    slower.append(name)
+            if "bf16" in turns:
+                bf16 = statistics.mean(turns["bf16"])
+            del fns, lib_fn
             b, by = bound_ms(nbytes, ops, rate)
             a = acc[mode]
             a["ms"] += ms
@@ -1106,10 +1166,19 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
             a["nbytes"] += nbytes
             a["calls"] += 1
             a["rate"] = rate
+            a["previous_ms"] += prev or 0.0
+            a["bf16_ms"] += bf16 or 0.0
             libs = "refused" if lib is None else f"{lib:.4f}"
+            cmp = ""
+            if prev is not None:
+                cmp = f", {'gemm<1,1>' if kind == 'convt2x2' else 'gemm<0,2>'} {prev:.4f}"
+                per_shape[name] = {"ms": ms, "previous_ms": prev, "library_ms": lib,
+                                   "bound_ms": b, "bf16_ms": bf16, "turns": turns}
+            if bf16 is not None:
+                cmp += f", bf16 conv_sm90 {bf16:.4f}"
             log(f"{mode} {name:16s} {shape:24s} err {err:.3g}{extra} | {ms:.4f} ms, "
                 f"{ops / ms / 1e9:.1f} TOP/s, bound {b:.4f} {by}, plain {plain:.4f}, "
-                f"library {libs}")
+                f"library {libs}{cmp}")
     for mode, a in acc.items():
         if not a["calls"]:
             fail(f"no {mode} call in the int8 nets")
@@ -1117,9 +1186,22 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
         rows[mode] = dict(ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                           bound_by=by, library_ms=a["library_ms"], max_abs_err=a["err"])
         libs = "null" if a["library_ms"] is None else f"{a['library_ms']:.4f}"
+        more = ""
+        if mode in ("convt2x2_static", "conv3x3_dyn"):
+            rows[mode]["previous_ms"] = a["previous_ms"]
+            more = f", {'gemm<1,1>' if mode == 'convt2x2_static' else 'gemm<0,2>'} " \
+                   f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x)"
+        if mode == "conv3x3_dyn":
+            rows[mode]["bf16_ms"] = a["bf16_ms"]
+            more += f", bf16 conv_sm90.cu on the same shapes {a['bf16_ms']:.4f}"
         log(f"{mode} per frame: {a['calls']} calls, {a['ms']:.4f} ms ({a['ops'] / 1e12:.4f} "
             f"TOP, {a['ops'] / a['ms'] / 1e9:.1f} TOP/s), bound {a['bound_ms']:.4f}, plain "
-            f"{a['plain_ms']:.4f}, library {libs}")
+            f"{a['plain_ms']:.4f}, library {libs}{more}")
+    if acc["convt2x2_static"]["calls"] != 4 or acc["conv3x3_dyn"]["calls"] != 10:
+        fail("expected 4 K4 static and 10 K3 dyn calls in the int8 nets")
+    log(f"conv_i8_sm90.cu slower than the conv.cu kernel it replaces at "
+        f"{slower or 'no shape'}")
+    return {"per_shape": per_shape, "slower_than_conv_cu": slower}
 
 
 def check_int8_nets(bf16_unet, static_unet, act_scales, dyn_unet, x):
@@ -1387,7 +1469,8 @@ def main() -> int:
                "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static,
                "winners5": r5.winners5, "resolve_carriers": rc.resolve_carriers,
                "conv3x3_direct": conv_direct.conv3x3_pallas, "conv3x3_wgmma": cv.conv3x3_wgmma,
-               "conv3x3_up": cv.conv3x3_up}
+               "conv3x3_up": cv.conv3x3_up, "conv3x3_dyn_wgmma": cv.conv3x3_dyn_wgmma,
+               "convt2x2_static_wgmma": cv.convt2x2_static_wgmma}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
     conv_up = check_conv_up(renderer.unet, x, rows)
@@ -1409,7 +1492,7 @@ def main() -> int:
         f"{max(float(v) for v in scales.values()):.4g}]")
     if len(scales) != 21:
         fail(f"calibration recorded {len(scales)} scales, not 21")
-    check_int8_convs(static_r.unet, scales, dyn_r.unet, x, rows)
+    int8_kernels = check_int8_convs(static_r.unet, scales, dyn_r.unet, x, rows)
     int8_err = check_int8_nets(renderer.unet, static_r.unet, scales, dyn_r.unet, x)
     torch.cuda.empty_cache()
 
@@ -1417,7 +1500,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
                          ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma"), "bf16",
-                         host_frames=HOST_FRAMES, per_frame={"conv3x3_wgmma": 17, "conv3x3_up": 0})
+                         host_frames=HOST_FRAMES,
+                         per_frame={"conv3x3_wgmma": 17, "conv3x3_up": 0, "conv3x3_dyn_wgmma": 0,
+                                    "convt2x2_static_wgmma": 0})
     peak = torch.cuda.max_memory_allocated() / 2**30
     trace_frames(renderer, cam, E, serve["ms_per_frame"])
     resolvers = resolver_frames(renderer, cam, E, counted)
@@ -1441,10 +1526,14 @@ def main() -> int:
     # ---- the int8 serving paths ----
     serve_static = serve_frames(static_r, cam, E, INT8_FRAMES, counted,
                                 ("winners", "expand", "conv3x3_i8out", "conv3x3_static",
-                                 "convt2x2_static"), "static int8")
+                                 "convt2x2_static", "convt2x2_static_wgmma"), "static int8",
+                                per_frame={"conv3x3_static": 17, "convt2x2_static": 4,
+                                           "convt2x2_static_wgmma": 4})
     serve_dyn = serve_frames(dyn_r, cam, E, INT8_FRAMES, counted,
                              ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2",
-                              "conv3x3_wgmma"), "dyn int8", per_frame={"conv3x3_wgmma": 7})
+                              "conv3x3_wgmma", "conv3x3_dyn_wgmma"), "dyn int8",
+                             per_frame={"conv3x3_wgmma": 7, "conv3x3_dyn": 10,
+                                        "conv3x3_dyn_wgmma": 10})
     trace_frames(static_r, cam, E, serve_static["ms_per_frame"], label="static int8")
     trace_frames(dyn_r, cam, E, serve_dyn["ms_per_frame"], label="dyn int8")
     # end to end at a second pose, away from the calibration view
@@ -1475,6 +1564,7 @@ def main() -> int:
 
     conv_src = "rtnr_tpu_torch/csrc/conv.cu"
     sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
+    i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
     sources = {
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
@@ -1488,8 +1578,8 @@ def main() -> int:
                         "rtnr_tpu/ops/raster_pallas4.py:872"),
         "conv3x3_i8out": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
-        "conv3x3_dyn": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
-        "convt2x2_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1310"),
+        "conv3x3_dyn": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "convt2x2_static": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1310"),
         "winners5": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                      "rtnr_tpu/ops/raster_pallas5.py:516"),
         "resolve_carriers": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
@@ -1523,6 +1613,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
             **({"pair_ms": r["pair_ms"]} if "pair_ms" in r else {}),
+            **({"bf16_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
         })
     summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
                "host_out_ms_per_frame": serve["host_out_ms_per_frame"],
@@ -1541,7 +1632,7 @@ def main() -> int:
                            **{k: fuse_up["serve"][k] for k in ("ms_per_frame", "all_ms",
                                                                "stage_ms", "launches")},
                            "dyn_launches": fuse_up["dyn_launches"]},
-               "int8_gate": int8_gate}
+               "int8_gate": int8_gate, "int8_kernels": int8_kernels}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
     log(json.dumps({"kernels": kernels}))

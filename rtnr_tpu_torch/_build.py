@@ -3,9 +3,10 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). Libraries go to ``rtnr_tpu_torch/_build/`` (git-ignored), named by
-a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused. ``build_all`` starts one ``nvcc`` per source at
-once and waits for all of them.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them.
 
 Nothing here runs at import time: the first launch on a CUDA tensor calls
 ``load``. Every build passes ``-Xptxas -v``; ``build_all`` returns the
@@ -36,6 +37,8 @@ SOURCES: Dict[str, tuple] = {
     # TMA + wgmma; cuTensorMapEncodeTiled comes through the CUDA runtime's
     # entry-point query (see the source's header), so no -lcuda
     "conv_sm90": ("conv_sm90.cu", []),
+    # the int8 modes of K3 (dyn) and K4 (static) on s8 wgmma and TMA
+    "conv_i8_sm90": ("conv_i8_sm90.cu", []),
 }
 
 _BASE_FLAGS = [
@@ -63,6 +66,8 @@ def _flags(name: str):
 def _target(name: str) -> Path:
     src = SRC_DIR / SOURCES[name][0]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return OUT_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -124,12 +124,7 @@
 // for shapes it does not take or a tensor map that does not encode, else
 // cudaGetLastError() after the launch.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "sm90.cuh"
 
 #define TILE_Y 8
 #define TILE_X 16
@@ -199,86 +194,8 @@ struct UpArgs {
   bf16* out;           // (H, W, F)
 };
 
-// ------------------------------------------------------------ PTX wrappers
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar)
-      : "memory");
-}
-
-// returns once the phase of parity `parity` of the barrier has completed; a
-// pipeline that is stuck (no legitimate wait lasts a second) traps, so the
-// launch fails with an error instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, spins = 0;
-  do {
-    if (++spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id) {
-  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte rows and
-// the 128B swizzle: start address >> 4, LBO 1 (unused for this layout), SBO
-// 1024 bytes (8 rows), layout type 1 (SWIZZLE_128B). Advancing K by 16
-// elements (32 bytes) adds 2 to the start address field.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions
-template <int R>
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// ------------------------------------------------------------ bf16 wgmma (the PTX wrappers
+// shared with conv_i8_sm90.cu are in sm90.cuh)
 
 // D(64 x N, f32) += A(64 x 16, bf16, K-major smem) * B(16 x N, bf16, K-major smem)
 template <int N> __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db);
@@ -387,23 +304,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t saddr) {
                : "memory");
 }
 
-// both consumer warpgroups (256 threads)
-__device__ __forceinline__ void consumers_bar() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
-
-// byte offset of 16-byte chunk `ch` (0..7) of staged row `r` (rows of 64 bf16)
-__device__ __forceinline__ int stg_off(int r, int ch) { return r * 128 + ((ch ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ uint32_t bmax2(uint32_t a, uint32_t b) {
-  // exact: each lane of the result is one of the bf16 inputs
-  const __nv_bfloat162 m = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&m);
-}
-
-__device__ __forceinline__ uint4 bmax8(uint4 a, uint4 b) {
-  return make_uint4(bmax2(a.x, b.x), bmax2(a.y, b.y), bmax2(a.z, b.z), bmax2(a.w, b.w));
-}
-
 // 64-channel block nb of a consumer's accumulator: bias (channels of
 // `bias`), ReLU, one bf16 rounding, staged as 64 rows of 128 bytes
 __device__ __forceinline__ void stage_block(const float* acc, int nb, const float* bias, int relu,
@@ -424,19 +324,6 @@ __device__ __forceinline__ void stage_block(const float* acc, int nb, const floa
       *reinterpret_cast<__nv_bfloat162*>(stg + stg_off(r, i) + 4 * (lane & 3)) =
           __floats2bfloat162_rn(v0, v1);
     }
-  }
-}
-
-// the staged block to channels nc.. of out (H, W, F), rows yb.., columns
-// x0..: 16-byte coalesced stores masked at the ragged edge
-__device__ __forceinline__ void store_block(const unsigned char* stg, bf16* out, int H, int W,
-                                            int F, int yb, int x0, int nc, int t) {
-  for (int idx = t; idx < 64 * 8; idx += 128) {
-    const int r = idx >> 3, ch = idx & 7;
-    const int y = yb + (r >> 4), x = x0 + (r & 15);
-    if (y < H && x < W)
-      *reinterpret_cast<uint4*>(out + ((size_t)y * W + x) * F + nc + ch * 8) =
-          *reinterpret_cast<const uint4*>(stg + stg_off(r, ch));
   }
 }
 
@@ -564,22 +451,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<BN>::MINB)
         stage_block(acc, nb, a.bias + nc, a.relu, stg, warp, lane);
         named_bar(1 + cw);
         if (a.out) store_block(stg, a.out, a.H, a.W, a.F, yb, x0, nc, t);
-        if (a.pooled) {
-          const int hp = a.H / 2, wp = a.W / 2;
-          {
-            const int q = t >> 3, ch = t & 7;  // 16 pooled pixels x 8 chunks
-            const int j = q >> 3, i = q & 7;
-            const int py = yb / 2 + j, px = x0 / 2 + i;
-            if (py < hp && px < wp) {
-              const int r = 32 * j + 2 * i;  // staged row of pixel (2j, 2i) of the band
-              const uint4 v = bmax8(bmax8(*reinterpret_cast<const uint4*>(stg + stg_off(r, ch)),
-                                          *reinterpret_cast<const uint4*>(stg + stg_off(r + 1, ch))),
-                                    bmax8(*reinterpret_cast<const uint4*>(stg + stg_off(r + 16, ch)),
-                                          *reinterpret_cast<const uint4*>(stg + stg_off(r + 17, ch))));
-              *reinterpret_cast<uint4*>(a.pooled + ((size_t)py * wp + px) * a.F + nc + ch * 8) = v;
-            }
-          }
-        }
+        if (a.pooled) pool_block(stg, a.pooled, a.H, a.W, a.F, yb, x0, nc, t);
         if (a.hout) {
           // BN == F here: each thread of a pair sums 4 of the block's 8
           // chunks, one 16-byte head row a channel
@@ -841,67 +713,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 // ------------------------------------------------------------ host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-  cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                   cudaEnableDefault, &q);
-#else
-  cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-  if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-  fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
 // (H, W, C) bf16 activation, box (64 c, bx x, by y); by default a tile's
 // rows and their halo (16 x, 10 y)
 static bool encode_act(EncodeTiled enc, CUtensorMap* m, const void* x, int C, int H, int W,
                        int bx = TILE_X, int by = TILE_Y + 2) {
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2};
-  const cuuint32_t box[3] = {BK, (cuuint32_t)bx, (cuuint32_t)by};
-  const cuuint32_t es[3] = {1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, es,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const int dims[3] = {C, W, H}, box[3] = {BK, bx, by};
+  return encode_map(enc, m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, x, dims, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 // (F, K) K-major bf16 weights, box (64 k, BN n)
 static bool encode_w(EncodeTiled enc, CUtensorMap* m, const void* wt, int K, int F, int BN) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)F};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {BK, (cuuint32_t)BN};
-  const cuuint32_t es[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wt), dims, strides, box, es,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// resident blocks of `kernel` on the card (SMs x blocks an SM, from the
-// occupancy query) into *grid, after allowing it `smem` bytes
-template <typename Kern>
-static int query_grid(Kern kernel, int smem, int* grid) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, nsm = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem)) !=
-      cudaSuccess)
-    return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *grid = nsm * per_sm;
-  return 0;
+  const int dims[2] = {K, F}, box[2] = {BK, BN};
+  return encode_map(enc, m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, wt, dims, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 template <int BN>
@@ -910,7 +735,7 @@ static int launch(const CUtensorMap& m0, const CUtensorMap& m1, const CUtensorMa
   constexpr int smem = Layout<BN>::SMEM;
   static int grid_max = 0;  // resident blocks on the card
   if (grid_max == 0) {
-    const int e = query_grid(conv3x3_wgmma<BN>, smem, &grid_max);
+    const int e = query_grid(conv3x3_wgmma<BN>, NTHREADS, smem, &grid_max);
     if (e) return e;
   }
   const int ntiles = ((a.W + TILE_X - 1) / TILE_X) * ((a.H + TILE_Y - 1) / TILE_Y) * (a.F / BN);
@@ -925,7 +750,7 @@ static int launch_up(const CUtensorMap& ms, const CUtensorMap& md, const CUtenso
   constexpr int smem = UpLayout<BN>::SMEM;
   static int grid_max = 0;  // resident blocks on the card, this kernel's own
   if (grid_max == 0) {
-    const int e = query_grid(conv3x3_up_wgmma<BN>, smem, &grid_max);
+    const int e = query_grid(conv3x3_up_wgmma<BN>, NTHREADS, smem, &grid_max);
     if (e) return e;
   }
   const int ntiles = ((a.W + TILE_X - 1) / TILE_X) * ((a.H + TILE_Y - 1) / TILE_Y);

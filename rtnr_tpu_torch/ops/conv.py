@@ -3,15 +3,23 @@
 Counterpart of ``rtnr_tpu/ops/conv_phase.py``. The TPU's polyphase layout is
 not carried over: tensors are NHWC (1, H, W, C), bf16 or int8 codes, at
 every public function, as in the JAX package's NHWC API. The CUDA kernels
-are in ``csrc/conv.cu`` and ``csrc/conv_sm90.cu`` (their headers note what
-each replaces, its bound and its design).
+are in ``csrc/conv.cu``, ``csrc/conv_sm90.cu`` and ``csrc/conv_i8_sm90.cu``
+(their headers note what each replaces, its bound and its design).
 
 K3's exact bf16 mode has two kernels. ``takes_wgmma`` decides which: a call
 with channel counts and F all multiples of 64 (every U-Net conv but the
 5-channel input conv, and K10) runs the TMA + wgmma implicit GEMM of
-``conv_sm90.cu`` with the pool and the head fused; everything else (the input
-conv, the int8-output conv, narrow nets, and the int8 modes) runs
-``conv.cu``'s GEMM. ``conv3x3_wgmma_plain`` contracts as that kernel walks K.
+``conv_sm90.cu`` with the pool and the head fused; the other bf16 calls (the
+input conv, the int8-output conv, narrow nets) run ``conv.cu``'s GEMM.
+``conv3x3_wgmma_plain`` contracts as that kernel walks K.
+
+The int8 modes the full-width net runs have s8 wgmma kernels in
+``conv_i8_sm90.cu``: K3 dyn where ``takes_dyn_wgmma`` (channel counts
+multiples of 64, F of 256, no head) and K4 static where
+``takes_convt_i8_wgmma`` (C and F multiples of 64, int8 output); other
+shapes (narrow nets, toy widths) stay on ``conv.cu``'s GEMM, as does K3
+static. ``conv3x3_dyn_wgmma_plain`` and ``convt2x2_i8_wgmma_plain`` contract
+as those kernels walk N and K.
 
 - ``conv3x3(xs, kernel, bias, *, relu, pool, head_kernel, head_bias, quant,
   in_scales, out_scale)``: 3x3 s1 same conv over the virtual concat of one
@@ -61,7 +69,9 @@ CPU tensors. Launch counters: ``conv3x3.launches`` / ``convt2x2.launches``
 (bf16 mode, either kernel), ``conv3x3_wgmma`` (the calls of those that ran
 ``conv_sm90.cu``), ``conv3x3_up`` (the fused-ConvTranspose kernel; its calls
 count nowhere else), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn``
-and ``convt2x2_static`` (``.launches``).
+and ``convt2x2_static`` (``.launches``, every call of the mode), and
+``conv3x3_dyn_wgmma`` / ``convt2x2_static_wgmma`` (the calls of those that
+ran ``conv_i8_sm90.cu``).
 """
 
 from __future__ import annotations
@@ -82,6 +92,8 @@ _BK = {torch.bfloat16: 32, torch.int8: 64}
 _KIND = {"": 0, "static": 1, "dyn": 2}
 # channels of one K step of conv_sm90.cu: C0, C1 and F must be multiples
 _WG_CHUNK = 64
+# output channels (K3 dyn) or GEMM columns (K4 static) of a conv_i8_sm90.cu tile
+_I8_BN = 256
 # f32(1/127), the quantiser's constant (conv_phase.py:329, :870)
 INV127 = float(np.float32(1.0 / 127.0))
 
@@ -114,6 +126,14 @@ def _bind_sm90(lib: ctypes.CDLL) -> None:
         fn.restype = _I
 
 
+def _bind_i8(lib: ctypes.CDLL) -> None:
+    lib.rtnr_conv3x3_dyn_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _P]
+    lib.rtnr_convt2x2_i8_wgmma.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P]
+    for fn in (lib.rtnr_conv3x3_dyn_wgmma, lib.rtnr_convt2x2_i8_wgmma):
+        fn.restype = _I
+
+
 class LaunchCount:
     """Launch counter of one kernel mode: its wrapper adds one to
     ``launches`` per call that launches the mode's kernels."""
@@ -128,6 +148,8 @@ conv3x3_i8out = LaunchCount()  # K3 exact bf16 GEMM with int8 output codes
 conv3x3_static = LaunchCount()  # K3 static int8
 conv3x3_dyn = LaunchCount()  # K3 dyn int8
 convt2x2_static = LaunchCount()  # K4 static int8
+conv3x3_dyn_wgmma = LaunchCount()  # K3 dyn int8 on conv_i8_sm90.cu (s8 wgmma)
+convt2x2_static_wgmma = LaunchCount()  # K4 static int8 on conv_i8_sm90.cu
 
 
 def _as_tensor(a, device=None) -> torch.Tensor:
@@ -172,7 +194,8 @@ class Conv3x3Weights(NamedTuple):
     scale: Optional[torch.Tensor] = None  # (F,) f32 dequantisation scale (int8 modes)
     out_i8: bool = False  # int8 output codes at out_scale
     # exact bf16 with cin and F multiples of 64: (F, 9*cin) bf16, the K-major
-    # copy of wmat[:9*cin] that conv_sm90.cu reads
+    # copy of wmat[:9*cin] that conv_sm90.cu reads; dyn with cin a multiple
+    # of 64 and F of 256: the same (F, 9*cin) int8 copy for conv_i8_sm90.cu
     wmat_t: Optional[torch.Tensor] = None
 
 
@@ -186,7 +209,9 @@ class ConvT2x2Weights(NamedTuple):
     out_i8: bool = False
     # bf16 with cin and F multiples of 64: (4F, cin) bf16, the K-major B of
     # the fused kernel's up GEMM; row (u*4 + dy*2 + dx)*64 + j holds
-    # kernel[1-dy, 1-dx, :, 64u + j] (64 up channels a chunk u)
+    # kernel[1-dy, 1-dx, :, 64u + j] (64 up channels a chunk u). Static with
+    # cin and F multiples of 64: (4F, cin) int8, wmat[:cin] transposed (row
+    # (dy*2 + dx)*F + f, the GEMM's column order), for conv_i8_sm90.cu
     wmat_t: Optional[torch.Tensor] = None
 
 
@@ -234,9 +259,12 @@ def prepare_conv3x3(kernel, bias=None, device=None, *, quant: str = "", in_scale
     sw_eff = swv * s[0] if quant == "static" else swv
     if inv_out is not None:
         sw_eff = sw_eff * inv_out
-    return Conv3x3Weights(_pad_rows(wq.reshape(9 * c, f), torch.int8),
-                          _bf16_values(b).contiguous(), c, quant, sw_eff.contiguous(),
-                          inv_out is not None)
+    wmat = _pad_rows(wq.reshape(9 * c, f), torch.int8)
+    wmat_t = None
+    if quant == "dyn" and c % _WG_CHUNK == 0 and f % _I8_BN == 0:
+        wmat_t = wmat[:9 * c].t().contiguous()
+    return Conv3x3Weights(wmat, _bf16_values(b).contiguous(), c, quant, sw_eff.contiguous(),
+                          inv_out is not None, wmat_t)
 
 
 def prepare_convt2x2(kernel, bias=None, device=None, *, quant: str = "", in_scale=None,
@@ -268,8 +296,11 @@ def prepare_convt2x2(kernel, bias=None, device=None, *, quant: str = "", in_scal
         inv_out = _inv(_scale(out_scale, dev))
         sw_eff, b = sw_eff * inv_out, b * inv_out
     wmat = _pad_rows(wq.permute(2, 0, 1, 3).reshape(c, 4 * f), torch.int8)
+    wmat_t = None
+    if c % _WG_CHUNK == 0 and f % _WG_CHUNK == 0:
+        wmat_t = wmat[:c].t().contiguous()
     return ConvT2x2Weights(wmat, _bf16_values(b).contiguous(), c, f, "static",
-                           sw_eff.contiguous(), out_scale is not None)
+                           sw_eff.contiguous(), out_scale is not None, wmat_t)
 
 
 def prepare_head(head_kernel, head_bias=None, device=None) -> HeadWeights:
@@ -294,6 +325,42 @@ def takes_wgmma(cs: Sequence[int], f: int, *, quant: str = "", out_i8: bool = Fa
     tile holds every channel; the head's OC <= 8 either way)."""
     return (quant == "" and not out_i8 and all(c % _WG_CHUNK == 0 for c in cs)
             and f % _WG_CHUNK == 0 and not (head and f > 128))
+
+
+def takes_dyn_wgmma(cs: Sequence[int], f: int, *, head: bool = False) -> bool:
+    """Whether a dyn-mode K3 call on CUDA tensors runs ``conv_i8_sm90.cu``
+    (else ``conv.cu``'s GEMM): every input's channel count a multiple of 64
+    and F of 256 (one tile holds 256 output channels), without the head.
+    Every dyn call of the full-width net qualifies (F in {256, 512, 1024})."""
+    return all(c % _WG_CHUNK == 0 for c in cs) and f % _I8_BN == 0 and not head
+
+
+def takes_convt_i8_wgmma(c: int, f: int, *, out_i8: bool = True) -> bool:
+    """Whether a static-mode K4 call on CUDA tensors runs ``conv_i8_sm90.cu``
+    (else ``conv.cu``'s GEMM): C and F multiples of 64 (4F a multiple of the
+    256-column tile) and int8 output codes, as every full-width call has."""
+    return c % _WG_CHUNK == 0 and f % _WG_CHUNK == 0 and out_i8
+
+
+def k3_route(cs: Sequence[int], w: Conv3x3Weights, *, head: bool = False) -> str:
+    """The source whose kernel a K3 call on CUDA tensors runs:
+    ``"conv_sm90"`` (exact bf16, ``takes_wgmma``), ``"conv_i8_sm90"`` (dyn,
+    ``takes_dyn_wgmma``) or ``"conv"`` (``conv.cu``'s GEMM: every other call,
+    K3 static among them)."""
+    f = int(w.wmat.shape[1])
+    if takes_wgmma(cs, f, quant=w.quant, out_i8=w.out_i8, head=head):
+        return "conv_sm90"
+    if w.quant == "dyn" and takes_dyn_wgmma(cs, f, head=head):
+        return "conv_i8_sm90"
+    return "conv"
+
+
+def k4_route(c: int, w: ConvT2x2Weights) -> str:
+    """The source whose kernel a K4 call on CUDA tensors runs:
+    ``"conv_i8_sm90"`` (static, ``takes_convt_i8_wgmma``) or ``"conv"``."""
+    if w.quant == "static" and takes_convt_i8_wgmma(c, w.f, out_i8=w.out_i8):
+        return "conv_i8_sm90"
+    return "conv"
 
 
 def takes_up(c_skip: int, c_deep: int, c_up: int, f: int) -> bool:
@@ -524,6 +591,81 @@ def convt2x2_prepared_plain(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor
     return y.reshape(h, wd, 2, 2, w.f).permute(0, 2, 1, 3, 4).reshape(1, 2 * h, 2 * wd, w.f)
 
 
+def conv3x3_dyn_wgmma_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *,
+                            relu: bool = False, pool: bool = False):
+    """Plain torch twin of ``conv_i8_sm90.cu``'s dyn kernel that contracts
+    as it walks: the per-pixel max |x| then its 3x3 max (``dyn_scales_plain``);
+    per 256-channel N tile of the K-major ``w.wmat_t``, the stages (dx, input,
+    64-channel chunk), in each the three dy taps and two k32 steps, A being
+    the tap's shifted window quantised row by row with its output pixel's
+    factor (``clip(rint(x * rinv), -127, 127)``); integer sums (exact in
+    f64); then ``f32(acc) * (scale * rscale) + bias``, ReLU, bf16 and the
+    pool of the bf16 output."""
+    if w.quant != "dyn" or w.wmat_t is None:
+        raise ValueError("conv3x3_dyn_wgmma_plain needs dyn weights with cin % 64 == 0 and "
+                         "F % 256 == 0")
+    cs = [int(x.shape[3]) for x in xs]
+    ct = sum(cs)
+    _, h, wd, _ = xs[0].shape
+    rinv, rscale = dyn_scales_plain(xs)
+    wt = w.wmat_t.to(torch.float64)
+    F = int(wt.shape[0])
+    acc = torch.zeros((h * wd, F), dtype=torch.float64, device=xs[0].device)
+    padded = [Fn.pad(x[0].to(torch.float32), (0, 0, 1, 1, 1, 1)) for x in xs]
+    for n0 in range(0, F, _I8_BN):
+        for dx in range(3):
+            for i, xp in enumerate(padded):
+                for c in range(0, cs[i], _WG_CHUNK):
+                    for dy in range(3):
+                        win = xp[dy:dy + h, dx:dx + wd, c:c + _WG_CHUNK].reshape(h * wd, -1)
+                        q = torch.clamp(torch.round(win * rinv[:, None]), -127.0, 127.0)
+                        k0 = (3 * dy + dx) * ct + (cs[0] if i else 0) + c
+                        for s in range(0, _WG_CHUNK, 32):
+                            acc[:, n0:n0 + _I8_BN] += (q[:, s:s + 32].to(torch.float64)
+                                                      @ wt[n0:n0 + _I8_BN, k0 + s:k0 + s + 32].t())
+    y = acc.to(torch.float32) * (w.scale[None, :] * rscale[:, None]) + w.bias
+    if relu:
+        y = torch.clamp(y, min=0.0)
+    y = y.reshape(1, h, wd, F).to(torch.bfloat16)
+    return (y, _pool2(y)) if pool else (y,)
+
+
+def convt2x2_i8_wgmma_plain(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
+    """Plain torch twin of ``conv_i8_sm90.cu``'s static K4 kernel that
+    contracts as it walks: tiles of 128 input pixels x 256 GEMM columns of
+    the K-major ``w.wmat_t`` (column n is channel n % F of subpixel
+    n // F = (dy, dx)), K in steps of 128 channels and k32 inside them,
+    integer sums (exact in f64); then ``f32(acc) * scale + bias`` and the
+    codes ``clip(rint(y), -127, 127)``, each 16-column chunk of a tile row
+    stored to the 16 contiguous output bytes of its pixel (2y+dy, 2x+dx)."""
+    if w.quant != "static" or w.wmat_t is None or not w.out_i8:
+        raise ValueError("convt2x2_i8_wgmma_plain needs static int8-output weights with "
+                         "cin, F % 64 == 0")
+    _, h, wd, c = x.shape
+    F = w.f
+    a = x[0].reshape(h * wd, c).to(torch.float64)
+    wt = w.wmat_t.to(torch.float64)
+    out = torch.zeros((2 * h, 2 * wd, F), dtype=torch.int8, device=x.device)
+    pix = torch.arange(h * wd, device=x.device)
+    ys, xs_ = torch.div(pix, wd, rounding_mode="floor"), pix % wd
+    for m0 in range(0, h * wd, 128):
+        rows = slice(m0, min(m0 + 128, h * wd))
+        for n0 in range(0, 4 * F, _I8_BN):
+            acc = torch.zeros((rows.stop - m0, _I8_BN), dtype=torch.float64, device=x.device)
+            for k0 in range(0, c, 128):
+                for k in range(k0, min(k0 + 128, c), 32):
+                    acc += a[rows, k:k + 32] @ wt[n0:n0 + _I8_BN, k:k + 32].t()
+            f = torch.arange(n0, n0 + _I8_BN, device=x.device) % F
+            y = acc.to(torch.float32) * w.scale[f] + w.bias[f]
+            codes = _codes(y, relu=False)
+            for ch in range(_I8_BN // 16):
+                sub, f0 = divmod(n0 + 16 * ch, F)
+                dy, dx = divmod(sub, 2)
+                out[2 * ys[rows] + dy, 2 * xs_[rows] + dx, f0:f0 + 16] = \
+                    codes[:, 16 * ch:16 * ch + 16]
+    return out[None]
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -565,9 +707,11 @@ def conv3x3_prepared(
         return conv3x3_prepared_plain(xs, w, relu=relu, pool=pool, head=head)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("conv3x3: activations and weights must be on one CUDA device")
-    if takes_wgmma(cs, int(w.wmat.shape[1]), quant=w.quant, out_i8=w.out_i8,
-                   head=head is not None):
+    route = k3_route(cs, w, head=head is not None)
+    if route == "conv_sm90":
         return _conv3x3_wgmma(xs, w, relu=relu, pool=pool, head=head)
+    if route == "conv_i8_sm90":
+        return _conv3x3_dyn_wgmma(xs, w, relu=relu, pool=pool)
     return _conv3x3_gemm(xs, w, relu=relu, pool=pool, head=head)
 
 
@@ -655,6 +799,36 @@ def _conv3x3_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
     return (out, pooled) if pool else (out,)
 
 
+def _i8_lib() -> ctypes.CDLL:
+    return _build.load("conv_i8_sm90", _bind_i8)
+
+
+def _conv3x3_dyn_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
+                       pool: bool):
+    """Launch ``conv_i8_sm90.cu``'s dyn kernel (its per-pixel max pre-pass,
+    then the conv) on checked CUDA inputs that ``takes_dyn_wgmma`` accepts."""
+    if w.wmat_t is None:
+        raise ValueError("conv3x3: these dyn weights lack the K-major copy conv_i8_sm90.cu reads")
+    dev = xs[0].device
+    _, h, wd, _ = xs[0].shape
+    cs = [int(x.shape[3]) for x in xs]
+    F = int(w.wmat.shape[1])
+    out = torch.empty((1, h, wd, F), dtype=torch.bfloat16, device=dev)
+    pooled = (torch.empty((1, h // 2, wd // 2, F), dtype=torch.bfloat16, device=dev)
+              if pool else None)
+    amax = torch.empty(h * wd, dtype=torch.float32, device=dev)
+    rc = _i8_lib().rtnr_conv3x3_dyn_wgmma(
+        xs[0].data_ptr(), xs[1].data_ptr() if len(xs) == 2 else None, cs[0],
+        cs[1] if len(xs) == 2 else 0, h, wd, w.wmat_t.data_ptr(), w.scale.data_ptr(),
+        w.bias.data_ptr(), amax.data_ptr(), out.data_ptr(),
+        None if pooled is None else pooled.data_ptr(), F, int(relu),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rtnr_conv3x3_dyn_wgmma")
+    conv3x3_dyn_wgmma.launches += 1
+    conv3x3_dyn.launches += 1
+    return (out, pooled) if pool else (out,)
+
+
 def _conv3x3_up(xs: Sequence[torch.Tensor], w: Conv3x3Weights, up: ConvT2x2Weights, *,
                 relu: bool, pool: bool, head: Optional[HeadWeights]):
     """K3's fused-ConvTranspose mode: the conv over ``[skip,
@@ -723,6 +897,15 @@ def convt2x2_prepared(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
         return convt2x2_prepared_plain(x, w)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("convt2x2: activations and weights must be on one CUDA device")
+    if k4_route(c, w) == "conv_i8_sm90":
+        return _convt2x2_i8_wgmma(x, w)
+    return _convt2x2_gemm(x, w)
+
+
+def _convt2x2_gemm(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
+    """Launch ``conv.cu``'s GEMM (bf16 and static) on a checked CUDA input."""
+    _, h, wd, c = x.shape
+    dev = x.device
     odt = torch.int8 if w.out_i8 else torch.bfloat16
     out = torch.empty((1, 2 * h, 2 * wd, w.f), dtype=odt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -734,6 +917,24 @@ def convt2x2_prepared(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
         convt2x2_static.launches += 1
     else:
         convt2x2.launches += 1
+    return out
+
+
+def _convt2x2_i8_wgmma(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
+    """Launch ``conv_i8_sm90.cu``'s static K4 kernel on a checked CUDA input
+    that ``takes_convt_i8_wgmma`` accepts."""
+    if w.wmat_t is None:
+        raise ValueError("convt2x2: these static weights lack the K-major copy conv_i8_sm90.cu "
+                         "reads")
+    _, h, wd, c = x.shape
+    dev = x.device
+    out = torch.empty((1, 2 * h, 2 * wd, w.f), dtype=torch.int8, device=dev)
+    rc = _i8_lib().rtnr_convt2x2_i8_wgmma(x.data_ptr(), c, h, wd, w.wmat_t.data_ptr(),
+                                          w.scale.data_ptr(), w.bias.data_ptr(), out.data_ptr(),
+                                          w.f, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rtnr_convt2x2_i8_wgmma")
+    convt2x2_static_wgmma.launches += 1
+    convt2x2_static.launches += 1
     return out
 
 

@@ -108,7 +108,9 @@ def test_up_k_major_copy_follows_the_kernel_row_map():
                 want = kb[1 - dy, 1 - dx, :, 64 * u:64 * u + 64].t()
                 assert torch.equal(uw.wmat_t[row:row + 64], want)
     assert cv.prepare_convt2x2(mk((2, 2, 16, 8), 52)).wmat_t is None
-    assert cv.prepare_convt2x2(mk((2, 2, 64, 64), 53), quant="static", in_scale=0.1).wmat_t is None
+    # static weights keep the GEMM's column order (the int8 K4 kernel's B)
+    sw = cv.prepare_convt2x2(mk((2, 2, 64, 64), 53), quant="static", in_scale=0.1)
+    assert torch.equal(sw.wmat_t, sw.wmat[:64].t())
 
 
 @pytest.mark.parametrize("F", [8, 16, 64, 128])

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K6, the carrier kernel for K7-K9, K10 on K3,
-K3's fused-ConvTranspose mode, and the int8 modes of K3/K4) against their
+K3's fused-ConvTranspose mode, and the int8 modes of K3/K4 on conv.cu and on
+the s8 wgmma kernels of conv_i8_sm90.cu) against their
 plain torch twins on the card, the differentiable raster and the int8
 Renderer on the card against the CPU, and Renderer frames under every
 RTNR_RESOLVE value. Marked ``cuda``; each test skips without a CUDA
@@ -466,3 +467,101 @@ def test_conv3x3_up_unfused_route_runs_the_card_pair(cuda):
         before[0], before[1] + 1, before[2] + 1)
     (want,) = cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], wts, relu=True)
     assert torch.equal(y, want)
+
+
+def _dyn_case(cuda, hw, cs, f, seed=60, zero_patch=False):
+    h, w = hw
+    xs = [torch.from_numpy(_mk((1, h, w, c), seed + i)).to(cuda, torch.bfloat16)
+          for i, c in enumerate(cs)]
+    if zero_patch:  # pixels whose 3x3 field is all zero: amax 0, rinv 0
+        for x in xs:
+            x[:, 2:9, 3:12] = 0
+    k = torch.from_numpy(_mk((3, 3, sum(cs), f), seed + 5, 0.1)).to(cuda)
+    b = torch.from_numpy(_mk((f,), seed + 6)).to(cuda)
+    return xs, cv.prepare_conv3x3(k, b, quant="dyn")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cs,f,pool", [((20, 36), (64,), 256, True),
+                                          ((17, 30), (64, 64), 256, False),
+                                          ((20, 40), (128,), 512, True),
+                                          ((68, 120), (64, 128), 256, True),
+                                          ((12, 24), (256,), 1024, False)])
+def test_conv3x3_dyn_wgmma_matches_twin_and_conv_cu(cuda, hw, cs, f, pool):
+    """conv_i8_sm90.cu's dyn kernel at ragged shapes (H % 8, W % 16 not 0),
+    one input and two, with the pool: equal bit for bit to its twin and to
+    conv.cu's gemm<0,2>; two runs equal; its counter and conv3x3_dyn move,
+    and the conv.cu call moves only conv3x3_dyn."""
+    xs, wq = _dyn_case(cuda, hw, cs, f)
+    assert cv.takes_dyn_wgmma(cs, f) and wq.wmat_t is not None
+    before = (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_dyn.launches)
+    got = cv.conv3x3_prepared(xs, wq, relu=True, pool=pool)
+    torch.cuda.synchronize()
+    assert (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_dyn.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = cv.conv3x3_prepared_plain(xs, wq, relu=True, pool=pool)
+    old = cv._conv3x3_gemm(xs, wq, relu=True, pool=pool, head=None)
+    assert (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_dyn.launches) == (before[0] + 1,
+                                                                         before[1] + 2)
+    assert len(got) == len(want) == (2 if pool else 1)
+    for g, r, o in zip(got, want, old):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, r) and torch.equal(g, o)
+    again = cv.conv3x3_prepared(xs, wq, relu=True, pool=pool)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_conv3x3_dyn_wgmma_zero_patch(cuda):
+    """Output pixels whose receptive field is all zero (rinv = 0) quantise
+    to zero codes and give the bias, as the twin and conv.cu do."""
+    xs, wq = _dyn_case(cuda, (20, 36), (64, 64), 256, seed=70, zero_patch=True)
+    (got,) = cv.conv3x3_prepared(xs, wq, relu=False)
+    (want,) = cv.conv3x3_prepared_plain(xs, wq, relu=False)
+    (old,) = cv._conv3x3_gemm(xs, wq, relu=False, pool=False, head=None)
+    assert torch.equal(got, want) and torch.equal(got, old)
+    assert torch.equal(got[0, 4, 6], wq.bias.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,hw", [(64, 64, (17, 30)), (128, 64, (20, 36)),
+                                    (256, 128, (9, 13)), (512, 256, (7, 11)),
+                                    (1024, 512, (5, 9))])
+def test_convt2x2_i8_wgmma_matches_twin_and_conv_cu(cuda, c, f, hw):
+    """conv_i8_sm90.cu's static K4 at H*W not a multiple of the 128-pixel
+    tile: equal bit for bit to its twin and to conv.cu's gemm<1,1>; two runs
+    equal; its counter and convt2x2_static move, the conv.cu call only the
+    latter."""
+    h, w = hw
+    x = _codes((1, h, w, c), 80).to(cuda)
+    wq = cv.prepare_convt2x2(torch.from_numpy(_mk((2, 2, c, f), 81, 0.2)).to(cuda),
+                             torch.from_numpy(_mk((f,), 82)).to(cuda), quant="static",
+                             in_scale=torch.tensor(0.013, device=cuda),
+                             out_scale=torch.tensor(0.037, device=cuda))
+    assert cv.takes_convt_i8_wgmma(c, f) and wq.wmat_t is not None
+    before = (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches)
+    got = cv.convt2x2_prepared(x, wq)
+    torch.cuda.synchronize()
+    assert (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches) == (
+        before[0] + 1, before[1] + 1)
+    old = cv._convt2x2_gemm(x, wq)
+    assert (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert got.dtype == torch.int8 and got.shape == (1, 2 * h, 2 * w, f)
+    assert torch.equal(got, cv.convt2x2_prepared_plain(x, wq)) and torch.equal(got, old)
+    assert torch.equal(cv.convt2x2_prepared(x, wq), got)
+
+
+@pytest.mark.cuda
+def test_int8_wgmma_counters_only_move_on_routed_calls(cuda):
+    """A dyn conv with F = 64 and a static K4 with F = 16 stay on conv.cu."""
+    xs, wq = _dyn_case(cuda, (8, 16), (64,), 64)
+    n = (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_dyn.launches)
+    cv.conv3x3_prepared(xs, wq, relu=True)
+    assert (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_dyn.launches) == (n[0], n[1] + 1)
+    x = _codes((1, 4, 6, 32), 90).to(cuda)
+    wt = cv.prepare_convt2x2(torch.from_numpy(_mk((2, 2, 32, 16), 91, 0.2)).to(cuda), None,
+                             quant="static", in_scale=torch.tensor(0.02, device=cuda),
+                             out_scale=torch.tensor(0.05, device=cuda))
+    m = (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches)
+    cv.convt2x2_prepared(x, wt)
+    assert (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches) == (m[0], m[1] + 1)
