@@ -15,7 +15,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``F.conv2d`` / ``F.conv_transpose2d`` twin (TF32 off); at each K3 shape,
    in turns, the routed kernel (``conv_sm90.cu`` at the 17 shapes whose
    channels are multiples of 64), ``conv.cu``'s gemm<0,0> launched directly,
-   and ``F.conv2d``;
+   and ``F.conv2d``; each K4 call on ``conv_sm90.cu``'s ``convt2x2_wgmma``
+   (one launch of its counter, two runs equal), timed in turns against
+   ``conv.cu``'s gemm<1,0> and ``F.conv_transpose2d``;
 4. the differentiable raster at the same shape: K5 (``winners_f32``) and
    the K2 ``float_sums`` expansion bit-exact against their twins; its count,
    depth and sums equal to the serving raster's K1/K2 integer images; K5's
@@ -42,18 +44,22 @@ Phases (any failure exits non-zero, and the result line is not printed):
    bit for bit, the bf16 input conv with int8 output within 1 code on
    <= 0.1% of elements -- with ms, bound (int8 at 1,979 TOP/s), twin and
    ``torch._int_mm`` (GEMM only) times; K4 static and K3 dyn on
-   ``conv_i8_sm90.cu`` (one launch of its counter a call), each also equal
-   to ``conv.cu``'s kernel and two runs equal, timed in turns against that
-   kernel and ``_int_mm`` (K3 dyn also against the bf16 ``conv_sm90.cu``
-   conv of the same shape); the static and dyn U-Net outputs
+   ``conv_i8_sm90.cu`` and K3 static on its ``conv3x3_static_wgmma`` (one
+   launch of its counter a call), each also equal to ``conv.cu``'s kernel
+   and two runs equal, timed in turns against that kernel and ``_int_mm``
+   (the K3 modes also against the bf16 ``conv_sm90.cu`` conv of the same
+   shape);
+   the static and dyn U-Net outputs
    within max 0.10 / mean 0.02 of max|bf16| of the bf16 kernel net's;
 7. the serving path: ``Renderer(...).compute_full`` for one warm-up frame,
    10 timed frames with the outputs left on the card and 3 with them copied
    to host numpy, with ms/frame, the staged projection / filter / U-Net ms
    (CUDA events), finiteness, the launch count of every kernel in that run
-   (each must be > 0; ``conv_sm90.cu`` exactly 17 a bf16 frame and 7 a dyn
-   frame; ``conv_i8_sm90.cu`` 10 a dyn frame and 4 a static frame, K3
-   static 17 a static frame), a ``torch.profiler`` trace of a few frames
+   (each must be > 0; ``conv_sm90.cu``'s conv exactly 17 a bf16 frame and 7
+   a dyn frame, its K4 4 a bf16 and a dyn frame; ``conv_i8_sm90.cu`` 10 a
+   dyn frame, and 4 (K4) and 17 (K3 static) a static frame, whose trace
+   must show none of ``conv.cu``'s K3 static kernels), a ``torch.profiler``
+   trace of a few frames
    (device busy/idle share, top kernels), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
    against the same render on the CPU; then the same frames (without the
@@ -138,6 +144,16 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(fns: dict):
+    """Mean ms of each function, timed in turns (forward, then backward
+    over the dict's order), in that order."""
+    order = list(fns) + list(reversed(list(fns)))
+    turns = {k: [] for k in fns}
+    for k in order:
+        turns[k].append(time_ms(fns[k]))
+    return tuple(statistics.mean(turns[k]) for k in fns)
 
 
 def card_line() -> str:
@@ -451,7 +467,8 @@ def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
         res = serve_frames(renderer, cam, E, RESOLVER_FRAMES, counted,
                            ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
                             "conv3x3_up"), "bf16 RTNR_FUSE_UP=1",
-                           per_frame={"conv3x3_up": 2, "convt2x2": 2, "conv3x3_wgmma": 15})
+                           per_frame={"conv3x3_up": 2, "convt2x2": 2, "convt2x2_wgmma": 2,
+                                      "conv3x3_wgmma": 15})
         trace_frames(renderer, cam, E, res["ms_per_frame"], label="bf16 RTNR_FUSE_UP=1")
         dframe = float((renderer.compute_full_tensors(cam, E)["rgb_f"] - ref).abs().max())
         with torch.no_grad():
@@ -474,7 +491,7 @@ def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
         log(f"dyn int8 frame under RTNR_FUSE_UP=1: launches {dyn}, unet "
             f"{dyn_r.last_timings.unet_ms:.3f} ms")
         if (dyn["conv3x3_up"] != 2 or dyn["conv3x3_dyn"] != 10 or dyn["convt2x2"] != 2
-                or dyn["conv3x3_dyn_wgmma"] != 10):
+                or dyn["convt2x2_wgmma"] != 2 or dyn["conv3x3_dyn_wgmma"] != 10):
             fail("the dyn frame under RTNR_FUSE_UP=1 did not fuse levels 2 and 3")
         if not bool(torch.isfinite(out["rgb_f"]).all()):
             fail("the dyn frame under RTNR_FUSE_UP=1 is not finite")
@@ -502,7 +519,7 @@ def check_int8_gate(renderer, static_r, dyn_r, counted):
     ref = renderer.compute_full_tensors(cam, E)
     keys = ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb")
     int8 = ("conv3x3_i8out", "conv3x3_static", "conv3x3_dyn", "convt2x2_static",
-            "conv3x3_dyn_wgmma", "convt2x2_static_wgmma")
+            "conv3x3_dyn_wgmma", "convt2x2_static_wgmma", "conv3x3_static_wgmma")
     for label, r in (("static", static_r), ("dyn", dyn_r)):
         for fn in counted.values():
             fn.launches = 0
@@ -863,7 +880,7 @@ def check_convs(unet, x, rows):
     acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, flops=0.0,
                    nbytes=0.0, previous_ms=0.0, calls=0)
            for k in ("conv3x3", "conv3x3_wgmma", "convt2x2")}
-    slower = []
+    slower, slower_k4 = [], []
     calls = record_unet_calls(unet, x)
     if len([c for c in calls if c[0] == "conv3x3"]) != 18 or \
             len([c for c in calls if c[0] == "convt2x2"]) != 4:
@@ -924,25 +941,39 @@ def check_convs(unet, x, rows):
             hx = xin
             _, h, wd, c = hx.shape
             F = w.f
+            if cv.k4_route(c, w) != "conv_sm90":
+                fail(f"K4 {name}: {c} -> {F} does not take conv_sm90.cu")
+            n0 = cv.convt2x2_wgmma.launches
             y = cv.convt2x2_prepared(hx, w)
+            torch.cuda.synchronize()
+            if cv.convt2x2_wgmma.launches != n0 + 1:
+                fail(f"K4 {name}: the call did not launch convt2x2_wgmma")
+            if not torch.equal(cv.convt2x2_prepared(hx, w), y):
+                fail(f"K4 {name}: two runs differ")
             ref = cv.convt2x2_plain(hx, kern, w.bias, dtype=torch.float32)
             err = float((y.float() - ref).abs().max())
             tol = 2 * ulp_bf16(float(ref.abs().max()))
             if not err <= tol:
                 fail(f"K4 {name} {tuple(hx.shape)}: max abs err {err} > {tol}")
             mean = float((y.float() - ref).abs().mean())
-            extra = ""
             M = h * wd
             flops = 2.0 * M * 4 * F * c
             nbytes = 2.0 * M * c + 2.0 * 4 * c * F + 4.0 * F + 2.0 * 4 * M * F
-            ms = time_ms(lambda: cv.convt2x2_prepared(hx, w))
-            prev, routed = ms, False
+            routed = False
             plain = time_ms(lambda: cv.convt2x2_plain(hx, kern, w.bias), reps=2)
             xl = hx.permute(0, 3, 1, 2)
             wt = torch.flip(kern, dims=(0, 1)).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
             bl = w.bias.to(torch.bfloat16)
-            lib = time_ms(lambda: Fn.conv_transpose2d(xl, wt, bl, stride=2))
+            # in turns: the routed kernel, conv.cu's gemm<1,0>, the library call
+            ms, prev, lib = turns_ms({"new": lambda: cv.convt2x2_prepared(hx, w),
+                                      "old": lambda: cv._convt2x2_gemm(hx, w),
+                                      "library": lambda: Fn.conv_transpose2d(xl, wt, bl,
+                                                                             stride=2)})
+            if not ms < prev:
+                slower_k4.append(name)
             shape = f"{h}x{wd}x{c}->{2 * h}x{2 * wd}x{F}"
+            extra = (f" | convt2x2_wgmma {ms:.4f} ms, gemm<1,0> {prev:.4f} ms, "
+                     f"F.conv_transpose2d {lib:.4f} ms")
         b, by = bound_ms(nbytes, flops)
         for t in (a, acc["conv3x3_wgmma"]) if routed else (a,):
             t["ms"] += ms
@@ -963,18 +994,22 @@ def check_convs(unet, x, rows):
         _, by = bound_ms(a["nbytes"], a["flops"])
         rows[kind] = dict(ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                           bound_by=by, library_ms=a["library_ms"], max_abs_err=a["err"])
-        if kind != "convt2x2":
-            rows[kind]["previous_ms"] = a["previous_ms"]
+        rows[kind]["previous_ms"] = a["previous_ms"]
         log(f"{kind} per frame: {a['calls']} calls, {a['ms']:.4f} ms ({a['flops'] / 1e12:.4f} "
             f"TFLOP, {a['flops'] / a['ms'] / 1e9:.1f} TFLOP/s), bound {a['bound_ms']:.4f}, "
-            f"plain {a['plain_ms']:.4f}, library {a['library_ms']:.4f}"
-            + (f", gemm<0,0> {a['previous_ms']:.4f}" if kind != "convt2x2" else ""))
+            f"plain {a['plain_ms']:.4f}, library {a['library_ms']:.4f}, "
+            f"{'gemm<1,0>' if kind == 'convt2x2' else 'gemm<0,0>'} {a['previous_ms']:.4f}")
     a = acc["conv3x3_wgmma"]
     log(f"conv_sm90.cu on its 17 shapes: {a['ms']:.4f} ms against gemm<0,0> "
         f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x) and F.conv2d "
         f"{a['library_ms']:.4f} ({a['library_ms'] / a['ms']:.2f}x); half its bound "
         f"{2 * a['bound_ms']:.4f} ms {'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'}; "
         f"slower than gemm<0,0> at {slower or 'no shape'}")
+    a = acc["convt2x2"]
+    log(f"convt2x2_wgmma on the 4 K4 shapes: {a['ms']:.4f} ms against gemm<1,0> "
+        f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x) and F.conv_transpose2d "
+        f"{a['library_ms']:.4f} ({a['library_ms'] / a['ms']:.2f}x), bound {a['bound_ms']:.4f}; "
+        f"slower than gemm<1,0> at {slower_k4 or 'no shape'}")
 
 
 def _im2col_i8(xs):
@@ -1008,16 +1043,22 @@ def int_mm_fn(a, b):
     return None
 
 
+# the conv.cu kernel each conv_i8_sm90.cu mode replaced
+OLD_KERNEL = {"convt2x2_static": "gemm<1,1>", "conv3x3_dyn": "gemm<0,2>",
+              "conv3x3_static": "gemm<0,1>"}
+
+
 def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
     """Every int8-mode call of the static and the dyn net at the frame's
     shapes against its plain twin on the card, on the same inputs: K3 static
     (int8 pool included) and K4 static bit for bit, K3 dyn bit for bit, the
     bf16 input conv with int8 output within 1 code on <= 0.1% of elements
     (f32 sums in another order); ms, bound, twin and library per mode. K4
-    static and K3 dyn run ``conv_i8_sm90.cu``: each call is also held equal
-    to ``conv.cu``'s kernel and timed in turns against it and
-    ``torch._int_mm`` (K3 dyn also against the bf16 ``conv_sm90.cu`` conv of
-    the same shape, a yardstick the dyn route never calls)."""
+    static, K3 dyn and K3 static run ``conv_i8_sm90.cu``: each call is also
+    held equal to ``conv.cu``'s kernel and to a second run, and timed in
+    turns against that kernel and ``torch._int_mm`` (the K3 modes also
+    against the bf16 ``conv_sm90.cu`` conv of the same shape, a yardstick
+    their routes never call)."""
     import torch
     import torch.nn.functional as Fn
     from rtnr_tpu_torch.ops import conv as cv
@@ -1074,14 +1115,17 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                 ct, F = w.cin, int(w.wmat.shape[1])
                 hd = head_w if head else None
                 dyn = mode == "conv3x3_dyn"
-                if dyn and cv.k3_route(cs, w, head=head) != "conv_i8_sm90":
-                    fail(f"K3 dyn {name}: {cs} -> {F} does not take conv_i8_sm90.cu")
-                n0 = cv.conv3x3_dyn_wgmma.launches
+                static = mode == "conv3x3_static"
+                if (dyn or static) and cv.k3_route(cs, w, head=head) != "conv_i8_sm90":
+                    fail(f"K3 {w.quant} {name}: {cs} -> {F} does not take conv_i8_sm90.cu")
+                n0 = (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_static_wgmma.launches)
                 got = cv.conv3x3_prepared(xs, w, relu=True, pool=pool)
                 torch.cuda.synchronize()
-                if cv.conv3x3_dyn_wgmma.launches != n0 + dyn:
-                    fail(f"K3 {name}: conv3x3_dyn_wgmma launched "
-                         f"{cv.conv3x3_dyn_wgmma.launches - n0} times, not {int(dyn)}")
+                moved = (cv.conv3x3_dyn_wgmma.launches - n0[0],
+                         cv.conv3x3_static_wgmma.launches - n0[1])
+                if moved != (int(dyn), int(static)):
+                    fail(f"K3 {name}: conv3x3_dyn_wgmma / conv3x3_static_wgmma launched "
+                         f"{moved} times, not {(int(dyn), int(static))}")
                 ref = cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool)
                 if mode == "conv3x3_i8out":
                     d = (got[0].int() - ref[0].int()).abs()
@@ -1096,14 +1140,15 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                             fail(f"K3 {w.quant} {name}: kernel differs from its twin")
                     err = 0.0
                     extra = " +int8 pool exact" if pool else ""
-                if dyn:
+                if dyn or static:
+                    gname = "gemm<0,2>" if dyn else "gemm<0,1>"
                     old = cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=None)
                     if not all(torch.equal(g, o) for g, o in zip(got, old)):
-                        fail(f"K3 dyn {name}: kernel differs from conv.cu's gemm<0,2>")
+                        fail(f"K3 {w.quant} {name}: kernel differs from conv.cu's {gname}")
                     again = cv.conv3x3_prepared(xs, w, relu=True, pool=pool)
                     if not all(torch.equal(g, o) for g, o in zip(got, again)):
-                        fail(f"K3 dyn {name}: two runs differ")
-                    extra += " = gemm<0,2>"
+                        fail(f"K3 {w.quant} {name}: two runs differ")
+                    extra += f" = {gname}"
                 if pool and not torch.equal(got[1], cv._pool2(got[0])):
                     fail(f"K3 {name}: pooled output differs from the 2x2 max of the conv")
                 if head:
@@ -1112,7 +1157,9 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                     herr = float((hout.float() - href).abs().max())
                     if not herr <= 2 * ulp_bf16(float(href.abs().max())):
                         fail(f"K3 {name} head: max abs err {herr}")
-                    extra += f" +head err {herr:.3g}"
+                    (htwin,) = cv.conv3x3_prepared_plain(xs, w, relu=True, head=hd)
+                    hshare = float((hout != htwin).float().mean())
+                    extra += f" +head err {herr:.3g} (differs from the twin on {hshare:.3g})"
                 M = h * wd
                 oc = int(hd.hk.shape[1]) if head else 0
                 ops = 2.0 * M * F * 9 * ct + 2.0 * M * F * oc
@@ -1122,11 +1169,13 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                     out_b * M * F / 4 if pool else 0.0)
                 nbytes = in_b * M * ct + (1.0 if w.quant else 2.0) * 9 * ct * F + 8.0 * F + out_bytes
                 fns = {"new": lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd)}
-                if dyn:
+                if dyn or static:
                     wb = bf16_w[name]
-                    fns["old"] = lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=None)
-                    fns["bf16"] = lambda: cv._conv3x3_wgmma(xs, wb, relu=True, pool=pool,
-                                                            head=None)
+                    hb16 = bf16_w["final_conv"] if head else None
+                    xb = [t.to(torch.bfloat16) for t in xs]  # the bf16 conv's own operands
+                    fns["old"] = lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=hd)
+                    fns["bf16"] = lambda: cv._conv3x3_wgmma(xb, wb, relu=True, pool=pool,
+                                                            head=hb16)
                 plain = time_ms(lambda: cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool,
                                                                   head=hd), reps=2)
                 if mode == "conv3x3_i8out":  # the bf16 GEMM: F.conv2d in bf16
@@ -1139,7 +1188,8 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                     lib_fn = int_mm_fn(_im2col_i8(xs), w.wmat[:9 * ct])
                     rate = INT8_OPS_PER_S
                 shape = f"{h}x{wd}x({'+'.join(str(c) for c in cs)})->{F}"
-            # in turns: the routed kernel, conv.cu's where replaced, the library, the bf16 conv
+            # in turns: the routed kernel, conv.cu's where replaced, the bf16 conv, the
+            # library
             if lib_fn is not None:
                 fns["library"] = lib_fn
             order = list(fns) + list(reversed(list(fns)))
@@ -1171,9 +1221,9 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
             libs = "refused" if lib is None else f"{lib:.4f}"
             cmp = ""
             if prev is not None:
-                cmp = f", {'gemm<1,1>' if kind == 'convt2x2' else 'gemm<0,2>'} {prev:.4f}"
-                per_shape[name] = {"ms": ms, "previous_ms": prev, "library_ms": lib,
-                                   "bound_ms": b, "bf16_ms": bf16, "turns": turns}
+                cmp = f", {OLD_KERNEL[mode]} {prev:.4f}"
+                per_shape[f"{mode} {name}"] = {"ms": ms, "previous_ms": prev, "library_ms": lib,
+                                               "bound_ms": b, "bf16_ms": bf16, "turns": turns}
             if bf16 is not None:
                 cmp += f", bf16 conv_sm90 {bf16:.4f}"
             log(f"{mode} {name:16s} {shape:24s} err {err:.3g}{extra} | {ms:.4f} ms, "
@@ -1187,18 +1237,23 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                           bound_by=by, library_ms=a["library_ms"], max_abs_err=a["err"])
         libs = "null" if a["library_ms"] is None else f"{a['library_ms']:.4f}"
         more = ""
-        if mode in ("convt2x2_static", "conv3x3_dyn"):
+        if mode in OLD_KERNEL:
             rows[mode]["previous_ms"] = a["previous_ms"]
-            more = f", {'gemm<1,1>' if mode == 'convt2x2_static' else 'gemm<0,2>'} " \
-                   f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x)"
-        if mode == "conv3x3_dyn":
+            more = (f", {OLD_KERNEL[mode]} {a['previous_ms']:.4f} "
+                    f"({a['previous_ms'] / a['ms']:.2f}x)")
+        if mode in ("conv3x3_dyn", "conv3x3_static"):
             rows[mode]["bf16_ms"] = a["bf16_ms"]
             more += f", bf16 conv_sm90.cu on the same shapes {a['bf16_ms']:.4f}"
         log(f"{mode} per frame: {a['calls']} calls, {a['ms']:.4f} ms ({a['ops'] / 1e12:.4f} "
             f"TOP, {a['ops'] / a['ms'] / 1e9:.1f} TOP/s), bound {a['bound_ms']:.4f}, plain "
             f"{a['plain_ms']:.4f}, library {libs}{more}")
-    if acc["convt2x2_static"]["calls"] != 4 or acc["conv3x3_dyn"]["calls"] != 10:
-        fail("expected 4 K4 static and 10 K3 dyn calls in the int8 nets")
+    if (acc["convt2x2_static"]["calls"] != 4 or acc["conv3x3_dyn"]["calls"] != 10
+            or acc["conv3x3_static"]["calls"] != 17):
+        fail("expected 4 K4 static, 10 K3 dyn and 17 K3 static calls in the int8 nets")
+    a = acc["conv3x3_static"]
+    log(f"conv3x3_static_wgmma on its 17 shapes: {a['ms']:.4f} ms, bf16 conv_sm90.cu "
+        f"{a['bf16_ms']:.4f} ({'below' if a['ms'] < a['bf16_ms'] else 'not below'}), twice "
+        f"the bound {2 * a['bound_ms']:.4f} ({'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'})")
     log(f"conv_i8_sm90.cu slower than the conv.cu kernel it replaces at "
         f"{slower or 'no shape'}")
     return {"per_shape": per_shape, "slower_than_conv_cu": slower}
@@ -1225,11 +1280,12 @@ def check_int8_nets(bf16_unet, static_unet, act_scales, dyn_unet, x):
     return out
 
 
-def trace_frames(renderer, cam, E, frame_ms: float, frames: int = 3, label: str = "bf16") -> None:
+def trace_frames(renderer, cam, E, frame_ms: float, frames: int = 3, label: str = "bf16"):
     """torch.profiler over a few frames: device busy time per frame (sum of
     the device-side events: kernels and copies, one stream) against the
-    unprofiled ``frame_ms``, and the top device kernels. Prints "not
-    measured" where the profiler sees no device events (no CUPTI)."""
+    unprofiled ``frame_ms``, and the top device kernels; returns each
+    kernel's (ms, launches) per frame. Prints "not measured" where the
+    profiler sees no device events (no CUPTI)."""
     import collections
 
     import torch
@@ -1252,12 +1308,13 @@ def trace_frames(renderer, cam, E, frame_ms: float, frames: int = 3, label: str 
     busy = sum(v[0] for v in per_name.values()) / frames
     if busy <= 0:
         log("trace: device time not measured (the profiler saw no device events)")
-        return
+        return {}
     log(f"trace ({label}): {frames} frames; device busy {busy:.3f} ms/frame; unprofiled frame "
         f"{frame_ms:.3f} ms -> idle share {max(0.0, 1 - busy / frame_ms):.4f} "
         f"(profiled wall {wall_ms:.3f} ms/frame)")
     for name, (ms, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {ms / frames:8.3f} ms/frame  x{n // frames:<4d} {name[:90]}")
+    return {name: (ms / frames, n // frames) for name, (ms, n) in per_name.items()}
 
 
 def check_small_vs_cpu(features):
@@ -1470,7 +1527,9 @@ def main() -> int:
                "winners5": r5.winners5, "resolve_carriers": rc.resolve_carriers,
                "conv3x3_direct": conv_direct.conv3x3_pallas, "conv3x3_wgmma": cv.conv3x3_wgmma,
                "conv3x3_up": cv.conv3x3_up, "conv3x3_dyn_wgmma": cv.conv3x3_dyn_wgmma,
-               "convt2x2_static_wgmma": cv.convt2x2_static_wgmma}
+               "convt2x2_static_wgmma": cv.convt2x2_static_wgmma,
+               "conv3x3_static_wgmma": cv.conv3x3_static_wgmma,
+               "convt2x2_wgmma": cv.convt2x2_wgmma}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
     conv_up = check_conv_up(renderer.unet, x, rows)
@@ -1499,10 +1558,12 @@ def main() -> int:
     # ---- the main path: bf16 ----
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
-                         ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma"), "bf16",
+                         ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
+                          "convt2x2_wgmma"), "bf16",
                          host_frames=HOST_FRAMES,
-                         per_frame={"conv3x3_wgmma": 17, "conv3x3_up": 0, "conv3x3_dyn_wgmma": 0,
-                                    "convt2x2_static_wgmma": 0})
+                         per_frame={"conv3x3_wgmma": 17, "convt2x2_wgmma": 4, "conv3x3_up": 0,
+                                    "conv3x3_dyn_wgmma": 0, "convt2x2_static_wgmma": 0,
+                                    "conv3x3_static_wgmma": 0})
     peak = torch.cuda.max_memory_allocated() / 2**30
     trace_frames(renderer, cam, E, serve["ms_per_frame"])
     resolvers = resolver_frames(renderer, cam, E, counted)
@@ -1526,15 +1587,27 @@ def main() -> int:
     # ---- the int8 serving paths ----
     serve_static = serve_frames(static_r, cam, E, INT8_FRAMES, counted,
                                 ("winners", "expand", "conv3x3_i8out", "conv3x3_static",
-                                 "convt2x2_static", "convt2x2_static_wgmma"), "static int8",
-                                per_frame={"conv3x3_static": 17, "convt2x2_static": 4,
-                                           "convt2x2_static_wgmma": 4})
+                                 "convt2x2_static", "convt2x2_static_wgmma",
+                                 "conv3x3_static_wgmma"), "static int8",
+                                per_frame={"conv3x3_static": 17, "conv3x3_static_wgmma": 17,
+                                           "convt2x2_static": 4, "convt2x2_static_wgmma": 4,
+                                           "convt2x2_wgmma": 0})
     serve_dyn = serve_frames(dyn_r, cam, E, INT8_FRAMES, counted,
                              ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2",
-                              "conv3x3_wgmma", "conv3x3_dyn_wgmma"), "dyn int8",
+                              "conv3x3_wgmma", "conv3x3_dyn_wgmma", "convt2x2_wgmma"),
+                             "dyn int8",
                              per_frame={"conv3x3_wgmma": 7, "conv3x3_dyn": 10,
-                                        "conv3x3_dyn_wgmma": 10})
-    trace_frames(static_r, cam, E, serve_static["ms_per_frame"], label="static int8")
+                                        "conv3x3_dyn_wgmma": 10, "convt2x2_wgmma": 4,
+                                        "conv3x3_static_wgmma": 0})
+    static_trace = trace_frames(static_r, cam, E, serve_static["ms_per_frame"],
+                                label="static int8")
+    # the unfused kernels K3 static replaced: conv.cu's GEMM, its pool and its head
+    gone = [n for n in static_trace
+            if any(k in n for k in ("gemm<0, 1>", "head1x1_bf16", "maxpool2<signed char>"))]
+    log(f"static trace: conv.cu's gemm<0,1> / head1x1_bf16 / int8 maxpool2 "
+        f"{'absent' if not gone else 'present: ' + ', '.join(gone)}")
+    if gone:
+        fail("the static frame still runs conv.cu's K3 static kernels")
     trace_frames(dyn_r, cam, E, serve_dyn["ms_per_frame"], label="dyn int8")
     # end to end at a second pose, away from the calibration view
     E2 = np.eye(4)
@@ -1573,11 +1646,11 @@ def main() -> int:
         # every K3 bf16 call of a frame: 17 on conv_sm90.cu, the 5-channel input conv on conv.cu
         "conv3x3": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_wgmma": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
-        "convt2x2": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1310"),
+        "convt2x2": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1310"),
         "winners_f32": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                         "rtnr_tpu/ops/raster_pallas4.py:872"),
         "conv3x3_i8out": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
-        "conv3x3_static": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "conv3x3_static": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_dyn": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2_static": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1310"),
         "winners5": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",

@@ -2,7 +2,7 @@
 // wgmma (.s32.s8.s8, k32) fed by TMA. Built as its own library
 // (conv_i8_sm90); the shared PTX and host helpers are in sm90.cuh.
 //
-// Numerics are those of conv.cu's gemm<0,2> and gemm<1,1>, bit for bit:
+// Numerics are those of conv.cu's gemm<0,2>, gemm<0,1> and gemm<1,1>, bit for bit:
 // exact i32 sums (127^2 x 9216 < 2^31), and every float multiply and add of
 // the quantiser and the epilogues written with __fmul_rn / __fadd_rn, which
 // nvcc never contracts into an FMA; i32 -> f32 with __int2float_rn.
@@ -95,7 +95,77 @@
 //   TMA zero-fills the rows past the end.
 // - Ring of 4 stages of 48 KB, 32 KB of staging: 224 KB, one block an SM.
 //
-// Both kernels: no split-K and no atomics, so a call gives the same bits
+// ---- conv3x3_static_wgmma: K3's static mode
+//
+// Replaces rtnr_tpu/ops/conv_phase.py::_conv_phase_kernel with
+// quant="static" (conv_phase.py:338-345, 390-427; weights :864-868,
+// 913-936): conv.cu's AK 1. int8 codes in (one input or two, the virtual
+// channel concat; a second input's scale ratio is already in its weight
+// slice, so the kernel does not rescale), i32 sums over 9*(C0+C1), y =
+// f32(acc) * scale[f] + bias[f], ReLU; out either the codes clip(rint(y),
+// 0 or -127, 127) or bf16 (the head conv). Fused options as conv_sm90.cu's:
+// the 2x2 max-pool of the output (max of codes is exact) and the 1x1 head on
+// the bf16 output (OC <= 8, f32 sums, HeadWeights.hk8; the conv output is
+// then not written).
+//
+// Bound on this card: operations. The full-width net's 17 static calls are
+// 2.95 TOP, 1.4911 ms at 1,979 TOP/s. conv.cu's gemm<0,1> (wmma mma.sync
+// 16x16x16, one shared buffer, A gathered element by element, a scalar
+// scatter epilogue) ran them at 113 TOP/s. Here the static codes need no
+// quantiser, so the operands go from TMA straight to SS-form s8 wgmma, on
+// conv_sm90.cu's skeleton:
+// - The pixels (wgmma's B) by TMA halo boxes of int8: a stage is one (dx,
+//   input, 64-channel chunk), one box (64 c = 64 bytes, 16 x, 18 y) at (c0,
+//   x0 + dx - 1, y0 - 1) with the 64B swizzle (8-row atoms of 512 bytes),
+//   zero padding from TMA's out-of-bounds fill. A box row of 16 pixels is 1
+//   KB, so the three dy taps' operands start on atom boundaries; a one-pixel
+//   dx shift (64 bytes) would not, hence a box per dx. Descriptors of layout
+//   type 2 (SBO 512), two k32 steps a chunk.
+// - The weights (wgmma's A) by TMA from the K-major (F, 9*(C0+C1)) int8
+//   copy (Conv3x3Weights.wmat_t, the dyn copy's row map t*(C0+C1) + (C0 if
+//   input 1) + c): three (64 k, 64 f) boxes a stage, 64B swizzle. Hopper's
+//   8-bit wgmma takes both operands K-major only.
+// - Swapped operands: A = the tile's 64 output channels' weights, B = its
+//   256 pixels (16 image rows x 16 columns), m64n256k32. SS-form wgmma reads
+//   both operands from shared memory for every instruction, (64 + N) x 32
+//   bytes a k32 step for 64 N 32 MACs: an m64n64 tile (64 pixels by 64
+//   channels) would need 128 bytes a cycle at the int8 rate, all the SM's
+//   shared-memory bandwidth; n256 needs 80. The accumulator is channels by
+//   pixels (128 s32 registers a thread, setmaxnreg 40 / 232), and the
+//   epilogue stages it transposed, a byte (or a bf16) a store.
+// - Ping-pong: a tile is 16 x 16 pixels by 64 channels and the two consumer
+//   warpgroups take the block's tiles in turn, each with its own stages
+//   (the producer fills the ring tile after tile; a consumer steps over the
+//   other's). A consumer issues its MMAs only in its turn (two mbarriers
+//   pass the turn after its last group retires), so one consumer's
+//   epilogue runs under the other's MMAs: at 64 input channels a tile has
+//   three stages, and its epilogue (4 blocks of 64 pixels) is as long as
+//   its MMAs. Ring of 6 stages (18 KB box + 12 KB weights), 196 KB.
+// - Measured against the forms this file had first (chip_smoke.py, in
+//   turns, on an NVIDIA H100 80GB HBM3 at 700 W, ms a call): the two
+//   consumers on one tile, as swapped 64-channel tiles of 32 x 16 pixels,
+//   swapped 128-channel tiles (the consumers on its channel halves) and
+//   unswapped 256-channel tiles of 8 x 16 pixels, the best picked per F,
+//   summed to 2.7200 ms over the full-width net's 17 calls; this form sums
+//   to 2.4999 and wins at 15 of the 17 (down0/conv1, 1088x1920x64 -> 64:
+//   0.2063 against 0.2218; updc1/conv0, 272x480x(256+256) -> 256: 0.1889
+//   against 0.2076; bottleneck/conv1, 68x120x1024 -> 1024: 0.1258 against
+//   0.1455). It loses 0.012 ms at updc3/conv0 (1088x1920x(64+64) -> 64: the
+//   18-row box of a 16-row tile carries 12.5% halo, the 34-row box of a
+//   32-row one 6%) and 0.010 at updc0/conv0 (136x240x(512+512) -> 512).
+// - The fused head needs every channel of a pixel in one consumer: F = 64
+//   only (the net's head conv); a head at F > 64 stays on conv.cu.
+// - Epilogue per 64-pixel, 64-channel block, staged in shared memory and
+//   stored 16 bytes at a time, masked at the ragged edge (68 x 120: 68 % 16
+//   = 4, 120 % 16 = 8): codes as 64-byte rows (16-byte chunks XOR-swizzled
+//   by row pair), the pool from the staged codes (__vmaxs4), bf16 as
+//   conv_sm90.cu stages it, the head from the staged bf16 values on
+//   mma.sync m16n8k16 (a scalar loop with a head-kernel load a product cost
+//   the head conv 0.42 ms against 0.25). The code is clip(rint(y), lo, 127)
+//   with the ReLU folded into lo and one __float2int_rn (round half to even,
+//   as rintf): the C = 64 calls took 17% longer with rintf, fmaxf, fminf.
+//
+// Every kernel: no split-K and no atomics, so a call gives the same bits
 // every time; mbar_wait traps on a stuck pipeline. Every entry returns a
 // cudaError_t (0 on success): cudaErrorInvalidValue for shapes it does not
 // take or a tensor map that does not encode, else cudaGetLastError().
@@ -131,6 +201,18 @@
 #define TSMEM (TBAR_OFF + 2 * TSTAGES * 8)
 
 static_assert(DSMEM <= 232448 && TSMEM <= 232448, "shared memory");
+
+// K3 static: tiles of 16 x 16 pixels by 64 channels, one a consumer
+#define SBK 64                                     // channels of a stage: 64 int8, 64 bytes
+#define S_ROW_BYTES (TILE_X * SBK)                 // one image row of the box: 1 KB
+#define S_TY 16                                    // image rows of a tile
+#define SA_BYTES ((S_TY + 2) * S_ROW_BYTES)        // the halo box: 18 KB
+#define SB_BYTES (64 * SBK)                        // one dy tap's weights: 4 KB
+#define SSTAGES 6
+#define SSTAGE_BYTES (SA_BYTES + 3 * SB_BYTES)     // 30 KB
+#define SBAR_OFF (SSTAGES * SSTAGE_BYTES + 2 * STG_BYTES)
+#define SSMEM (SBAR_OFF + 2 * SSTAGES * 8 + 16)    // + the two turn barriers
+static_assert(SSMEM <= 232448 && SSTAGE_BYTES % 1024 == 0, "shared memory");
 static_assert(DSTAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0 && TSTAGE_BYTES % 1024 == 0,
               "swizzled tiles stay 1024-byte aligned");
 
@@ -148,6 +230,17 @@ struct ConvTArgs {
   const float* scale;  // (F,)
   const float* bias;   // (F,)
   signed char* out;    // (2H, 2W, F) codes
+};
+
+struct StaticArgs {
+  int C0, C1, H, W, F, relu, out_i8, OC;
+  const float* scale;  // (F,) weight x input / output scale (prepare_conv3x3)
+  const float* bias;   // (F,) f32 values of the bf16 bias
+  void* out;           // (H, W, F) codes or bf16, or null with the head
+  void* pooled;        // (H/2, W/2, F) of the same type, or null
+  const bf16* hk8;     // (F, 8) head kernel, zero past OC, or null
+  const float* hb;     // (OC,) head bias
+  bf16* hout;          // (H, W, OC) or null
 };
 
 // ------------------------------------------------------------ s8 wgmma
@@ -236,13 +329,6 @@ __device__ __forceinline__ void wgmma_s8_rs(int* d, const uint32_t* a, uint64_t 
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
         "+r"(d[126]), "+r"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void setmaxnreg_dec40() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
-}
-__device__ __forceinline__ void setmaxnreg_inc232() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
 }
 
 // keep a register fragment alive (and unmoved) until this point: an RS
@@ -631,19 +717,297 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// ------------------------------------------------------------ host side
+// ------------------------------------------------------------ K3 static
 
-// setmaxnreg.inc blocks until the block's pool holds the registers it asks
-// for: the launch must give each of the 384 threads the 168 that 40 for the
-// producer and 232 for the consumers add up to, or the consumers would wait
-// for ever. Refuse the launch instead.
-template <typename Kern>
-static int check_regs(Kern kernel) {
-  cudaFuncAttributes fa;
-  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
-  if (e != cudaSuccess) return (int)e;
-  return fa.numRegs * NTHREADS >= 128 * 40 + 256 * 232 ? 0 : (int)cudaErrorInvalidConfiguration;
+// byte offset of 16-byte chunk `ch` (0..3) of staged row `r` (64 codes)
+__device__ __forceinline__ int qstg_off(int r, int ch) { return r * 64 + ((ch ^ ((r >> 1) & 3)) << 4); }
+
+__device__ __forceinline__ float static_y(int acc, float s, float b, int relu) {
+  const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
+  return relu ? fmaxf(y, 0.0f) : y;
 }
+
+// the code clip(rint(max(y, 0) if relu else y), lo, 127) with lo = 0 under
+// ReLU, else -127: rint is monotone and rint(0) = 0, so the ReLU is the
+// lower clip, and __float2int_rn rounds half to even as rintf does
+__device__ __forceinline__ int static_code(int acc, float s, float b, int lo) {
+  return min(max(__float2int_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc), s), b)), lo), 127);
+}
+
+// a staged block of codes (64 pixels: 4 rows x 16 columns from (yb, x0),
+// 64 channels from nc) to out (H, W, F): 16-byte stores masked at the edge
+__device__ __forceinline__ void store_block_i8(const unsigned char* stg, signed char* out, int H,
+                                               int W, int F, int yb, int x0, int nc, int t) {
+  for (int idx = t; idx < 64 * 4; idx += 128) {
+    const int r = idx >> 2, ch = idx & 3;
+    const int y = yb + (r >> 4), x = x0 + (r & 15);
+    if (y < H && x < W)
+      *reinterpret_cast<uint4*>(out + ((size_t)y * W + x) * F + nc + ch * 16) =
+          *reinterpret_cast<const uint4*>(stg + qstg_off(r, ch));
+  }
+}
+
+__device__ __forceinline__ uint4 vmax16(uint4 a, uint4 b) {
+  return make_uint4(__vmaxs4(a.x, b.x), __vmaxs4(a.y, b.y), __vmaxs4(a.z, b.z),
+                    __vmaxs4(a.w, b.w));
+}
+
+// the 2x2/2 max-pool of the same block (yb, x0 even): 2 x 8 pooled pixels x
+// 4 chunks, one a thread of the first 64
+__device__ __forceinline__ void pool_block_i8(const unsigned char* stg, signed char* pooled,
+                                              int H, int W, int F, int yb, int x0, int nc,
+                                              int t) {
+  if (t >= 64) return;
+  const int hp = H / 2, wp = W / 2;
+  const int q = t >> 2, ch = t & 3;
+  const int j = q >> 3, i = q & 7;
+  const int py = yb / 2 + j, px = x0 / 2 + i;
+  if (py < hp && px < wp) {
+    const int r = 32 * j + 2 * i;  // staged row of pixel (2j, 2i) of the band
+    const uint4 v = vmax16(vmax16(*reinterpret_cast<const uint4*>(stg + qstg_off(r, ch)),
+                                  *reinterpret_cast<const uint4*>(stg + qstg_off(r + 1, ch))),
+                           vmax16(*reinterpret_cast<const uint4*>(stg + qstg_off(r + 16, ch)),
+                                  *reinterpret_cast<const uint4*>(stg + qstg_off(r + 17, ch))));
+    *reinterpret_cast<uint4*>(pooled + ((size_t)py * wp + px) * F + nc + ch * 16) = v;
+  }
+}
+
+// pixel block b (64 pixels) of a consumer's accumulator (rows = channels
+// f0 = 16*warp + lane/4 and f0 + 8, columns = pixels) as codes, staged as 64
+// rows of 64 bytes, 16-byte chunks XOR-swizzled by row pair (a byte a store)
+__device__ __forceinline__ void stage_swap_i8(const int* acc, int b, const float* scale,
+                                              const float* bias, int relu, unsigned char* stg,
+                                              int warp, int lane) {
+  const int lo = relu ? 0 : -127;
+  const int f0 = 16 * warp + (lane >> 2), q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + 8 * h;
+    const float s = __ldg(scale + f), bb = __ldg(bias + f);
+    unsigned char* col = stg + (f & 15);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * i + 2 * q + e;  // pixel of the block
+        col[qstg_off(r, f >> 4)] =
+            (unsigned char)(static_code(acc[32 * b + 4 * i + 2 * h + e], s, bb, lo) & 0xff);
+      }
+    }
+  }
+}
+
+// the same in bf16 (the head conv), staged as conv_sm90.cu stages it
+__device__ __forceinline__ void stage_swap_bf16(const int* acc, int b, const float* scale,
+                                                const float* bias, int relu, unsigned char* stg,
+                                                int warp, int lane) {
+  const int f0 = 16 * warp + (lane >> 2), q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + 8 * h;
+    const float s = __ldg(scale + f), bb = __ldg(bias + f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * i + 2 * q + e;
+        *reinterpret_cast<bf16*>(stg + stg_off(r, f >> 3) + 2 * (f & 7)) =
+            __float2bfloat16_rn(static_y(acc[32 * b + 4 * i + 2 * h + e], s, bb, relu));
+      }
+    }
+  }
+}
+
+// the fused 1x1 head on a staged bf16 block (64 pixels x the 64 channels of
+// F = 64): warp w's 16 pixels x the 8 head columns, mma.sync m16n8k16 over
+// the channels (A by ldmatrix from the staged rows, B = the (64, 8) head
+// kernel), f32 sums into hc
+__device__ __forceinline__ void head_mma(const unsigned char* stg, const bf16* hk8, int warp,
+                                         int lane, float* hc) {
+  const unsigned short* hk = reinterpret_cast<const unsigned short*>(hk8);
+  const int g = lane >> 2, q = lane & 3;
+  const int row = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);  // this lane's ldmatrix row
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(stg);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, sbase + stg_off(row, 2 * kk + (lane >> 4)));
+    const int k = 16 * kk + 2 * q;
+    const uint32_t b0 = (uint32_t)__ldg(hk + k * 8 + g) | ((uint32_t)__ldg(hk + (k + 1) * 8 + g) << 16);
+    const uint32_t b1 =
+        (uint32_t)__ldg(hk + (k + 8) * 8 + g) | ((uint32_t)__ldg(hk + (k + 9) * 8 + g) << 16);
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(hc[0]), "+f"(hc[1]), "+f"(hc[2]), "+f"(hc[3])
+        : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "r"(b0), "r"(b1));
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    conv3x3_static_wgmma(const __grid_constant__ CUtensorMap map_x0,
+                         const __grid_constant__ CUtensorMap map_x1,
+                         const __grid_constant__ CUtensorMap map_w, const StaticArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t full0 = base + SBAR_OFF;
+  const uint32_t empty0 = full0 + 8 * SSTAGES;
+  const uint32_t turn0 = empty0 + 8 * SSTAGES;  // turn[c] = turn0 + 8c
+
+  if (threadIdx.x == 0) {
+    if (base & 1023) __trap();
+    for (int s = 0; s < SSTAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx arrival
+      mbar_init(empty0 + 8 * s, 1);  // the consumer whose tile the stage holds
+    }
+    mbar_init(turn0, 1);
+    mbar_init(turn0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_arrive(turn0);  // consumer 0 takes the first turn
+  }
+  __syncthreads();
+
+  const int TX = (a.W + TILE_X - 1) / TILE_X;
+  const int TYN = (a.H + S_TY - 1) / S_TY;
+  const int NT = a.F / 64;
+  const int ntiles = TX * TYN * NT;
+  const int ct = a.C0 + a.C1;
+  const int nk = 3 * ct / SBK;  // stages a tile: (dx, input, 64-channel chunk)
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, tile after tile
+    setmaxnreg_dec40();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int n0 = (tile % NT) * 64;
+        const int pt = tile / NT;
+        const int x0 = (pt % TX) * TILE_X, y0 = (pt / TX) * S_TY;
+        for (int dx = 0; dx < 3; ++dx) {
+          for (int inp = 0; inp < 2; ++inp) {
+            const int C = inp ? a.C1 : a.C0;
+            const CUtensorMap* map = inp ? &map_x1 : &map_x0;
+            const int kb = dx * ct + (inp ? a.C0 : 0);  // weight row of tap (0, dx)
+            for (int c = 0; c < C; c += SBK) {
+              const uint32_t full = full0 + 8 * stage;
+              mbar_wait(empty0 + 8 * stage, phase ^ 1);
+              mbar_expect_tx(full, SSTAGE_BYTES);
+              const uint32_t sa = base + stage * SSTAGE_BYTES;
+              // image rows y0-1 .. y0+16 at columns x0+dx-1 .., then tap (dy, dx)'s weights
+              tma_load_3d(sa, map, full, c, x0 + dx - 1, y0 - 1);
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy)
+                tma_load_2d(sa + SA_BYTES + dy * SB_BYTES, &map_w, full, kb + 3 * dy * ct + c, n0);
+              if (++stage == SSTAGES) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers, ping-pong: consumer cw takes the block's tiles k with
+    // k % 2 == cw, steps over the other's stages, and runs its MMAs only in
+    // its turn, so that one consumer's epilogue runs under the other's MMAs
+    setmaxnreg_inc232();
+    const int cw = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31;
+    unsigned char* stg = smem + SSTAGES * SSTAGE_BYTES + cw * STG_BYTES;
+    int acc[128];
+    int stage = 0;
+    uint32_t phase = 0, tph = 0;
+    for (int tile = blockIdx.x, k = 0; tile < ntiles; tile += gridDim.x, ++k) {
+      if ((k & 1) != cw) {
+        const int s2 = stage + nk;
+        phase ^= (s2 / SSTAGES) & 1;
+        stage = s2 % SSTAGES;
+        continue;
+      }
+      const int n0 = (tile % NT) * 64;
+      const int pt = tile / NT;
+      const int x0 = (pt % TX) * TILE_X, y0 = (pt / TX) * S_TY;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0;
+      mbar_wait(turn0 + 8 * cw, tph);  // the other consumer's MMAs are done
+      tph ^= 1;
+      int prev = 0;
+      for (int ks = 0; ks < nk; ++ks) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t sa = base + stage * SSTAGE_BYTES;
+        fence_acc<128>(acc);
+        __syncwarp();  // the .aligned wgmma instructions need the whole warp
+        wg_fence();
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          // A = the 64 channels' weights of tap (dy, dx), B = the 256 pixels of
+          // box rows dy .. dy + 15 (the tile's rows shifted by the tap)
+          const uint64_t dw = sw64_desc(sa + SA_BYTES + dy * SB_BYTES);
+          const uint64_t dp = sw64_desc(sa + dy * S_ROW_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < SBK / 32; ++kk) wgmma_s8(acc, dw + 2 * kk, dp + 2 * kk);
+        }
+        wg_commit();
+        fence_acc<128>(acc);
+        wg_wait<1>();  // the previous step's group has retired: its stage is free
+        fence_acc<128>(acc);
+        if (ks > 0 && t == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = stage;
+        if (++stage == SSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_wait<0>();
+      fence_acc<128>(acc);
+      if (t == 0) {
+        mbar_arrive(empty0 + 8 * prev);
+        mbar_arrive(turn0 + 8 * (cw ^ 1));  // the other consumer's turn
+      }
+
+      // ---- epilogue, per block of 64 pixels (4 image rows), staged in
+      // shared memory, then stored, pooled or fed to the head
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int yb = y0 + 4 * b;  // first image row of the block
+        named_bar(1 + cw);          // every thread is done reading the staged block
+        if (a.out_i8)
+          stage_swap_i8(acc, b, a.scale + n0, a.bias + n0, a.relu, stg, warp, lane);
+        else
+          stage_swap_bf16(acc, b, a.scale + n0, a.bias + n0, a.relu, stg, warp, lane);
+        named_bar(1 + cw);
+        if (a.out_i8) {
+          if (a.out) store_block_i8(stg, (signed char*)a.out, a.H, a.W, a.F, yb, x0, n0, t);
+          if (a.pooled)
+            pool_block_i8(stg, (signed char*)a.pooled, a.H, a.W, a.F, yb, x0, n0, t);
+        } else {
+          if (a.out) store_block(stg, (bf16*)a.out, a.H, a.W, a.F, yb, x0, n0, t);
+          if (a.pooled) pool_block(stg, (bf16*)a.pooled, a.H, a.W, a.F, yb, x0, n0, t);
+        }
+        if (a.hout) {
+          // F == 64: the block holds every channel. Rows g, g + 8 of the
+          // warp's 16 pixels (image row yb + warp), head columns 2q, 2q + 1
+          float hc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          head_mma(stg, a.hk8, warp, lane, hc);
+          const int g = lane >> 2, q = lane & 3;
+          const int y = yb + warp;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = x0 + g + 8 * (e >> 1), o = 2 * q + (e & 1);
+            if (o < a.OC && y < a.H && x < a.W)
+              a.hout[((size_t)y * a.W + x) * a.OC + o] = __float2bfloat16_rn(hc[e] + a.hb[o]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
 
 // x0, x1: (H, W, C0), (H, W, C1) bf16 (x1 null when C1 = 0); wt: (F, K) int8,
 // K = 9*(C0+C1) in (tap, input, channel) order; scale, bias (F,) f32; amax:
@@ -732,5 +1096,62 @@ extern "C" int rtnr_convt2x2_i8_wgmma(const void* x, int C, int H, int W, const 
   const int ntiles = ((M + TBM - 1) / TBM) * (4 * F / BN);
   convt2x2_i8_wgmma<<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, TSMEM,
                       (cudaStream_t)stream>>>(ma, mb, a);
+  return (int)cudaGetLastError();
+}
+
+// K3 static. x0, x1: (H, W, C0), (H, W, C1) int8 codes (x1 null when C1 =
+// 0); wt: (F, K) int8, K = 9*(C0+C1) in (tap, input, channel) order; scale,
+// bias (F,) f32. Outputs: out (H, W, F) codes (out_i8) or bf16, or null with
+// the head; pooled (H/2, W/2, F) of out's type or null; hout (H, W, OC) bf16
+// with hk8 (64, 8: the head kernel zero-padded past OC <= 8), hb (OC,), or
+// null. C0, C1 and F multiples of 64; the head takes F = 64.
+extern "C" int rtnr_conv3x3_static_wgmma(const void* x0, const void* x1, int C0, int C1, int H,
+                                         int W, const void* wt, const void* scale,
+                                         const void* bias, void* out, void* pooled, int out_i8,
+                                         const void* hk8, const void* hb, int OC, void* hout,
+                                         int F, int relu, void* stream) {
+  const bool head = hout != nullptr;
+  if (C0 <= 0 || C0 % SBK || C1 < 0 || C1 % SBK || F <= 0 || F % 64 || H <= 0 || W <= 0 ||
+      !x0 || (C1 > 0 && !x1) || !wt || !scale || !bias ||
+      (head && (F != 64 || OC < 1 || OC > 8 || out || pooled || out_i8 || !hk8 || !hb)) ||
+      (!head && !out) || (pooled && (H % 2 || W % 2)))
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorInvalidValue;
+  CUtensorMap m0, m1, mw;
+  const int d0[3] = {C0, W, H}, d1[3] = {C1 ? C1 : C0, W, H}, abox[3] = {SBK, TILE_X, S_TY + 2};
+  const int dw[2] = {9 * (C0 + C1), F}, wbox[2] = {SBK, 64};
+  if (!encode_map(enc, &m0, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 3, x0, d0, abox,
+                  CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B) ||
+      !encode_map(enc, &m1, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 3, C1 ? x1 : x0, d1, abox,
+                  CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B) ||
+      !encode_map(enc, &mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, wt, dw, wbox,
+                  CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+    return (int)cudaErrorInvalidValue;
+  StaticArgs a;
+  a.C0 = C0;
+  a.C1 = C1;
+  a.H = H;
+  a.W = W;
+  a.F = F;
+  a.relu = relu;
+  a.out_i8 = out_i8;
+  a.OC = OC;
+  a.scale = (const float*)scale;
+  a.bias = (const float*)bias;
+  a.out = out;
+  a.pooled = pooled;
+  a.hk8 = (const bf16*)hk8;
+  a.hb = (const float*)hb;
+  a.hout = (bf16*)hout;
+  static int grid_max = 0;  // resident blocks on the card
+  if (grid_max == 0) {
+    int err = check_regs(conv3x3_static_wgmma);
+    if (!err) err = query_grid(conv3x3_static_wgmma, NTHREADS, SSMEM, &grid_max);
+    if (err) return err;
+  }
+  const int ntiles = ((W + TILE_X - 1) / TILE_X) * ((H + S_TY - 1) / S_TY) * (F / 64);
+  conv3x3_static_wgmma<<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, SSMEM,
+                         (cudaStream_t)stream>>>(m0, m1, mw, a);
   return (int)cudaGetLastError();
 }

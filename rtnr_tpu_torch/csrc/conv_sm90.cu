@@ -120,6 +120,45 @@
 //   it is not bit-equal to the unfused card pair; no split-K and no
 //   atomics, so a call gives the same bits every time.
 //
+// convt2x2_wgmma is K4's exact bf16 mode (rtnr_tpu/ops/conv_phase.py::
+// _convt_phase_kernel, wrapper convt2x2_phase, conv_phase.py:1051-1320): a
+// GEMM with M = H*W input pixels, N = 4F, K = C, bf16 operands and f32 sums,
+// then y = acc + bias[f] in f32 (no ReLU), one bf16 rounding, written to
+// output pixel (2y+dy, 2x+dx): conv.cu's gemm<1,0>, whose 128x64 blocks
+// re-read A once per 64-column block, overlapped nothing in their 2-16 K
+// steps and scattered one bf16 a thread.
+// - Bound on this card, 0.2489 ms over the full-width net's four calls
+//   (68x120x1024 -> 512, 136x240x512 -> 256, 272x480x256 -> 128,
+//   544x960x128 -> 64): bytes at up2 and up3 (up3 moves 401 MB: 134 MB in,
+//   267 MB out), operations at up0 and up1.
+// - The structure of conv_i8_sm90.cu's convt2x2_i8_wgmma on bf16 wgmma
+//   m64n256k16. A by TMA: a 2D map over the (H*W, C) view, boxes of (64
+//   channels = 128 bytes, 128 pixels) with the 128B swizzle, each k16 step 32
+//   bytes on. B by TMA from the K-major (4F, C) copy the fused kernel above
+//   reads (ConvT2x2Weights.wmat_t): row (u*4 + dy*2 + dx)*64 + j holds
+//   kernel[1-dy, 1-dx, :, 64u + j], so a 256-column N tile is one 64-channel
+//   chunk u of all four subpixels, and 64 of its columns are the 128
+//   contiguous bytes of one output pixel at channel 64u.
+// - Tiles 128 x 256, N fastest, persistent grid: at up3 (4F = 256) A comes
+//   from device memory once; elsewhere the N tiles of one M tile run side by
+//   side and A comes from L2. B stays resident where the ring holds it (the
+//   producer skips the B box of a stage that already holds it: up3, K = 128,
+//   two stages a tile in a ring of four).
+// - m64n256 f32 accumulators are 128 registers a consumer thread:
+//   setmaxnreg 40 / 232 (sm90.cuh), and the host refuses a launch that does
+//   not give 168 registers a thread (check_regs).
+// - Epilogue, one subpixel (64 columns) at a time: bias in f32, one bf16
+//   rounding, staged as conv3x3_wgmma stages (8 KB a consumer, 16-byte
+//   chunks XOR-swizzled by row), then 16-byte stores; the ragged M (8160 at
+//   up0) is masked and TMA zero-fills the rows past the end. Ring of 4
+//   stages of 48 KB and the staging: 208 KB, one block an SM.
+// - f32 sums in the tensor cores' order: within 2 bf16 ulp of the f32 twin,
+//   not bit-equal to gemm<1,0>; no split-K and no atomics, so a call gives
+//   the same bits every time.
+// - Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): 0.4234
+//   ms over the four calls against 1.9378 for gemm<1,0>; up3 at 1.42x and
+//   up2 at 1.82x their bytes bound, the epilogue not overlapping the MMAs.
+//
 // Every entry returns a cudaError_t (0 on success): cudaErrorInvalidValue
 // for shapes it does not take or a tensor map that does not encode, else
 // cudaGetLastError() after the launch.
@@ -194,6 +233,23 @@ struct UpArgs {
   bf16* out;           // (H, W, F)
 };
 
+// K4 bf16
+#define CT_BM 128                           // input pixels of a tile (GEMM rows)
+#define CT_BN 256                           // GEMM columns of a tile: 4 subpixels x 64 channels
+#define CT_A_BYTES (CT_BM * BK * 2)         // 16 KB
+#define CT_B_BYTES (CT_BN * BK * 2)         // 32 KB
+#define CT_STAGES 4
+#define CT_STAGE_BYTES (CT_A_BYTES + CT_B_BYTES)
+#define CT_BAR_OFF (CT_STAGES * CT_STAGE_BYTES + 2 * STG_BYTES)
+#define CT_SMEM (CT_BAR_OFF + 2 * CT_STAGES * 8)
+static_assert(CT_SMEM <= 232448 && CT_STAGE_BYTES % 1024 == 0, "shared memory");
+
+struct ConvTArgs {
+  int M, C, W, F;     // input pixels, channels, input width, output channels
+  const float* bias;  // (F,) f32 values of the bf16 bias
+  bf16* out;          // (2H, 2W, F)
+};
+
 // ------------------------------------------------------------ bf16 wgmma (the PTX wrappers
 // shared with conv_i8_sm90.cu are in sm90.cuh)
 
@@ -246,6 +302,48 @@ __device__ __forceinline__ void wgmma<128>(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma<256>(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // D(64 x N, f32) += A(64 x 16, bf16, registers) * B(16 x N, bf16, K-major smem):
 // warp w holds rows 16w..16w+15 of A as mma.m16n8k16 does (ldmatrix.x4 order)
 template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
@@ -294,14 +392,6 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// four 8x8 bf16 matrices from shared memory; lane i gives row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t saddr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(saddr)
-               : "memory");
 }
 
 // 64-channel block nb of a consumer's accumulator: bias (channels of
@@ -711,6 +801,129 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
+// ------------------------------------------------------------ K4 bf16
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    convt2x2_wgmma(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, const ConvTArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t full0 = base + CT_BAR_OFF;
+  const uint32_t empty0 = full0 + 8 * CT_STAGES;
+
+  if (threadIdx.x == 0) {
+    if (base & 1023) __trap();
+    for (int s = 0; s < CT_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int NT = 4 * a.F / CT_BN;
+  const int ntiles = ((a.M + CT_BM - 1) / CT_BM) * NT;
+  const int nk = a.C / BK;
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    setmaxnreg_dec40();
+    if (threadIdx.x == 0) {
+      int bkey[CT_STAGES];  // the (N tile, K step) whose B box each stage buffer holds
+#pragma unroll
+      for (int s = 0; s < CT_STAGES; ++s) bkey[s] = -1;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int nt = tile % NT;
+        const int m0 = (tile / NT) * CT_BM;
+        for (int ks = 0; ks < nk; ++ks) {
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t sa = base + stage * CT_STAGE_BYTES;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const int key = nt * nk + ks;
+          int held = 0;
+#pragma unroll
+          for (int s = 0; s < CT_STAGES; ++s)
+            if (s == stage) held = bkey[s] == key;
+          mbar_expect_tx(full, CT_A_BYTES + (held ? 0 : CT_B_BYTES));
+          tma_load_2d(sa, &map_a, full, ks * BK, m0);
+          if (!held) {
+            tma_load_2d(sa + CT_A_BYTES, &map_b, full, ks * BK, nt * CT_BN);
+#pragma unroll
+            for (int s = 0; s < CT_STAGES; ++s)
+              if (s == stage) bkey[s] = key;
+          }
+          if (++stage == CT_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc232();
+    const int cw = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31;
+    unsigned char* stg = smem + CT_STAGES * CT_STAGE_BYTES + cw * STG_BYTES;
+    float acc[CT_BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int u = tile % NT;  // the tile's 64-channel chunk of F
+      const int m0 = (tile / NT) * CT_BM;
+#pragma unroll
+      for (int i = 0; i < CT_BN / 2; ++i) acc[i] = 0.0f;
+      int prev = 0;
+      for (int ks = 0; ks < nk; ++ks) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t sa = base + stage * CT_STAGE_BYTES;
+        fence_acc<CT_BN / 2>(acc);
+        __syncwarp();
+        wg_fence();
+        const uint64_t da = sw128_desc(sa + cw * 64 * BK * 2);  // rows 64cw.. of the A box
+        const uint64_t db = sw128_desc(sa + CT_A_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) wgmma<CT_BN>(acc, da + 2 * kk, db + 2 * kk);
+        wg_commit();
+        fence_acc<CT_BN / 2>(acc);
+        wg_wait<1>();  // the previous step's group has retired: its stage is free
+        fence_acc<CT_BN / 2>(acc);
+        if (ks > 0 && t == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = stage;
+        if (++stage == CT_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wg_wait<0>();
+      fence_acc<CT_BN / 2>(acc);
+      if (t == 0) mbar_arrive(empty0 + 8 * prev);
+
+      // ---- epilogue, one subpixel (dy, dx) = 64 columns at a time: bias,
+      // bf16, staged, then the 128 bytes of each output pixel at channel 64u
+#pragma unroll
+      for (int sub = 0; sub < 4; ++sub) {
+        const int dy = sub >> 1, dx = sub & 1;
+        named_bar(1 + cw);  // every thread is done reading the staged block
+        stage_block(acc, sub, a.bias + 64 * u, 0, stg, warp, lane);
+        named_bar(1 + cw);
+        for (int idx = t; idx < 64 * 8; idx += 128) {
+          const int r = idx >> 3, ch = idx & 7;
+          const int m = m0 + 64 * cw + r;
+          if (m < a.M) {
+            const int y = m / a.W, x = m - y * a.W;
+            *reinterpret_cast<uint4*>(a.out + ((size_t)(2 * y + dy) * (2 * a.W) + 2 * x + dx) *
+                                                  a.F + 64 * u + ch * 8) =
+                *reinterpret_cast<const uint4*>(stg + stg_off(r, ch));
+          }
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ host side
 
 // (H, W, C) bf16 activation, box (64 c, bx x, by y); by default a tile's
@@ -826,4 +1039,40 @@ extern "C" int rtnr_conv3x3_up_wgmma(const void* skip, const void* deep, int Cs,
   a.out = (bf16*)out;
   cudaStream_t s = (cudaStream_t)stream;
   return F == 128 ? launch_up<128>(ms, md, mu, mw, a, s) : launch_up<64>(ms, md, mu, mw, a, s);
+}
+
+// K4 bf16. x: (H, W, C) bf16; wt: (4F, C) bf16, row (u*4 + dy*2 + dx)*64 + j
+// the flipped kernel's column 64u + j of subpixel (dy, dx)
+// (ConvT2x2Weights.wmat_t); bias (F,) f32; out (2H, 2W, F) bf16. C and F
+// multiples of 64.
+extern "C" int rtnr_convt2x2_wgmma(const void* x, int C, int H, int W, const void* wt,
+                                   const void* bias, void* out, int F, void* stream) {
+  if (C <= 0 || C % BK || F <= 0 || F % 64 || H <= 0 || W <= 0 || !x || !wt || !bias || !out)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  const int M = H * W;
+  const int da[2] = {C, M}, abox[2] = {BK, CT_BM};
+  if (!encode_map(enc, &ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, x, da, abox,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B) ||
+      !encode_w(enc, &mb, wt, C, 4 * F, CT_BN))
+    return (int)cudaErrorInvalidValue;
+  ConvTArgs a;
+  a.M = M;
+  a.C = C;
+  a.W = W;
+  a.F = F;
+  a.bias = (const float*)bias;
+  a.out = (bf16*)out;
+  static int grid_max = 0;  // resident blocks on the card
+  if (grid_max == 0) {
+    int err = check_regs(convt2x2_wgmma);
+    if (!err) err = query_grid(convt2x2_wgmma, NTHREADS, CT_SMEM, &grid_max);
+    if (err) return err;
+  }
+  const int ntiles = ((M + CT_BM - 1) / CT_BM) * (4 * F / CT_BN);
+  convt2x2_wgmma<<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, CT_SMEM,
+                   (cudaStream_t)stream>>>(ma, mb, a);
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by conv_sm90.cu and conv_i8_sm90.cu: mbarrier
-// and TMA wrappers, wgmma descriptors and fences, the staged 16-byte epilogue
-// stores and 2x2 pool of an 8x16-pixel tile, and the host's tensor-map
-// encoder and occupancy query. Each source that includes it builds into its
+// and TMA wrappers, wgmma descriptors and fences, the producer / consumer
+// register split, the staged 16-byte epilogue stores and 2x2 pool of an
+// 8x16-pixel tile, and the host's tensor-map encoder, register check and
+// occupancy query. Each source that includes it builds into its
 // own library (_build.SOURCES); nothing here is a kernel.
 
 #pragma once
@@ -95,6 +96,24 @@ __device__ __forceinline__ void wg_commit() {
 template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// the register split of a 384-thread block whose consumers hold m64n256
+// accumulators (128 registers a thread): the producer warpgroup drops to 40,
+// the two consumer warpgroups rise to 232
+__device__ __forceinline__ void setmaxnreg_dec40() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+}
+__device__ __forceinline__ void setmaxnreg_inc232() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane i gives row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t saddr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr)
+               : "memory");
 }
 
 // keep the compiler from moving accumulator reads or writes across the
@@ -201,6 +220,18 @@ static bool encode_map(EncodeTiled enc, CUtensorMap* m, CUtensorMapDataType type
   return enc(m, type, (cuuint32_t)rank, const_cast<void*>(base), d, strides, b, es,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+// setmaxnreg.inc blocks until the block's pool holds the registers it asks
+// for: a launch of 384 threads must give each the 168 that 40 for the
+// producer and 232 for the consumers add up to, or the consumers would wait
+// for ever. Refuse the launch instead.
+template <typename Kern>
+static int check_regs(Kern kernel) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  return fa.numRegs * 384 >= 128 * 40 + 256 * 232 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
 // resident blocks of `kernel` on the card (SMs x blocks an SM, from the

@@ -13,13 +13,21 @@ with channel counts and F all multiples of 64 (every U-Net conv but the
 input conv, the int8-output conv, narrow nets) run ``conv.cu``'s GEMM.
 ``conv3x3_wgmma_plain`` contracts as that kernel walks K.
 
+K4's bf16 mode runs ``conv_sm90.cu``'s ``convt2x2_wgmma`` where
+``takes_convt_wgmma`` (C and F multiples of 64: every bf16 ConvTranspose of
+the full-width net), else ``conv.cu``'s GEMM; ``convt2x2_wgmma_plain``
+contracts as it walks.
+
 The int8 modes the full-width net runs have s8 wgmma kernels in
 ``conv_i8_sm90.cu``: K3 dyn where ``takes_dyn_wgmma`` (channel counts
-multiples of 64, F of 256, no head) and K4 static where
+multiples of 64, F of 256, no head), K3 static where
+``takes_static_wgmma`` (channel counts and F multiples of 64, the head only
+at F = 64) and K4 static where
 ``takes_convt_i8_wgmma`` (C and F multiples of 64, int8 output); other
-shapes (narrow nets, toy widths) stay on ``conv.cu``'s GEMM, as does K3
-static. ``conv3x3_dyn_wgmma_plain`` and ``convt2x2_i8_wgmma_plain`` contract
-as those kernels walk N and K.
+shapes (narrow nets, toy widths, the int8-output input conv) stay on
+``conv.cu``'s GEMM. ``conv3x3_dyn_wgmma_plain``,
+``conv3x3_static_wgmma_plain`` and ``convt2x2_i8_wgmma_plain`` contract as
+those kernels walk N and K.
 
 - ``conv3x3(xs, kernel, bias, *, relu, pool, head_kernel, head_bias, quant,
   in_scales, out_scale)``: 3x3 s1 same conv over the virtual concat of one
@@ -66,12 +74,13 @@ stay device tensors, so nothing returns to the host. The ``*_prepared``
 wrappers launch the kernels for CUDA tensors and run the plain torch twins
 (``*_prepared_plain``, the same function on int64-exact f64 sums) only for
 CPU tensors. Launch counters: ``conv3x3.launches`` / ``convt2x2.launches``
-(bf16 mode, either kernel), ``conv3x3_wgmma`` (the calls of those that ran
-``conv_sm90.cu``), ``conv3x3_up`` (the fused-ConvTranspose kernel; its calls
-count nowhere else), ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn``
-and ``convt2x2_static`` (``.launches``, every call of the mode), and
-``conv3x3_dyn_wgmma`` / ``convt2x2_static_wgmma`` (the calls of those that
-ran ``conv_i8_sm90.cu``).
+(bf16 mode, either kernel), ``conv3x3_wgmma`` / ``convt2x2_wgmma`` (the
+calls of those that ran ``conv_sm90.cu``), ``conv3x3_up`` (the
+fused-ConvTranspose kernel; its calls count nowhere else),
+``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn`` and
+``convt2x2_static`` (``.launches``, every call of the mode), and
+``conv3x3_dyn_wgmma`` / ``conv3x3_static_wgmma`` / ``convt2x2_static_wgmma``
+(the calls of those that ran ``conv_i8_sm90.cu``).
 """
 
 from __future__ import annotations
@@ -122,7 +131,8 @@ def _bind_sm90(lib: ctypes.CDLL) -> None:
     lib.rtnr_conv3x3_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                                        _I, _I, _P]
     lib.rtnr_conv3x3_up_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]
-    for fn in (lib.rtnr_conv3x3_wgmma, lib.rtnr_conv3x3_up_wgmma):
+    lib.rtnr_convt2x2_wgmma.argtypes = [_P, _I, _I, _I, _P, _P, _P, _I, _P]
+    for fn in (lib.rtnr_conv3x3_wgmma, lib.rtnr_conv3x3_up_wgmma, lib.rtnr_convt2x2_wgmma):
         fn.restype = _I
 
 
@@ -130,7 +140,10 @@ def _bind_i8(lib: ctypes.CDLL) -> None:
     lib.rtnr_conv3x3_dyn_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _P]
     lib.rtnr_convt2x2_i8_wgmma.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P]
-    for fn in (lib.rtnr_conv3x3_dyn_wgmma, lib.rtnr_convt2x2_i8_wgmma):
+    lib.rtnr_conv3x3_static_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                                              _P, _I, _P, _I, _I, _P]
+    for fn in (lib.rtnr_conv3x3_dyn_wgmma, lib.rtnr_convt2x2_i8_wgmma,
+               lib.rtnr_conv3x3_static_wgmma):
         fn.restype = _I
 
 
@@ -143,6 +156,7 @@ class LaunchCount:
 
 
 conv3x3_wgmma = LaunchCount()  # K3 exact bf16 on conv_sm90.cu (TMA + wgmma)
+convt2x2_wgmma = LaunchCount()  # K4 bf16 on conv_sm90.cu
 conv3x3_up = LaunchCount()  # K3's fused-ConvTranspose mode on conv_sm90.cu
 conv3x3_i8out = LaunchCount()  # K3 exact bf16 GEMM with int8 output codes
 conv3x3_static = LaunchCount()  # K3 static int8
@@ -150,6 +164,7 @@ conv3x3_dyn = LaunchCount()  # K3 dyn int8
 convt2x2_static = LaunchCount()  # K4 static int8
 conv3x3_dyn_wgmma = LaunchCount()  # K3 dyn int8 on conv_i8_sm90.cu (s8 wgmma)
 convt2x2_static_wgmma = LaunchCount()  # K4 static int8 on conv_i8_sm90.cu
+conv3x3_static_wgmma = LaunchCount()  # K3 static int8 on conv_i8_sm90.cu (s8 wgmma)
 
 
 def _as_tensor(a, device=None) -> torch.Tensor:
@@ -195,7 +210,8 @@ class Conv3x3Weights(NamedTuple):
     out_i8: bool = False  # int8 output codes at out_scale
     # exact bf16 with cin and F multiples of 64: (F, 9*cin) bf16, the K-major
     # copy of wmat[:9*cin] that conv_sm90.cu reads; dyn with cin a multiple
-    # of 64 and F of 256: the same (F, 9*cin) int8 copy for conv_i8_sm90.cu
+    # of 64 and F of 256, and static with every input's channel count and F
+    # multiples of 64: the same (F, 9*cin) int8 copy for conv_i8_sm90.cu
     wmat_t: Optional[torch.Tensor] = None
 
 
@@ -208,7 +224,8 @@ class ConvT2x2Weights(NamedTuple):
     scale: Optional[torch.Tensor] = None  # (F,) f32 dequantisation scale (static)
     out_i8: bool = False
     # bf16 with cin and F multiples of 64: (4F, cin) bf16, the K-major B of
-    # the fused kernel's up GEMM; row (u*4 + dy*2 + dx)*64 + j holds
+    # K4's conv_sm90.cu kernel and of the fused kernel's up GEMM; row
+    # (u*4 + dy*2 + dx)*64 + j holds
     # kernel[1-dy, 1-dx, :, 64u + j] (64 up channels a chunk u). Static with
     # cin and F multiples of 64: (4F, cin) int8, wmat[:cin] transposed (row
     # (dy*2 + dx)*F + f, the GEMM's column order), for conv_i8_sm90.cu
@@ -261,7 +278,8 @@ def prepare_conv3x3(kernel, bias=None, device=None, *, quant: str = "", in_scale
         sw_eff = sw_eff * inv_out
     wmat = _pad_rows(wq.reshape(9 * c, f), torch.int8)
     wmat_t = None
-    if quant == "dyn" and c % _WG_CHUNK == 0 and f % _I8_BN == 0:
+    cs = (c,) if quant == "dyn" or c0 is None or c0 == c else (c0, c - c0)
+    if (takes_dyn_wgmma(cs, f) if quant == "dyn" else takes_static_wgmma(cs, f)):
         wmat_t = wmat[:9 * c].t().contiguous()
     return Conv3x3Weights(wmat, _bf16_values(b).contiguous(), c, quant, sw_eff.contiguous(),
                           inv_out is not None, wmat_t)
@@ -335,6 +353,25 @@ def takes_dyn_wgmma(cs: Sequence[int], f: int, *, head: bool = False) -> bool:
     return all(c % _WG_CHUNK == 0 for c in cs) and f % _I8_BN == 0 and not head
 
 
+def takes_static_wgmma(cs: Sequence[int], f: int, *, head: bool = False) -> bool:
+    """Whether a static-mode K3 call on CUDA tensors runs ``conv_i8_sm90.cu``
+    (else ``conv.cu``'s GEMM): every input's channel count and F multiples
+    of 64 and, with the head, F = 64 (one consumer holds every channel of
+    its pixels). Every static call of the full-width net qualifies (F in
+    {64, ..., 1024}, the head conv at F = 64)."""
+    return (all(c % _WG_CHUNK == 0 for c in cs) and f % _WG_CHUNK == 0
+            and not (head and f != _WG_CHUNK))
+
+
+def takes_convt_wgmma(c: int, f: int) -> bool:
+    """Whether a bf16 K4 call on CUDA tensors runs ``conv_sm90.cu`` (else
+    ``conv.cu``'s GEMM): C and F multiples of 64, so that a 64-channel K
+    stage and a 256-column tile (one 64-channel chunk of all four
+    subpixels) divide them. Every bf16 ConvTranspose of the full-width net
+    qualifies."""
+    return c % _WG_CHUNK == 0 and f % _WG_CHUNK == 0
+
+
 def takes_convt_i8_wgmma(c: int, f: int, *, out_i8: bool = True) -> bool:
     """Whether a static-mode K4 call on CUDA tensors runs ``conv_i8_sm90.cu``
     (else ``conv.cu``'s GEMM): C and F multiples of 64 (4F a multiple of the
@@ -345,21 +382,27 @@ def takes_convt_i8_wgmma(c: int, f: int, *, out_i8: bool = True) -> bool:
 def k3_route(cs: Sequence[int], w: Conv3x3Weights, *, head: bool = False) -> str:
     """The source whose kernel a K3 call on CUDA tensors runs:
     ``"conv_sm90"`` (exact bf16, ``takes_wgmma``), ``"conv_i8_sm90"`` (dyn,
-    ``takes_dyn_wgmma``) or ``"conv"`` (``conv.cu``'s GEMM: every other call,
-    K3 static among them)."""
+    ``takes_dyn_wgmma``; static, ``takes_static_wgmma``) or ``"conv"``
+    (``conv.cu``'s GEMM: every other call, the int8-output input conv among
+    them)."""
     f = int(w.wmat.shape[1])
     if takes_wgmma(cs, f, quant=w.quant, out_i8=w.out_i8, head=head):
         return "conv_sm90"
     if w.quant == "dyn" and takes_dyn_wgmma(cs, f, head=head):
+        return "conv_i8_sm90"
+    if w.quant == "static" and takes_static_wgmma(cs, f, head=head):
         return "conv_i8_sm90"
     return "conv"
 
 
 def k4_route(c: int, w: ConvT2x2Weights) -> str:
     """The source whose kernel a K4 call on CUDA tensors runs:
-    ``"conv_i8_sm90"`` (static, ``takes_convt_i8_wgmma``) or ``"conv"``."""
+    ``"conv_sm90"`` (bf16, ``takes_convt_wgmma``), ``"conv_i8_sm90"``
+    (static, ``takes_convt_i8_wgmma``) or ``"conv"``."""
     if w.quant == "static" and takes_convt_i8_wgmma(c, w.f, out_i8=w.out_i8):
         return "conv_i8_sm90"
+    if w.quant == "" and takes_convt_wgmma(c, w.f):
+        return "conv_sm90"
     return "conv"
 
 
@@ -630,6 +673,80 @@ def conv3x3_dyn_wgmma_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *,
     return (y, _pool2(y)) if pool else (y,)
 
 
+def conv3x3_static_wgmma_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *,
+                               relu: bool = False, pool: bool = False,
+                               head: Optional[HeadWeights] = None):
+    """Plain torch twin of ``conv_i8_sm90.cu``'s static kernel that
+    contracts as it walks: per 64-channel tile of the K-major ``w.wmat_t``,
+    the stages (dx, input, 64-channel chunk), in each the three dy taps and
+    two k32 steps over the tap's shifted window of int8 codes; integer sums
+    (exact in f64); then
+    ``f32(acc) * scale + bias``, ReLU, the codes or bf16, the pool of that
+    output and the head on the bf16 output."""
+    if w.quant != "static" or w.wmat_t is None:
+        raise ValueError("conv3x3_static_wgmma_plain needs static weights with every channel "
+                         "count and F % 64 == 0")
+    cs = [int(x.shape[3]) for x in xs]
+    ct = sum(cs)
+    _, h, wd, _ = xs[0].shape
+    wt = w.wmat_t.to(torch.float64)
+    F = int(wt.shape[0])
+    acc = torch.zeros((h * wd, F), dtype=torch.float64, device=xs[0].device)
+    padded = [Fn.pad(x[0].to(torch.float64), (0, 0, 1, 1, 1, 1)) for x in xs]
+    for n0 in range(0, F, _WG_CHUNK):
+        for dx in range(3):
+            for i, xp in enumerate(padded):
+                for c in range(0, cs[i], _WG_CHUNK):
+                    for dy in range(3):
+                        win = xp[dy:dy + h, dx:dx + wd, c:c + _WG_CHUNK].reshape(h * wd, -1)
+                        k0 = (3 * dy + dx) * ct + (cs[0] if i else 0) + c
+                        for s in range(0, _WG_CHUNK, 32):
+                            acc[:, n0:n0 + _WG_CHUNK] += (
+                                win[:, s:s + 32] @ wt[n0:n0 + _WG_CHUNK, k0 + s:k0 + s + 32].t())
+    y = acc.to(torch.float32) * w.scale + w.bias
+    if relu:
+        y = torch.clamp(y, min=0.0)
+    y = y.reshape(1, h, wd, F)
+    out = _codes(y, relu) if w.out_i8 else y.to(torch.bfloat16)
+    if head is not None:
+        return ((torch.matmul(out.to(torch.float32), head.hk.to(torch.float32))
+                 + head.hb).to(torch.bfloat16),)
+    return (out, _pool2(out)) if pool else (out,)
+
+
+def convt2x2_wgmma_plain(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
+    """Plain torch twin of ``conv_sm90.cu``'s bf16 K4 kernel that contracts
+    as it walks: tiles of 128 input pixels x 256 GEMM columns of the
+    K-major ``w.wmat_t`` (tile u holds rows (u*4 + dy*2 + dx)*64 + j: the
+    64-channel chunk u of all four subpixels), K in 64-channel steps and k16
+    inside them, f32 sums; then per subpixel ``bias`` in f32, one bf16
+    rounding, the 64 channels stored at output pixel (2y+dy, 2x+dx)."""
+    if w.quant != "" or w.wmat_t is None:
+        raise ValueError("convt2x2_wgmma_plain needs bf16 weights with cin, F % 64 == 0")
+    _, h, wd, c = x.shape
+    F = w.f
+    a = x[0].reshape(h * wd, c).to(torch.float32)
+    wt = w.wmat_t.to(torch.float32)
+    out = torch.zeros((2 * h, 2 * wd, F), dtype=torch.bfloat16, device=x.device)
+    pix = torch.arange(h * wd, device=x.device)
+    ys, xs_ = torch.div(pix, wd, rounding_mode="floor"), pix % wd
+    for m0 in range(0, h * wd, 128):
+        rows = slice(m0, min(m0 + 128, h * wd))
+        for u in range(F // _WG_CHUNK):
+            cols = slice(4 * _WG_CHUNK * u, 4 * _WG_CHUNK * (u + 1))
+            acc = torch.zeros((rows.stop - m0, 4 * _WG_CHUNK), dtype=torch.float32,
+                              device=x.device)
+            for k in range(0, c, 16):
+                acc += a[rows, k:k + 16] @ wt[cols, k:k + 16].t()
+            for sub in range(4):
+                dy, dx = divmod(sub, 2)
+                chans = slice(_WG_CHUNK * u, _WG_CHUNK * (u + 1))
+                out[2 * ys[rows] + dy, 2 * xs_[rows] + dx, chans] = (
+                    acc[:, _WG_CHUNK * sub:_WG_CHUNK * (sub + 1)] + w.bias[chans]
+                ).to(torch.bfloat16)
+    return out[None]
+
+
 def convt2x2_i8_wgmma_plain(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
     """Plain torch twin of ``conv_i8_sm90.cu``'s static K4 kernel that
     contracts as it walks: tiles of 128 input pixels x 256 GEMM columns of
@@ -711,7 +828,9 @@ def conv3x3_prepared(
     if route == "conv_sm90":
         return _conv3x3_wgmma(xs, w, relu=relu, pool=pool, head=head)
     if route == "conv_i8_sm90":
-        return _conv3x3_dyn_wgmma(xs, w, relu=relu, pool=pool)
+        if w.quant == "dyn":
+            return _conv3x3_dyn_wgmma(xs, w, relu=relu, pool=pool)
+        return _conv3x3_static_wgmma(xs, w, relu=relu, pool=pool, head=head)
     return _conv3x3_gemm(xs, w, relu=relu, pool=pool, head=head)
 
 
@@ -829,6 +948,41 @@ def _conv3x3_dyn_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: b
     return (out, pooled) if pool else (out,)
 
 
+def _conv3x3_static_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
+                          pool: bool, head: Optional[HeadWeights]):
+    """Launch ``conv_i8_sm90.cu``'s static kernel on checked CUDA inputs that
+    ``takes_static_wgmma`` accepts."""
+    if w.wmat_t is None:
+        raise ValueError("conv3x3: these static weights lack the K-major copy conv_i8_sm90.cu "
+                         "reads")
+    if head is not None and head.hk8 is None:
+        raise ValueError("conv3x3: the fused head takes at most 8 output channels")
+    dev = xs[0].device
+    _, h, wd, _ = xs[0].shape
+    cs = [int(x.shape[3]) for x in xs]
+    F = int(w.wmat.shape[1])
+    odt = torch.int8 if w.out_i8 else torch.bfloat16
+    ptr = lambda t: None if t is None else t.data_ptr()
+    out = torch.empty((1, h, wd, F), dtype=odt, device=dev) if head is None else None
+    pooled = torch.empty((1, h // 2, wd // 2, F), dtype=odt, device=dev) if pool else None
+    oc = 0 if head is None else int(head.hk.shape[1])
+    hout = (torch.empty((1, h, wd, oc), dtype=torch.bfloat16, device=dev)
+            if head is not None else None)
+    rc = _i8_lib().rtnr_conv3x3_static_wgmma(
+        xs[0].data_ptr(), xs[1].data_ptr() if len(xs) == 2 else None, cs[0],
+        cs[1] if len(xs) == 2 else 0, h, wd, w.wmat_t.data_ptr(), w.scale.data_ptr(),
+        w.bias.data_ptr(), ptr(out), ptr(pooled), int(w.out_i8),
+        None if head is None else head.hk8.data_ptr(),
+        None if head is None else head.hb.data_ptr(), oc, ptr(hout), F, int(relu),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rtnr_conv3x3_static_wgmma")
+    conv3x3_static_wgmma.launches += 1
+    conv3x3_static.launches += 1
+    if head is not None:
+        return (hout,)
+    return (out, pooled) if pool else (out,)
+
+
 def _conv3x3_up(xs: Sequence[torch.Tensor], w: Conv3x3Weights, up: ConvT2x2Weights, *,
                 relu: bool, pool: bool, head: Optional[HeadWeights]):
     """K3's fused-ConvTranspose mode: the conv over ``[skip,
@@ -897,8 +1051,11 @@ def convt2x2_prepared(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
         return convt2x2_prepared_plain(x, w)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("convt2x2: activations and weights must be on one CUDA device")
-    if k4_route(c, w) == "conv_i8_sm90":
+    route = k4_route(c, w)
+    if route == "conv_i8_sm90":
         return _convt2x2_i8_wgmma(x, w)
+    if route == "conv_sm90":
+        return _convt2x2_wgmma(x, w)
     return _convt2x2_gemm(x, w)
 
 
@@ -917,6 +1074,23 @@ def _convt2x2_gemm(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
         convt2x2_static.launches += 1
     else:
         convt2x2.launches += 1
+    return out
+
+
+def _convt2x2_wgmma(x: torch.Tensor, w: ConvT2x2Weights) -> torch.Tensor:
+    """Launch ``conv_sm90.cu``'s bf16 K4 kernel on a checked CUDA input that
+    ``takes_convt_wgmma`` accepts."""
+    if w.wmat_t is None:
+        raise ValueError("convt2x2: these bf16 weights lack the K-major copy conv_sm90.cu reads")
+    _, h, wd, c = x.shape
+    dev = x.device
+    out = torch.empty((1, 2 * h, 2 * wd, w.f), dtype=torch.bfloat16, device=dev)
+    rc = _build.load("conv_sm90", _bind_sm90).rtnr_convt2x2_wgmma(
+        x.data_ptr(), c, h, wd, w.wmat_t.data_ptr(), w.bias.data_ptr(), out.data_ptr(), w.f,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rtnr_convt2x2_wgmma")
+    convt2x2_wgmma.launches += 1
+    convt2x2.launches += 1
     return out
 
 

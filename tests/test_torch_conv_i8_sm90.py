@@ -79,17 +79,22 @@ def test_dyn_plan_routes_its_ten_convs():
     dyn = {k for k, (mode, _) in r.items() if mode == "dyn"}
     assert len(dyn) == 10
     assert all(r[k][1] == "conv_i8_sm90" for k in dyn)
-    # the rest of the dyn net is exact bf16: 7 on conv_sm90.cu, the input conv on conv.cu
+    # the rest of the dyn net is exact bf16: 7 convs and the 4 ConvTransposes on
+    # conv_sm90.cu, the input conv on conv.cu
     rest = collections.Counter(route for k, (mode, route) in r.items() if k not in dyn)
-    assert rest == {"conv_sm90": 7, "conv": 5}  # + the 4 bf16 ConvTransposes
+    assert rest == {"conv_sm90": 11, "conv": 1}
 
 
 def test_static_plan_routes_its_four_convtransposes_only():
+    """The static plan's 4 ConvTransposes and its 17 static convs run
+    conv_i8_sm90.cu; only the int8-output input conv stays on conv.cu."""
     r = routes(static=True)
     ups = [k for k in r if "/" not in k]  # up0 .. up3
     assert len(ups) == 4 and all(r[k] == ("static", "conv_i8_sm90") for k in ups)
-    # K3 static (17) and the int8-output input conv stay on conv.cu
-    assert all(route == "conv" for k, (_, route) in r.items() if k not in ups)
+    static = [k for k, (mode, _) in r.items() if mode == "static" and k not in ups]
+    assert len(static) == 17 and all(r[k][1] == "conv_i8_sm90" for k in static)
+    rest = {k: v for k, v in r.items() if k not in ups and k not in static}
+    assert rest == {"down0/conv0": ("", "conv")}
 
 
 @pytest.mark.parametrize("cs,f,head,want", [
@@ -150,7 +155,7 @@ def test_static_convt_k_major_copy_is_in_column_order():
 
 @pytest.mark.parametrize("c,f,kw", [(64, 64, {"quant": "dyn"}), (64, 128, {"quant": "dyn"}),
                                     (32, 256, {"quant": "dyn"}),
-                                    (64, 256, {"quant": "static", "in_scales": (0.1,)})])
+                                    (32, 256, {"quant": "static", "in_scales": (0.1,)})])
 def test_no_dyn_copy_where_the_kernel_is_not_routed(c, f, kw):
     assert cv.prepare_conv3x3(mk((3, 3, c, f), 30, 0.1), mk((f,), 31), **kw).wmat_t is None
 

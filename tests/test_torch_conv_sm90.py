@@ -157,7 +157,7 @@ def test_k_major_copy_follows_the_kernel_row_map():
 
 
 @pytest.mark.parametrize("c,f,kw", [(5, 64, {}), (64, 32, {}), (64, 64, {"out_scale": 0.5}),
-                                    (64, 64, {"quant": "static", "in_scales": (0.1,)}),
+                                    (32, 64, {"quant": "static", "in_scales": (0.1,)}),
                                     (64, 64, {"quant": "dyn"})])
 def test_no_k_major_copy_where_the_kernel_is_not_routed(c, f, kw):
     w = cv.prepare_conv3x3(mk((3, 3, c, f), 80, 0.1), mk((f,), 81), **kw)

@@ -565,3 +565,124 @@ def test_int8_wgmma_counters_only_move_on_routed_calls(cuda):
     m = (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches)
     cv.convt2x2_prepared(x, wt)
     assert (cv.convt2x2_static_wgmma.launches, cv.convt2x2_static.launches) == (m[0], m[1] + 1)
+
+
+def _static_case(cuda, hw, cs, f, *, out_i8=True, head=False, seed=100):
+    h, w = hw
+    xs = [_codes((1, h, w, c), seed + i, 0).to(cuda) for i, c in enumerate(cs)]
+    k = torch.from_numpy(_mk((3, 3, sum(cs), f), seed + 5, 0.1)).to(cuda)
+    b = torch.from_numpy(_mk((f,), seed + 6, 0.5)).to(cuda)
+    scales = [torch.tensor(v, device=cuda) for v in (0.031, 0.047)][: len(cs)]
+    wq = cv.prepare_conv3x3(k, b, quant="static", in_scales=scales, c0=cs[0],
+                            out_scale=torch.tensor(0.09, device=cuda) if out_i8 else None)
+    hd = (cv.prepare_head(_mk((f, 3), seed + 7, 0.2), _mk((3,), seed + 8), cuda)
+          if head else None)
+    return xs, wq, hd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cs,f,pool,out_i8", [
+    ((20, 36), (64,), 64, True, True),
+    ((17, 30), (64, 64), 64, False, True),
+    ((20, 36), (64,), 64, True, False),  # bf16 output, pooled
+    ((20, 36), (64,), 128, True, True),
+    ((17, 30), (128, 64), 128, False, True),
+    ((68, 120), (128,), 256, True, True),
+    ((68, 120), (256, 256), 256, False, True),
+    ((20, 36), (64,), 256, True, False),
+    ((12, 24), (512,), 512, True, True),
+    ((12, 24), (512,), 1024, False, True),
+    ((18, 30), (64,), 192, True, True),
+    ((8, 16), (64,), 64, True, True),  # one tile: the second consumer has none
+])
+def test_conv3x3_static_wgmma_matches_twin_and_conv_cu(cuda, hw, cs, f, pool, out_i8):
+    """conv_i8_sm90.cu's static kernel at ragged shapes (H, W % 16 not 0),
+    one input and two, with the pool, int8 and bf16 output, odd and even
+    tile counts a block: equal bit for bit to its twin and to conv.cu's
+    gemm<0,1>; two runs equal; its counter and conv3x3_static move, the
+    conv.cu call only the latter."""
+    xs, wq, _ = _static_case(cuda, hw, cs, f, out_i8=out_i8)
+    assert cv.takes_static_wgmma(cs, f) and wq.wmat_t is not None
+    before = (cv.conv3x3_static_wgmma.launches, cv.conv3x3_static.launches)
+    got = cv.conv3x3_prepared(xs, wq, relu=True, pool=pool)
+    torch.cuda.synchronize()
+    assert (cv.conv3x3_static_wgmma.launches, cv.conv3x3_static.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = cv.conv3x3_prepared_plain(xs, wq, relu=True, pool=pool)
+    old = cv._conv3x3_gemm(xs, wq, relu=True, pool=pool, head=None)
+    assert (cv.conv3x3_static_wgmma.launches, cv.conv3x3_static.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert len(got) == len(want) == (2 if pool else 1)
+    for g, r, o in zip(got, want, old):
+        assert g.dtype == (torch.int8 if out_i8 else torch.bfloat16)
+        assert torch.equal(g, r) and torch.equal(g, o)
+    again = cv.conv3x3_prepared(xs, wq, relu=True, pool=pool)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cs", [((20, 36), (64,)), ((17, 30), (64, 64)),
+                                   ((68, 120), (64,))])
+def test_conv3x3_static_wgmma_head(cuda, hw, cs):
+    """The head conv (bf16 output, F = 64, the 1x1 head fused): the head
+    within 2 bf16 ulp of hk/hb on the kernel's bf16 conv output, which
+    equals the twin's bit for bit; two runs equal."""
+    xs, wq, hd = _static_case(cuda, hw, cs, 64, out_i8=False, head=True, seed=110)
+    n = cv.conv3x3_static_wgmma.launches
+    (y,) = cv.conv3x3_prepared(xs, wq, relu=True)
+    (hout,) = cv.conv3x3_prepared(xs, wq, relu=True, head=hd)
+    assert cv.conv3x3_static_wgmma.launches == n + 2
+    assert torch.equal(y, cv.conv3x3_prepared_plain(xs, wq, relu=True)[0])
+    href = torch.matmul(y.float(), hd.hk.float()) + hd.hb
+    assert hout.shape == (1,) + hw + (3,)
+    assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+    assert torch.equal(cv.conv3x3_prepared(xs, wq, relu=True, head=hd)[0], hout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,hw", [(1024, 512, (5, 9)), (512, 256, (7, 11)),
+                                    (256, 128, (9, 13)), (128, 64, (17, 30)),
+                                    (64, 192, (3, 50))])
+def test_convt2x2_wgmma_matches_f32_twin(cuda, c, f, hw):
+    """conv_sm90.cu's bf16 K4 at every (C, F) of the full-width net, H*W not
+    a multiple of the 128-pixel tile: within 2 bf16 ulp of the f32 twin; two
+    runs equal; its counter and convt2x2 move, the conv.cu call only the
+    latter."""
+    h, w = hw
+    x = torch.from_numpy(_mk((1, h, w, c), 120)).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(_mk((2, 2, c, f), 121, 0.05)).to(cuda)
+    b = torch.from_numpy(_mk((f,), 122)).to(cuda)
+    wts = cv.prepare_convt2x2(k, b)
+    assert cv.k4_route(c, wts) == "conv_sm90"
+    before = (cv.convt2x2_wgmma.launches, cv.convt2x2.launches)
+    y = cv.convt2x2_prepared(x, wts)
+    torch.cuda.synchronize()
+    assert (cv.convt2x2_wgmma.launches, cv.convt2x2.launches) == (before[0] + 1, before[1] + 1)
+    ref = cv.convt2x2_plain(x, cv._bf16_values(k), cv._bf16_values(b), dtype=torch.float32)
+    assert y.shape == (1, 2 * h, 2 * w, f) and y.dtype == torch.bfloat16
+    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    old = cv._convt2x2_gemm(x, wts)
+    assert (cv.convt2x2_wgmma.launches, cv.convt2x2.launches) == (before[0] + 1, before[1] + 2)
+    assert float((old.float() - ref).abs().max()) <= _ulp2(ref)
+    assert torch.equal(cv.convt2x2_prepared(x, wts), y)
+
+
+@pytest.mark.cuda
+def test_new_wgmma_counters_only_move_on_routed_calls(cuda):
+    """A static conv with 32 channels, a static head conv at F = 128 and a
+    bf16 K4 with F = 16 stay on conv.cu: conv3x3_static / convt2x2 move,
+    the new counters do not."""
+    xs, wq, _ = _static_case(cuda, (8, 16), (32,), 64, seed=130)
+    xh, wh, hd = _static_case(cuda, (8, 16), (64,), 128, out_i8=False, head=True, seed=133)
+    n = (cv.conv3x3_static_wgmma.launches, cv.conv3x3_static.launches)
+    cv.conv3x3_prepared(xs, wq, relu=True)
+    (hout,) = cv.conv3x3_prepared(xh, wh, relu=True, head=hd)
+    assert (cv.conv3x3_static_wgmma.launches, cv.conv3x3_static.launches) == (n[0], n[1] + 2)
+    (y,) = cv.conv3x3_prepared_plain(xh, wh, relu=True)
+    href = torch.matmul(y.float(), hd.hk.float()) + hd.hb
+    assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+    x = torch.from_numpy(_mk((1, 4, 6, 32), 131)).to(cuda, torch.bfloat16)
+    wt = cv.prepare_convt2x2(torch.from_numpy(_mk((2, 2, 32, 16), 132, 0.2)).to(cuda), None)
+    m = (cv.convt2x2_wgmma.launches, cv.convt2x2.launches)
+    cv.convt2x2_prepared(x, wt)
+    assert (cv.convt2x2_wgmma.launches, cv.convt2x2.launches) == (m[0], m[1] + 1)
