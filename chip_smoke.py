@@ -13,9 +13,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
    all 18 conv shapes (pool, head and two-input variants included) and K4 at
    its 4 shapes within 2 bf16 ulp of the output's magnitude against the f32
    ``F.conv2d`` / ``F.conv_transpose2d`` twin (TF32 off); at each K3 shape,
-   in turns, the routed kernel (``conv_sm90.cu`` at the 17 shapes whose
-   channels are multiples of 64), ``conv.cu``'s gemm<0,0> launched directly,
-   and ``F.conv2d``; each K4 call on ``conv_sm90.cu``'s ``convt2x2_wgmma``
+   the routed kernel (``conv_sm90.cu`` at the 17 shapes whose channels are
+   multiples of 64; ``conv_in_sm90.cu`` at the 5-channel input conv, also
+   within 2 bf16 ulp of its walk twin, two runs equal, one ``conv3x3_in``
+   launch, timed in turns by its C entry), ``conv.cu``'s gemm<0,0> launched directly, and
+   ``F.conv2d``; each K4 call on ``conv_sm90.cu``'s ``convt2x2_wgmma``
    (one launch of its counter, two runs equal), timed in turns against
    ``conv.cu``'s gemm<1,0> and ``F.conv_transpose2d``;
 4. the differentiable raster at the same shape: K5 (``winners_f32``) and
@@ -41,9 +43,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
 6. the int8 modes: the static net's lazy calibration (timed), then every
    int8-mode call of the static and the dyn net at the frame's shapes
    against its twin -- K3 static (int8 pool included), K3 dyn and K4 static
-   bit for bit, the bf16 input conv with int8 output within 1 code on
-   <= 0.1% of elements -- with ms, bound (int8 at 1,979 TOP/s), twin and
-   ``torch._int_mm`` (GEMM only) times; K4 static and K3 dyn on
+   bit for bit, the bf16 input conv with int8 output (``conv_in_sm90.cu``)
+   within 1 code on <= 0.1% of elements against its twin and its walk twin,
+   two runs equal, its share of codes differing from gemm<0,0>'s, timed in
+   turns against gemm<0,0> and ``F.conv2d`` -- with ms, bound (int8 at
+   1,979 TOP/s), twin and ``torch._int_mm`` (GEMM only) times; K4 static and K3 dyn on
    ``conv_i8_sm90.cu`` and K3 static on its ``conv3x3_static_wgmma`` (one
    launch of its counter a call), each also equal to ``conv.cu``'s kernel
    and two runs equal, timed in turns against that kernel and ``_int_mm``
@@ -57,9 +61,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (CUDA events), finiteness, the launch count of every kernel in that run
    (each must be > 0; ``conv_sm90.cu``'s conv exactly 17 a bf16 frame and 7
    a dyn frame, its K4 4 a bf16 and a dyn frame; ``conv_i8_sm90.cu`` 10 a
-   dyn frame, and 4 (K4) and 17 (K3 static) a static frame, whose trace
-   must show none of ``conv.cu``'s K3 static kernels), a ``torch.profiler``
-   trace of a few frames
+   dyn frame, and 4 (K4) and 17 (K3 static) a static frame;
+   ``conv_in_sm90.cu`` once a frame in every mode), a ``torch.profiler``
+   trace of a few frames of each mode, none of which may show a kernel of
+   ``conv.cu``
    (device busy/idle share, top kernels), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
    against the same render on the CPU; then the same frames (without the
@@ -70,8 +75,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    + 5 bf16 frames under each of ``RTNR_RESOLVE=v4``, ``v5``, ``v3`` and
    ``v2`` (counts reset before each), every one equal to the v4 frame bit for
    bit, each through its own resolver kernel; 1 warm-up + 5 bf16 frames
-   under ``RTNR_FUSE_UP=1`` (``conv3x3_up`` 2, K4 2 and ``conv_sm90.cu``'s
-   plain conv 15 a frame) with a trace, the fused net against the f32 twin
+   under ``RTNR_FUSE_UP=1`` (``conv3x3_up`` 2, K4 2, ``conv_sm90.cu``'s
+   plain conv 15 and ``conv_in_sm90.cu`` 1 a frame) with a trace, the fused net against the f32 twin
    net, its frame against the unfused one, and one dyn frame fused at
    levels 2 and 3; the environment is restored;
 8. the training paths at full width (bf16 U-Net, batch 1, targets the
@@ -82,7 +87,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    pose and colour gradients, and a profiler trace of one scene step; then a
    small scene step on the card against the CPU;
 9. one JSON ``kernels`` line: every kernel and int8 mode with its launches
-   on its path, time, bound, plain twin and library times;
+   on its path, time, bound, plain twin and library times (the input conv
+   in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
+   previous gemm<0,0> time);
 10. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
@@ -92,6 +99,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -453,7 +461,7 @@ def check_conv_up(unet, x, rows):
 
 def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
     """``RTNR_FUSE_UP=1``: 1 warm-up + RESOLVER_FRAMES bf16 frames
-    (``conv3x3_up`` 2 and K4 2 a frame) and a trace of 3, the U-Net
+    (``conv3x3_up`` 2, K4 2 and ``conv3x3_in`` 1 a frame) and a trace of 3, the U-Net
     against the f32 twin net within the bf16 budget, the largest difference from the unfused frame;
     then one dyn frame with its launch counts. The environment is restored."""
     import os
@@ -468,7 +476,7 @@ def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
                            ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
                             "conv3x3_up"), "bf16 RTNR_FUSE_UP=1",
                            per_frame={"conv3x3_up": 2, "convt2x2": 2, "convt2x2_wgmma": 2,
-                                      "conv3x3_wgmma": 15})
+                                      "conv3x3_wgmma": 15, "conv3x3_in": 1})
         trace_frames(renderer, cam, E, res["ms_per_frame"], label="bf16 RTNR_FUSE_UP=1")
         dframe = float((renderer.compute_full_tensors(cam, E)["rgb_f"] - ref).abs().max())
         with torch.no_grad():
@@ -491,7 +499,8 @@ def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
         log(f"dyn int8 frame under RTNR_FUSE_UP=1: launches {dyn}, unet "
             f"{dyn_r.last_timings.unet_ms:.3f} ms")
         if (dyn["conv3x3_up"] != 2 or dyn["conv3x3_dyn"] != 10 or dyn["convt2x2"] != 2
-                or dyn["convt2x2_wgmma"] != 2 or dyn["conv3x3_dyn_wgmma"] != 10):
+                or dyn["convt2x2_wgmma"] != 2 or dyn["conv3x3_dyn_wgmma"] != 10
+                or dyn["conv3x3_in"] != 1):
             fail("the dyn frame under RTNR_FUSE_UP=1 did not fuse levels 2 and 3")
         if not bool(torch.isfinite(out["rgb_f"]).all()):
             fail("the dyn frame under RTNR_FUSE_UP=1 is not finite")
@@ -843,6 +852,26 @@ def check_small_train_vs_cpu():
     log(f"small scene step (32x32, f32), card vs CPU within rtol 1e-3: {out['cuda']}")
 
 
+def in_conv_kernel(x, w):
+    """One launch of ``conv_in_sm90.cu``'s entry on ``x`` and the prepared
+    weights ``w`` (ReLU), its arguments bound once: the kernel's time without
+    the Python wrapper's checks and allocation (the yardsticks it is timed
+    against are C++ calls)."""
+    import torch
+    from rtnr_tpu_torch import _build
+    from rtnr_tpu_torch.ops import conv as cv
+
+    lib = _build.load("conv_in_sm90", cv._bind_in)
+    _, h, wd, c = x.shape
+    out = torch.empty((1, h, wd, int(w.wmat.shape[1])),
+                      dtype=torch.int8 if w.out_i8 else torch.bfloat16, device=x.device)
+    args = (x.data_ptr(), int(c), int(h), int(wd), w.wmat.data_ptr(), int(w.wmat.shape[0]),
+            w.bias.data_ptr(), out.data_ptr(), int(w.out_i8), 1,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib.rtnr_conv3x3_in(*args), "rtnr_conv3x3_in")
+    return lambda: lib.rtnr_conv3x3_in(*args)
+
+
 def record_unet_calls(unet, x, p=None):
     """Run the net once on prepared weights ``p`` (default: the bf16 ones),
     recording every conv3x3 / convt2x2 call's inputs (the main path's shapes
@@ -868,9 +897,13 @@ def record_unet_calls(unet, x, p=None):
 
 def check_convs(unet, x, rows):
     """K3 at its 18 shapes and K4 at its 4 against the f32 twins. At each K3
-    shape, in turns: the kernel the route picks, conv.cu's gemm<0,0> (with
-    its pool / head kernels, launched directly) and ``F.conv2d``; the 17
-    routed shapes (conv_sm90.cu) are also summed on their own."""
+    shape: the kernel the route picks, conv.cu's gemm<0,0> (with its pool /
+    head kernels, launched directly) and ``F.conv2d``; the 17 routed shapes
+    (conv_sm90.cu) are also summed on their own. The input conv
+    (conv_in_sm90.cu) is also held within 2 bf16 ulp of its walk twin
+    ``conv3x3_in_plain``, launches ``conv3x3_in`` once a call, gives equal
+    runs, and is timed in turns against gemm<0,0> and ``F.conv2d`` at its
+    own shape (5 -> 64, channels-last bf16)."""
     import torch
     import torch.nn.functional as Fn
     from rtnr_tpu_torch.ops import conv as cv
@@ -879,7 +912,7 @@ def check_convs(unet, x, rows):
     head_w = p["final_conv"]
     acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, flops=0.0,
                    nbytes=0.0, previous_ms=0.0, calls=0)
-           for k in ("conv3x3", "conv3x3_wgmma", "convt2x2")}
+           for k in ("conv3x3", "conv3x3_wgmma", "conv3x3_in", "convt2x2")}
     slower, slower_k4 = [], []
     calls = record_unet_calls(unet, x)
     if len([c for c in calls if c[0] == "conv3x3"]) != 18 or \
@@ -893,7 +926,14 @@ def check_convs(unet, x, rows):
             xs = xin
             _, h, wd, _ = xs[0].shape
             ct, F = w.cin, int(w.wmat.shape[1])
+            inconv = cv.k3_route([int(t.shape[3]) for t in xs], w, head=head,
+                                 pool=pool) == "conv_in_sm90"
+            n_in = cv.conv3x3_in.launches
             (y,) = cv.conv3x3_prepared(xs, w, relu=True)
+            torch.cuda.synchronize()
+            if cv.conv3x3_in.launches != n_in + int(inconv):
+                fail(f"K3 {name}: conv3x3_in launched {cv.conv3x3_in.launches - n_in} times, "
+                     f"not {int(inconv)}")
             (ref,) = cv.conv3x3_plain(xs, kern, w.bias, relu=True, dtype=torch.float32)
             err = float((y.float() - ref).abs().max())
             tol = 2 * ulp_bf16(float(ref.abs().max()))
@@ -913,6 +953,16 @@ def check_convs(unet, x, rows):
                 extra = f" +head err {herr:.3g} (tol {htol:.3g})"
             if not err <= tol:
                 fail(f"K3 {name} {tuple(xs[0].shape)}: max abs err {err} > {tol}")
+            if inconv:
+                (twin,) = cv.conv3x3_in_plain(xs, w, relu=True)
+                terr = float((y.float() - twin.float()).abs().max())
+                ttol = 2 * ulp_bf16(float(twin.float().abs().max()))
+                if not terr <= ttol:
+                    fail(f"K3 input conv {name}: max abs err {terr} > {ttol} against its twin")
+                if not torch.equal(cv.conv3x3_prepared(xs, w, relu=True)[0], y):
+                    fail(f"K3 input conv {name}: two runs differ")
+                extra += f" twin err {terr:.3g} (tol {ttol:.3g}), two runs equal"
+                del twin
             mean = float((y.float() - ref).abs().mean())
             M = h * wd
             oc = int(head_w.hk.shape[1]) if head else 0
@@ -921,21 +971,30 @@ def check_convs(unet, x, rows):
             nbytes = 2.0 * M * ct + 2.0 * 9 * ct * F + 4.0 * F + out_bytes
             hd = head_w if head else None
             routed = cv.takes_wgmma([int(t.shape[3]) for t in xs], F, head=head)
-            ms = time_ms(lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd))
-            prev = time_ms(lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=hd))
-            hk = unet.param("final_conv/kernel") if head else None
-            hb = unet.param("final_conv/bias") if head else None
-            plain = time_ms(lambda: cv.conv3x3_plain(xs, kern, w.bias, relu=True, pool=pool,
-                                                     head_kernel=hk, head_bias=hb), reps=2)
             xcat = torch.cat(xs, dim=-1).permute(0, 3, 1, 2)  # channels-last NCHW view
             wl = kern.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
                 memory_format=torch.channels_last)
             bl = w.bias.to(torch.bfloat16)
-            lib = time_ms(lambda: Fn.conv2d(xcat, wl, bl, padding=1))
+            if inconv:  # in turns: conv_in_sm90.cu, gemm<0,0>, F.conv2d at 5 -> 64
+                wrapper_ms = time_ms(lambda: cv.conv3x3_prepared(xs, w, relu=True))
+                extra += f", through its wrapper {wrapper_ms:.4f} ms"
+                ms, prev, lib = turns_ms({
+                    "new": in_conv_kernel(xs[0], w),
+                    "old": lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=False, head=None),
+                    "library": lambda: Fn.conv2d(xcat, wl, bl, padding=1)})
+                plain = time_ms(lambda: cv.conv3x3_in_plain(xs, w, relu=True), reps=2)
+            else:
+                ms = time_ms(lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd))
+                prev = time_ms(lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=hd))
+                hk = unet.param("final_conv/kernel") if head else None
+                hb = unet.param("final_conv/bias") if head else None
+                plain = time_ms(lambda: cv.conv3x3_plain(xs, kern, w.bias, relu=True, pool=pool,
+                                                         head_kernel=hk, head_bias=hb), reps=2)
+                lib = time_ms(lambda: Fn.conv2d(xcat, wl, bl, padding=1))
             shape = f"{h}x{wd}x({'+'.join(str(int(t.shape[3])) for t in xs)})->{F}"
-            extra += (f" | {'wgmma' if routed else 'gemm<0,0>'} {ms:.4f} ms, gemm<0,0> "
-                      f"{prev:.4f} ms, F.conv2d {lib:.4f} ms")
-            if routed and not ms < prev:
+            kname = "wgmma" if routed else ("conv_in_sm90" if inconv else "gemm<0,0>")
+            extra += (f" | {kname} {ms:.4f} ms, gemm<0,0> {prev:.4f} ms, F.conv2d {lib:.4f} ms")
+            if (routed or inconv) and not ms < prev:
                 slower.append(name)
         else:
             hx = xin
@@ -959,7 +1018,7 @@ def check_convs(unet, x, rows):
             M = h * wd
             flops = 2.0 * M * 4 * F * c
             nbytes = 2.0 * M * c + 2.0 * 4 * c * F + 4.0 * F + 2.0 * 4 * M * F
-            routed = False
+            routed = inconv = False
             plain = time_ms(lambda: cv.convt2x2_plain(hx, kern, w.bias), reps=2)
             xl = hx.permute(0, 3, 1, 2)
             wt = torch.flip(kern, dims=(0, 1)).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous()
@@ -975,7 +1034,8 @@ def check_convs(unet, x, rows):
             extra = (f" | convt2x2_wgmma {ms:.4f} ms, gemm<1,0> {prev:.4f} ms, "
                      f"F.conv_transpose2d {lib:.4f} ms")
         b, by = bound_ms(nbytes, flops)
-        for t in (a, acc["conv3x3_wgmma"]) if routed else (a,):
+        sub = ("conv3x3_wgmma",) if routed else (("conv3x3_in",) if inconv else ())
+        for t in (a,) + tuple(acc[k] for k in sub):
             t["ms"] += ms
             t["previous_ms"] += prev
             t["plain_ms"] += plain
@@ -988,8 +1048,9 @@ def check_convs(unet, x, rows):
         log(f"{kind} {name:16s} {shape:24s} err {err:.3g} (tol {tol:.3g}, mean {mean:.3g})"
             f"{extra} | {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound {b:.4f} {by}, "
             f"plain {plain:.4f}, library {lib:.4f}")
-    if acc["conv3x3_wgmma"]["calls"] != 17:
-        fail(f"{acc['conv3x3_wgmma']['calls']} of the 18 conv3x3 shapes take conv_sm90.cu, not 17")
+    if acc["conv3x3_wgmma"]["calls"] != 17 or acc["conv3x3_in"]["calls"] != 1:
+        fail(f"{acc['conv3x3_wgmma']['calls']} of the 18 conv3x3 shapes take conv_sm90.cu and "
+             f"{acc['conv3x3_in']['calls']} conv_in_sm90.cu, not 17 and 1")
     for kind, a in acc.items():
         _, by = bound_ms(a["nbytes"], a["flops"])
         rows[kind] = dict(ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
@@ -1005,6 +1066,12 @@ def check_convs(unet, x, rows):
         f"{a['library_ms']:.4f} ({a['library_ms'] / a['ms']:.2f}x); half its bound "
         f"{2 * a['bound_ms']:.4f} ms {'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'}; "
         f"slower than gemm<0,0> at {slower or 'no shape'}")
+    a = acc["conv3x3_in"]
+    log(f"conv_in_sm90.cu, the input conv (bf16 out): {a['ms']:.4f} ms against gemm<0,0> "
+        f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x) and F.conv2d at 5 -> 64 "
+        f"{a['library_ms']:.4f} ({a['library_ms'] / a['ms']:.2f}x); bound {a['bound_ms']:.4f} "
+        f"({a['nbytes'] / a['ms'] / 1e9:.3f} TB/s); half its bound "
+        f"{'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'}")
     a = acc["convt2x2"]
     log(f"convt2x2_wgmma on the 4 K4 shapes: {a['ms']:.4f} ms against gemm<1,0> "
         f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x) and F.conv_transpose2d "
@@ -1045,20 +1112,23 @@ def int_mm_fn(a, b):
 
 # the conv.cu kernel each conv_i8_sm90.cu mode replaced
 OLD_KERNEL = {"convt2x2_static": "gemm<1,1>", "conv3x3_dyn": "gemm<0,2>",
-              "conv3x3_static": "gemm<0,1>"}
+              "conv3x3_static": "gemm<0,1>", "conv3x3_i8out": "gemm<0,0>"}
 
 
 def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
     """Every int8-mode call of the static and the dyn net at the frame's
     shapes against its plain twin on the card, on the same inputs: K3 static
     (int8 pool included) and K4 static bit for bit, K3 dyn bit for bit, the
-    bf16 input conv with int8 output within 1 code on <= 0.1% of elements
-    (f32 sums in another order); ms, bound, twin and library per mode. K4
+    bf16 input conv with int8 output (``conv_in_sm90.cu``) within 1 code on
+    <= 0.1% of elements against its mode twin and its walk twin (f32 sums in
+    another order), two runs equal, with the share of codes that differ from
+    gemm<0,0>'s printed; ms, bound, twin and library per mode. K4
     static, K3 dyn and K3 static run ``conv_i8_sm90.cu``: each call is also
-    held equal to ``conv.cu``'s kernel and to a second run, and timed in
-    turns against that kernel and ``torch._int_mm`` (the K3 modes also
-    against the bf16 ``conv_sm90.cu`` conv of the same shape, a yardstick
-    their routes never call)."""
+    held equal to ``conv.cu``'s kernel and to a second run. Every call is
+    timed in turns against the ``conv.cu`` kernel it replaced and a library
+    call (``torch._int_mm``; ``F.conv2d`` for the input conv), the K3 int8
+    modes also against the bf16 ``conv_sm90.cu`` conv of the same shape, a
+    yardstick their routes never call."""
     import torch
     import torch.nn.functional as Fn
     from rtnr_tpu_torch.ops import conv as cv
@@ -1116,24 +1186,38 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                 hd = head_w if head else None
                 dyn = mode == "conv3x3_dyn"
                 static = mode == "conv3x3_static"
+                i8out = mode == "conv3x3_i8out"
                 if (dyn or static) and cv.k3_route(cs, w, head=head) != "conv_i8_sm90":
                     fail(f"K3 {w.quant} {name}: {cs} -> {F} does not take conv_i8_sm90.cu")
-                n0 = (cv.conv3x3_dyn_wgmma.launches, cv.conv3x3_static_wgmma.launches)
+                if i8out and cv.k3_route(cs, w, head=head, pool=pool) != "conv_in_sm90":
+                    fail(f"K3 int8-out {name}: {cs} -> {F} does not take conv_in_sm90.cu")
+                counters = (cv.conv3x3_dyn_wgmma, cv.conv3x3_static_wgmma, cv.conv3x3_in)
+                n0 = [c.launches for c in counters]
                 got = cv.conv3x3_prepared(xs, w, relu=True, pool=pool)
                 torch.cuda.synchronize()
-                moved = (cv.conv3x3_dyn_wgmma.launches - n0[0],
-                         cv.conv3x3_static_wgmma.launches - n0[1])
-                if moved != (int(dyn), int(static)):
-                    fail(f"K3 {name}: conv3x3_dyn_wgmma / conv3x3_static_wgmma launched "
-                         f"{moved} times, not {(int(dyn), int(static))}")
+                moved = tuple(c.launches - n for c, n in zip(counters, n0))
+                if moved != (int(dyn), int(static), int(i8out)):
+                    fail(f"K3 {name}: conv3x3_dyn_wgmma / conv3x3_static_wgmma / conv3x3_in "
+                         f"launched {moved} times, not {(int(dyn), int(static), int(i8out))}")
                 ref = cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool)
-                if mode == "conv3x3_i8out":
-                    d = (got[0].int() - ref[0].int()).abs()
-                    err = float(d.max())
-                    share = float((d > 0).float().mean())
-                    if not (err <= 1 and share <= 1e-3):
-                        fail(f"K3 int8-out {name}: max code diff {err}, share {share}")
-                    extra = f" codes differ on {share:.3g} (<= 1e-3)"
+                if i8out:
+                    err, extra = 0.0, ""
+                    (walk,) = cv.conv3x3_in_plain(xs, w, relu=True)
+                    for label, want in (("twin", ref[0]), ("walk twin", walk)):
+                        d = (got[0].int() - want.int()).abs()
+                        err = max(err, float(d.max()))
+                        share = float((d > 0).float().mean())
+                        if not (float(d.max()) <= 1 and share <= 1e-3):
+                            fail(f"K3 int8-out {name}: max code diff {float(d.max())}, share "
+                                 f"{share} against its {label}")
+                        extra += f" codes differ from the {label} on {share:.3g} (<= 1e-3);"
+                    if not torch.equal(cv.conv3x3_prepared(xs, w, relu=True)[0], got[0]):
+                        fail(f"K3 int8-out {name}: two runs differ")
+                    (old,) = cv._conv3x3_gemm(xs, w, relu=True, pool=False, head=None)
+                    d = (got[0].int() - old.int()).abs()
+                    extra += (f" two runs equal; differ from gemm<0,0>'s codes on "
+                              f"{float((d > 0).float().mean()):.3g} (max {int(d.max())})")
+                    del walk, old, d
                 else:
                     for g, r in zip(got, ref):
                         if not torch.equal(g, r):
@@ -1169,6 +1253,10 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                     out_b * M * F / 4 if pool else 0.0)
                 nbytes = in_b * M * ct + (1.0 if w.quant else 2.0) * 9 * ct * F + 8.0 * F + out_bytes
                 fns = {"new": lambda: cv.conv3x3_prepared(xs, w, relu=True, pool=pool, head=hd)}
+                if i8out:
+                    extra += f"; through its wrapper {time_ms(fns['new']):.4f} ms"
+                    fns["new"] = in_conv_kernel(xs[0], w)
+                    fns["old"] = lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=False, head=None)
                 if dyn or static:
                     wb = bf16_w[name]
                     hb16 = bf16_w["final_conv"] if head else None
@@ -1176,8 +1264,11 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
                     fns["old"] = lambda: cv._conv3x3_gemm(xs, w, relu=True, pool=pool, head=hd)
                     fns["bf16"] = lambda: cv._conv3x3_wgmma(xb, wb, relu=True, pool=pool,
                                                             head=hb16)
-                plain = time_ms(lambda: cv.conv3x3_prepared_plain(xs, w, relu=True, pool=pool,
-                                                                  head=hd), reps=2)
+                if i8out:
+                    plain = time_ms(lambda: cv.conv3x3_in_plain(xs, w, relu=True), reps=2)
+                else:
+                    plain = time_ms(lambda: cv.conv3x3_prepared_plain(xs, w, relu=True,
+                                                                      pool=pool, head=hd), reps=2)
                 if mode == "conv3x3_i8out":  # the bf16 GEMM: F.conv2d in bf16
                     xl = xs[0].permute(0, 3, 1, 2)
                     wl = w.wmat[:9 * ct].reshape(3, 3, ct, F).permute(3, 2, 0, 1).contiguous(
@@ -1247,6 +1338,14 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
         log(f"{mode} per frame: {a['calls']} calls, {a['ms']:.4f} ms ({a['ops'] / 1e12:.4f} "
             f"TOP, {a['ops'] / a['ms'] / 1e9:.1f} TOP/s), bound {a['bound_ms']:.4f}, plain "
             f"{a['plain_ms']:.4f}, library {libs}{more}")
+    # the int8-output mode's one call is the input conv on conv_in_sm90.cu
+    rows["conv3x3_in_i8out"] = dict(rows["conv3x3_i8out"])
+    a = acc["conv3x3_i8out"]
+    log(f"conv_in_sm90.cu, the input conv (int8 out): {a['ms']:.4f} ms against gemm<0,0> "
+        f"{a['previous_ms']:.4f} ({a['previous_ms'] / a['ms']:.2f}x) and F.conv2d at 5 -> 64 "
+        f"{a['library_ms']:.4f}; bound {a['bound_ms']:.4f} "
+        f"({a['nbytes'] / a['ms'] / 1e9:.3f} TB/s); half its bound "
+        f"{'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'}")
     if (acc["convt2x2_static"]["calls"] != 4 or acc["conv3x3_dyn"]["calls"] != 10
             or acc["conv3x3_static"]["calls"] != 17):
         fail("expected 4 K4 static, 10 K3 dyn and 17 K3 static calls in the int8 nets")
@@ -1254,7 +1353,7 @@ def check_int8_convs(static_unet, act_scales, dyn_unet, x, rows):
     log(f"conv3x3_static_wgmma on its 17 shapes: {a['ms']:.4f} ms, bf16 conv_sm90.cu "
         f"{a['bf16_ms']:.4f} ({'below' if a['ms'] < a['bf16_ms'] else 'not below'}), twice "
         f"the bound {2 * a['bound_ms']:.4f} ({'met' if a['ms'] <= 2 * a['bound_ms'] else 'missed'})")
-    log(f"conv_i8_sm90.cu slower than the conv.cu kernel it replaces at "
+    log(f"conv_i8_sm90.cu / conv_in_sm90.cu slower than the conv.cu kernel they replace at "
         f"{slower or 'no shape'}")
     return {"per_shape": per_shape, "slower_than_conv_cu": slower}
 
@@ -1529,7 +1628,9 @@ def main() -> int:
                "conv3x3_up": cv.conv3x3_up, "conv3x3_dyn_wgmma": cv.conv3x3_dyn_wgmma,
                "convt2x2_static_wgmma": cv.convt2x2_static_wgmma,
                "conv3x3_static_wgmma": cv.conv3x3_static_wgmma,
-               "convt2x2_wgmma": cv.convt2x2_wgmma}
+               "convt2x2_wgmma": cv.convt2x2_wgmma,
+               # one counter, two rows: the input conv's bf16 and int8-out forms
+               "conv3x3_in": cv.conv3x3_in, "conv3x3_in_i8out": cv.conv3x3_in}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
     conv_up = check_conv_up(renderer.unet, x, rows)
@@ -1559,13 +1660,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
                          ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
-                          "convt2x2_wgmma"), "bf16",
+                          "convt2x2_wgmma", "conv3x3_in"), "bf16",
                          host_frames=HOST_FRAMES,
                          per_frame={"conv3x3_wgmma": 17, "convt2x2_wgmma": 4, "conv3x3_up": 0,
                                     "conv3x3_dyn_wgmma": 0, "convt2x2_static_wgmma": 0,
-                                    "conv3x3_static_wgmma": 0})
+                                    "conv3x3_static_wgmma": 0, "conv3x3_in": 1,
+                                    "conv3x3": 18, "conv3x3_i8out": 0})
     peak = torch.cuda.max_memory_allocated() / 2**30
-    trace_frames(renderer, cam, E, serve["ms_per_frame"])
+    bf16_trace = trace_frames(renderer, cam, E, serve["ms_per_frame"])
     resolvers = resolver_frames(renderer, cam, E, counted)
     fuse_up = fuse_up_frames(renderer, dyn_r, cam, E, x, counted)
 
@@ -1588,27 +1690,34 @@ def main() -> int:
     serve_static = serve_frames(static_r, cam, E, INT8_FRAMES, counted,
                                 ("winners", "expand", "conv3x3_i8out", "conv3x3_static",
                                  "convt2x2_static", "convt2x2_static_wgmma",
-                                 "conv3x3_static_wgmma"), "static int8",
+                                 "conv3x3_static_wgmma", "conv3x3_in"), "static int8",
                                 per_frame={"conv3x3_static": 17, "conv3x3_static_wgmma": 17,
                                            "convt2x2_static": 4, "convt2x2_static_wgmma": 4,
-                                           "convt2x2_wgmma": 0})
+                                           "convt2x2_wgmma": 0, "conv3x3_in": 1,
+                                           "conv3x3_i8out": 1, "conv3x3": 0})
     serve_dyn = serve_frames(dyn_r, cam, E, INT8_FRAMES, counted,
                              ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2",
-                              "conv3x3_wgmma", "conv3x3_dyn_wgmma", "convt2x2_wgmma"),
+                              "conv3x3_wgmma", "conv3x3_dyn_wgmma", "convt2x2_wgmma",
+                              "conv3x3_in"),
                              "dyn int8",
                              per_frame={"conv3x3_wgmma": 7, "conv3x3_dyn": 10,
                                         "conv3x3_dyn_wgmma": 10, "convt2x2_wgmma": 4,
-                                        "conv3x3_static_wgmma": 0})
+                                        "conv3x3_static_wgmma": 0, "conv3x3_in": 1,
+                                        "conv3x3": 8})
     static_trace = trace_frames(static_r, cam, E, serve_static["ms_per_frame"],
                                 label="static int8")
-    # the unfused kernels K3 static replaced: conv.cu's GEMM, its pool and its head
-    gone = [n for n in static_trace
-            if any(k in n for k in ("gemm<0, 1>", "head1x1_bf16", "maxpool2<signed char>"))]
-    log(f"static trace: conv.cu's gemm<0,1> / head1x1_bf16 / int8 maxpool2 "
-        f"{'absent' if not gone else 'present: ' + ', '.join(gone)}")
-    if gone:
-        fail("the static frame still runs conv.cu's K3 static kernels")
-    trace_frames(dyn_r, cam, E, serve_dyn["ms_per_frame"], label="dyn int8")
+    dyn_trace = trace_frames(dyn_r, cam, E, serve_dyn["ms_per_frame"], label="dyn int8")
+    # no kernel of conv.cu in any mode's frame: its GEMM, pool, head and dyn pre-pass
+    for label, tr in (("bf16", bf16_trace), ("static int8", static_trace),
+                      ("dyn int8", dyn_trace)):
+        if not tr:
+            log(f"{label} trace: conv.cu kernels not measured (no device events)")
+            continue
+        left = [n for n in tr if re.search(r"\bgemm<\d, \d>|maxpool2<|head1x1_bf16|dyn_scales", n)]
+        log(f"{label} trace: conv.cu's gemm / maxpool2 / head1x1_bf16 / dyn_scales "
+            f"{'absent' if not left else 'present: ' + ', '.join(left)}")
+        if left:
+            fail(f"the {label} frame still runs conv.cu kernels")
     # end to end at a second pose, away from the calibration view
     E2 = np.eye(4)
     E2[0, 3], E2[1, 3], E2[2, 3] = 1.5, -0.5, 9.0
@@ -1635,21 +1744,22 @@ def main() -> int:
     train = train_phase(renderer, cam, E, variables, counted)
     check_small_train_vs_cpu()
 
-    conv_src = "rtnr_tpu_torch/csrc/conv.cu"
     sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
     i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
+    in_src = "rtnr_tpu_torch/csrc/conv_in_sm90.cu"
     sources = {
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
         "expand": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                    "rtnr_tpu/ops/raster_pallas4.py:920"),
-        # every K3 bf16 call of a frame: 17 on conv_sm90.cu, the 5-channel input conv on conv.cu
-        "conv3x3": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        # every K3 bf16 call of a frame: 17 on conv_sm90.cu, the input conv on conv_in_sm90.cu
+        "conv3x3": ("cuda", f"{sm90_src}, {in_src}", "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_wgmma": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1310"),
         "winners_f32": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                         "rtnr_tpu/ops/raster_pallas4.py:872"),
-        "conv3x3_i8out": ("cuda", conv_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        # every int8-output K3 call of a frame: the input conv
+        "conv3x3_i8out": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_static": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_dyn": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2_static": ("cuda", i8_src, "rtnr_tpu/ops/conv_phase.py:1310"),
@@ -1662,7 +1772,13 @@ def main() -> int:
         "conv3x3_direct": ("cuda", sm90_src, "rtnr_tpu/ops/conv_pallas.py:272"),
         # K3's up_kernel= mode (conv_phase.py:720-780), the same pallas_call site
         "conv3x3_up": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        # the input conv, down0/conv0 (to_phase's padded channels, conv_phase.py:46-57,
+        # :842-856), in its two output forms
+        "conv3x3_in": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        "conv3x3_in_i8out": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
     }
+    labels = {"conv3x3_in": "K3 input conv, bf16 out",
+              "conv3x3_in_i8out": "K3 input conv, int8 out"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
              "train_step": train["train_step"], "scene_step": train["scene_step"],
@@ -1673,13 +1789,14 @@ def main() -> int:
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
            "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
            "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct",
-           "conv3x3_up": "serve_fuse_up"}
+           "conv3x3_up": "serve_fuse_up", "conv3x3_in_i8out": "serve_static"}
     kernels = []
     for name, (route, src, repl) in sources.items():
         r = rows[name]
         by_path = {p: v["launches"][name] for p, v in paths.items()}
         kernels.append({
-            "name": name, "route": route, "source": src, "replaces": repl,
+            "name": name, **({"label": labels[name]} if name in labels else {}),
+            "route": route, "source": src, "replaces": repl,
             "launches": by_path[own.get(name, "serve")], "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -39,6 +39,8 @@ SOURCES: Dict[str, tuple] = {
     "conv_sm90": ("conv_sm90.cu", []),
     # the int8 modes of K3 (dyn) and K4 (static) on s8 wgmma and TMA
     "conv_i8_sm90": ("conv_i8_sm90.cu", []),
+    # the U-Net's input conv (1-8 channels -> 64) on mma.sync, bf16 or int8 out
+    "conv_in_sm90": ("conv_in_sm90.cu", []),
 }
 
 _BASE_FLAGS = [

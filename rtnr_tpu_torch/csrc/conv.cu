@@ -20,9 +20,12 @@
 // Precision modes, the template parameter AK (the kind of the A operand):
 // - AK 0, bf16: bf16 inputs and weights, f32 accumulation; the epilogue adds
 //   the bias, applies ReLU and writes bf16, or with out_i8 the int8 codes
-//   clip(rint(y), 0 or -127, 127). That is the exact input conv of the static
-//   net (5 bf16 channels in, int8 out): the wrapper multiplies its kernel and
-//   bias by 1/out_scale before rounding them to bf16 (conv_phase.py:851-855).
+//   clip(rint(y), 0 or -127, 127) (the wrapper multiplies the kernel and bias
+//   by 1/out_scale before rounding them to bf16, conv_phase.py:851-855).
+//   The full-width net runs none of this file's K3 and K4 kernels: its input
+//   conv (bf16 or int8 out) runs conv_in_sm90.cu, its other convs
+//   conv_sm90.cu and conv_i8_sm90.cu. This GEMM serves narrow nets and the
+//   shapes no other route takes.
 // - AK 1, static int8: int8 inputs, per-output-channel int8 weights, i32
 //   accumulation; y = f32(acc) * scale[f] + bias[f], where the wrapper folds
 //   weight scale x input scale x 1/out_scale into scale and 1/out_scale into

@@ -3,15 +3,20 @@
 Counterpart of ``rtnr_tpu/ops/conv_phase.py``. The TPU's polyphase layout is
 not carried over: tensors are NHWC (1, H, W, C), bf16 or int8 codes, at
 every public function, as in the JAX package's NHWC API. The CUDA kernels
-are in ``csrc/conv.cu``, ``csrc/conv_sm90.cu`` and ``csrc/conv_i8_sm90.cu``
-(their headers note what each replaces, its bound and its design).
+are in ``csrc/conv.cu``, ``csrc/conv_sm90.cu``, ``csrc/conv_i8_sm90.cu`` and
+``csrc/conv_in_sm90.cu`` (their headers note what each replaces, its bound
+and its design).
 
-K3's exact bf16 mode has two kernels. ``takes_wgmma`` decides which: a call
-with channel counts and F all multiples of 64 (every U-Net conv but the
-5-channel input conv, and K10) runs the TMA + wgmma implicit GEMM of
-``conv_sm90.cu`` with the pool and the head fused; the other bf16 calls (the
-input conv, the int8-output conv, narrow nets) run ``conv.cu``'s GEMM.
-``conv3x3_wgmma_plain`` contracts as that kernel walks K.
+K3's exact bf16 mode has three kernels; ``k3_route`` decides which. The
+U-Net's input conv (one input of 1-8 channels to F = 64, no pool, no head;
+``takes_in_conv``), with bf16 output or with int8 output codes, runs
+``conv_in_sm90.cu``'s kernel (RS-form wgmma, the bias folded in as a
+weight row against a column of ones); ``conv3x3_in_plain`` contracts as it
+walks K. A call with channel counts and F all multiples of 64 (every
+other U-Net conv, and K10) runs the TMA + wgmma implicit GEMM of
+``conv_sm90.cu`` with the pool and the head fused
+(``conv3x3_wgmma_plain``). ``conv.cu``'s GEMM serves narrow nets and the
+shapes no other route takes.
 
 K4's bf16 mode runs ``conv_sm90.cu``'s ``convt2x2_wgmma`` where
 ``takes_convt_wgmma`` (C and F multiples of 64: every bf16 ConvTranspose of
@@ -24,10 +29,9 @@ multiples of 64, F of 256, no head), K3 static where
 ``takes_static_wgmma`` (channel counts and F multiples of 64, the head only
 at F = 64) and K4 static where
 ``takes_convt_i8_wgmma`` (C and F multiples of 64, int8 output); other
-shapes (narrow nets, toy widths, the int8-output input conv) stay on
-``conv.cu``'s GEMM. ``conv3x3_dyn_wgmma_plain``,
-``conv3x3_static_wgmma_plain`` and ``convt2x2_i8_wgmma_plain`` contract as
-those kernels walk N and K.
+shapes (narrow nets, toy widths) stay on ``conv.cu``'s GEMM.
+``conv3x3_dyn_wgmma_plain``, ``conv3x3_static_wgmma_plain`` and
+``convt2x2_i8_wgmma_plain`` contract as those kernels walk N and K.
 
 - ``conv3x3(xs, kernel, bias, *, relu, pool, head_kernel, head_bias, quant,
   in_scales, out_scale)``: 3x3 s1 same conv over the virtual concat of one
@@ -80,7 +84,8 @@ fused-ConvTranspose kernel; its calls count nowhere else),
 ``conv3x3_i8out``, ``conv3x3_static``, ``conv3x3_dyn`` and
 ``convt2x2_static`` (``.launches``, every call of the mode), and
 ``conv3x3_dyn_wgmma`` / ``conv3x3_static_wgmma`` / ``convt2x2_static_wgmma``
-(the calls of those that ran ``conv_i8_sm90.cu``).
+(the calls of those that ran ``conv_i8_sm90.cu``) and ``conv3x3_in`` (the
+calls of ``conv3x3`` or ``conv3x3_i8out`` that ran ``conv_in_sm90.cu``).
 """
 
 from __future__ import annotations
@@ -103,6 +108,11 @@ _KIND = {"": 0, "static": 1, "dyn": 2}
 _WG_CHUNK = 64
 # output channels (K3 dyn) or GEMM columns (K4 static) of a conv_i8_sm90.cu tile
 _I8_BN = 256
+# the input conv of conv_in_sm90.cu: at most 8 input channels, F = 64 (the
+# full-width net's features[0]), K walked in k16 steps
+_IN_MAX_C = 8
+_IN_F = 64
+_IN_KSTEP = 16
 # f32(1/127), the quantiser's constant (conv_phase.py:329, :870)
 INV127 = float(np.float32(1.0 / 127.0))
 
@@ -136,6 +146,11 @@ def _bind_sm90(lib: ctypes.CDLL) -> None:
         fn.restype = _I
 
 
+def _bind_in(lib: ctypes.CDLL) -> None:
+    lib.rtnr_conv3x3_in.argtypes = [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P]
+    lib.rtnr_conv3x3_in.restype = _I
+
+
 def _bind_i8(lib: ctypes.CDLL) -> None:
     lib.rtnr_conv3x3_dyn_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _P]
@@ -165,6 +180,7 @@ convt2x2_static = LaunchCount()  # K4 static int8
 conv3x3_dyn_wgmma = LaunchCount()  # K3 dyn int8 on conv_i8_sm90.cu (s8 wgmma)
 convt2x2_static_wgmma = LaunchCount()  # K4 static int8 on conv_i8_sm90.cu
 conv3x3_static_wgmma = LaunchCount()  # K3 static int8 on conv_i8_sm90.cu (s8 wgmma)
+conv3x3_in = LaunchCount()  # the input conv (bf16 or int8 out) on conv_in_sm90.cu
 
 
 def _as_tensor(a, device=None) -> torch.Tensor:
@@ -345,6 +361,16 @@ def takes_wgmma(cs: Sequence[int], f: int, *, quant: str = "", out_i8: bool = Fa
             and f % _WG_CHUNK == 0 and not (head and f > 128))
 
 
+def takes_in_conv(cs: Sequence[int], f: int, *, quant: str = "", head: bool = False,
+                  pool: bool = False) -> bool:
+    """Whether a K3 call on a CUDA tensor runs ``conv_in_sm90.cu``: the
+    U-Net's input conv, one input of 1-8 channels to F = 64 in the exact
+    mode (bf16 output, or int8 codes with ``out_scale``), without the head
+    or the pool."""
+    return (len(cs) == 1 and 1 <= cs[0] <= _IN_MAX_C and f == _IN_F and quant == ""
+            and not head and not pool)
+
+
 def takes_dyn_wgmma(cs: Sequence[int], f: int, *, head: bool = False) -> bool:
     """Whether a dyn-mode K3 call on CUDA tensors runs ``conv_i8_sm90.cu``
     (else ``conv.cu``'s GEMM): every input's channel count a multiple of 64
@@ -379,13 +405,16 @@ def takes_convt_i8_wgmma(c: int, f: int, *, out_i8: bool = True) -> bool:
     return c % _WG_CHUNK == 0 and f % _WG_CHUNK == 0 and out_i8
 
 
-def k3_route(cs: Sequence[int], w: Conv3x3Weights, *, head: bool = False) -> str:
+def k3_route(cs: Sequence[int], w: Conv3x3Weights, *, head: bool = False,
+             pool: bool = False) -> str:
     """The source whose kernel a K3 call on CUDA tensors runs:
-    ``"conv_sm90"`` (exact bf16, ``takes_wgmma``), ``"conv_i8_sm90"`` (dyn,
+    ``"conv_in_sm90"`` (the input conv, ``takes_in_conv``), ``"conv_sm90"``
+    (exact bf16, ``takes_wgmma``), ``"conv_i8_sm90"`` (dyn,
     ``takes_dyn_wgmma``; static, ``takes_static_wgmma``) or ``"conv"``
-    (``conv.cu``'s GEMM: every other call, the int8-output input conv among
-    them)."""
+    (``conv.cu``'s GEMM: every other call)."""
     f = int(w.wmat.shape[1])
+    if takes_in_conv(cs, f, quant=w.quant, head=head, pool=pool):
+        return "conv_in_sm90"
     if takes_wgmma(cs, f, quant=w.quant, out_i8=w.out_i8, head=head):
         return "conv_sm90"
     if w.quant == "dyn" and takes_dyn_wgmma(cs, f, head=head):
@@ -535,6 +564,34 @@ def conv3x3_wgmma_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: 
         return ((torch.matmul(y.to(torch.float32), head.hk.to(torch.float32))
                  + head.hb).to(dtype),)
     return (y, _pool2(y)) if pool else (y,)
+
+
+def conv3x3_in_plain(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool = False):
+    """Plain torch twin of ``conv_in_sm90.cu`` that contracts as it walks K:
+    A rows are output pixels, columns ``tap * C + c`` (``w.wmat``'s row
+    order) of the input's window shifted by the tap (zeros past the edges),
+    then at k = 9C a column of ones against the bias as a weight row (its
+    values are bf16, so the product is exact), zeros to a multiple of 16;
+    f32 sums over k16 steps; then ReLU and one bf16 rounding, or with
+    ``w.out_i8`` the codes ``clip(rint(y), 0 or -127, 127)``."""
+    cs = [int(x.shape[3]) for x in xs]
+    f = int(w.wmat.shape[1])
+    if not takes_in_conv(cs, f, quant=w.quant):
+        raise ValueError(f"conv3x3_in_plain takes one input of 1-{_IN_MAX_C} channels to "
+                         f"{_IN_F} in the exact mode, not {cs} -> {f} ({w.quant!r})")
+    _, h, wd, c = xs[0].shape
+    k, k16 = 9 * c, _round_up(9 * c + 1, _IN_KSTEP)
+    xp = Fn.pad(xs[0][0].to(torch.float32), (0, 0, 1, 1, 1, 1))
+    a = torch.cat([xp[dy:dy + h, dx:dx + wd] for dy in range(3) for dx in range(3)]
+                  + [torch.ones_like(xp[:h, :wd, :1])], dim=-1)
+    a = Fn.pad(a.reshape(h * wd, k + 1), (0, k16 - k - 1))
+    wk = Fn.pad(torch.cat([w.wmat[:k].to(torch.float32), w.bias[None]]), (0, 0, 0, k16 - k - 1))
+    acc = torch.zeros((h * wd, f), dtype=torch.float32, device=a.device)
+    for k0 in range(0, k16, _IN_KSTEP):
+        acc += a[:, k0:k0 + _IN_KSTEP] @ wk[k0:k0 + _IN_KSTEP]
+    y = torch.clamp(acc, min=0.0) if relu else acc
+    y = y.reshape(1, h, wd, f)
+    return (_codes(y, relu),) if w.out_i8 else (y.to(torch.bfloat16),)
 
 
 def dyn_scales_plain(xs: Sequence[torch.Tensor]):
@@ -824,7 +881,9 @@ def conv3x3_prepared(
         return conv3x3_prepared_plain(xs, w, relu=relu, pool=pool, head=head)
     if dev.type != "cuda" or w.wmat.device != dev:
         raise ValueError("conv3x3: activations and weights must be on one CUDA device")
-    route = k3_route(cs, w, head=head is not None)
+    route = k3_route(cs, w, head=head is not None, pool=pool)
+    if route == "conv_in_sm90":
+        return _conv3x3_in(xs, w, relu=relu)
     if route == "conv_sm90":
         return _conv3x3_wgmma(xs, w, relu=relu, pool=pool, head=head)
     if route == "conv_i8_sm90":
@@ -916,6 +975,28 @@ def _conv3x3_wgmma(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool,
     if head is not None:
         return (hout,)
     return (out, pooled) if pool else (out,)
+
+
+def _conv3x3_in(xs: Sequence[torch.Tensor], w: Conv3x3Weights, *, relu: bool):
+    """Launch ``conv_in_sm90.cu`` on a checked CUDA input that
+    ``takes_in_conv`` accepts; bf16 output, or int8 codes for
+    ``w.out_i8``."""
+    x = xs[0]
+    _, h, wd, c = x.shape
+    dev = x.device
+    F = int(w.wmat.shape[1])
+    out = torch.empty((1, h, wd, F), dtype=torch.int8 if w.out_i8 else torch.bfloat16,
+                      device=dev)
+    rc = _build.load("conv_in_sm90", _bind_in).rtnr_conv3x3_in(
+        x.data_ptr(), c, h, wd, w.wmat.data_ptr(), int(w.wmat.shape[0]), w.bias.data_ptr(),
+        out.data_ptr(), int(w.out_i8), int(relu), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rtnr_conv3x3_in")
+    conv3x3_in.launches += 1
+    if w.out_i8:
+        conv3x3_i8out.launches += 1
+    else:
+        conv3x3.launches += 1
+    return (out,)
 
 
 def _i8_lib() -> ctypes.CDLL:

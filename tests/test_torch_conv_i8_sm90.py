@@ -80,21 +80,21 @@ def test_dyn_plan_routes_its_ten_convs():
     assert len(dyn) == 10
     assert all(r[k][1] == "conv_i8_sm90" for k in dyn)
     # the rest of the dyn net is exact bf16: 7 convs and the 4 ConvTransposes on
-    # conv_sm90.cu, the input conv on conv.cu
+    # conv_sm90.cu, the input conv on conv_in_sm90.cu
     rest = collections.Counter(route for k, (mode, route) in r.items() if k not in dyn)
-    assert rest == {"conv_sm90": 11, "conv": 1}
+    assert rest == {"conv_sm90": 11, "conv_in_sm90": 1}
 
 
 def test_static_plan_routes_its_four_convtransposes_only():
     """The static plan's 4 ConvTransposes and its 17 static convs run
-    conv_i8_sm90.cu; only the int8-output input conv stays on conv.cu."""
+    conv_i8_sm90.cu; the int8-output input conv runs conv_in_sm90.cu."""
     r = routes(static=True)
     ups = [k for k in r if "/" not in k]  # up0 .. up3
     assert len(ups) == 4 and all(r[k] == ("static", "conv_i8_sm90") for k in ups)
     static = [k for k, (mode, _) in r.items() if mode == "static" and k not in ups]
     assert len(static) == 17 and all(r[k][1] == "conv_i8_sm90" for k in static)
     rest = {k: v for k, v in r.items() if k not in ups and k not in static}
-    assert rest == {"down0/conv0": ("", "conv")}
+    assert rest == {"down0/conv0": ("", "conv_in_sm90")}
 
 
 @pytest.mark.parametrize("cs,f,head,want", [

@@ -78,8 +78,8 @@ def test_static_plan_routes_all_seventeen_convs():
     static = [k for k, (mode, _, _) in r.items() if mode == "static" and "/" in k]
     assert len(static) == 17
     assert all(r[k][1:] == ("conv_i8_sm90", True) for k in static)
-    # the int8-output input conv is exact bf16 and stays on conv.cu's GEMM
-    assert r["down0/conv0"][:2] == ("", "conv") and not r["down0/conv0"][2]
+    # the int8-output input conv is exact bf16 and runs conv_in_sm90.cu on wmat
+    assert r["down0/conv0"][:2] == ("", "conv_in_sm90") and not r["down0/conv0"][2]
 
 
 def test_bf16_plan_routes_its_four_convtransposes():

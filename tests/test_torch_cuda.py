@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K6, the carrier kernel for K7-K9, K10 on K3,
-K3's fused-ConvTranspose mode, and the int8 modes of K3/K4 on conv.cu and on
+K3's fused-ConvTranspose mode, the input conv on conv_in_sm90.cu, and the int8
+modes of K3/K4 on conv.cu and on
 the s8 wgmma kernels of conv_i8_sm90.cu) against their
 plain torch twins on the card, the differentiable raster and the int8
 Renderer on the card against the CPU, and Renderer frames under every
@@ -158,15 +159,18 @@ def test_conv3x3_dyn_kernel_matches_twin(cuda, cs, w, head):
 
 @pytest.mark.cuda
 def test_conv3x3_exact_int8_out_kernel_matches_twin(cuda):
-    """The 5-channel bf16 input conv writing int8: f32 sums in another order
-    than the twin's, so at most 1 code on at most 0.1% of the elements."""
+    """The 5-channel bf16 input conv writing int8 (on conv_in_sm90.cu): f32
+    sums in another order than the twin's, so at most 1 code on at most 0.1%
+    of the elements."""
     x = torch.from_numpy(_mk((1, 32, 48, 5), 1)).to(cuda, torch.bfloat16)
     k = torch.from_numpy(_mk((3, 3, 5, 64), 2, 0.3)).to(cuda)
     wq = cv.prepare_conv3x3(k, None, out_scale=torch.tensor(0.02, device=cuda))
-    before = cv.conv3x3_i8out.launches
+    before = (cv.conv3x3_i8out.launches, cv.conv3x3_in.launches)
     (got,) = cv.conv3x3_prepared([x], wq, relu=True)
     (want,) = cv.conv3x3_prepared_plain([x], wq, relu=True)
-    assert cv.conv3x3_i8out.launches == before + 1 and got.dtype == torch.int8
+    assert (cv.conv3x3_i8out.launches, cv.conv3x3_in.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    assert got.dtype == torch.int8
     d = (got.int() - want.int()).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
 
@@ -411,8 +415,8 @@ def test_conv3x3_wgmma_matches_f32_twin(cuda, hw, cs, f):
 
 @pytest.mark.cuda
 def test_conv3x3_wgmma_counts_only_routed_calls(cuda):
-    """The 5-channel conv stays on conv.cu's GEMM; a 64-channel one takes
-    conv_sm90.cu; conv3x3.launches counts both."""
+    """The 5-channel conv takes conv_in_sm90.cu, not conv_sm90.cu; a
+    64-channel one takes conv_sm90.cu; conv3x3.launches counts both."""
     x5 = torch.from_numpy(_mk((1, 16, 32, 5), 30)).to(cuda, torch.bfloat16)
     x64 = torch.from_numpy(_mk((1, 16, 32, 64), 31)).to(cuda, torch.bfloat16)
     n, m = cv.conv3x3_wgmma.launches, cv.conv3x3.launches
@@ -420,6 +424,46 @@ def test_conv3x3_wgmma_counts_only_routed_calls(cuda):
     assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (n, m + 1)
     cv.conv3x3([x64], _mk((3, 3, 64, 64), 33, 0.05), relu=True)
     assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (n + 1, m + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(1, 1), (3, 37), (17, 130), (4, 1921), (64, 1920)])
+@pytest.mark.parametrize("c", [1, 3, 5, 8])
+@pytest.mark.parametrize("out_i8", [False, True])
+def test_conv3x3_in_matches_its_twin(cuda, hw, c, out_i8):
+    """The input conv on conv_in_sm90.cu (tiles of 128 pixels; W = 1921
+    leaves a one-pixel tile) against its walk twin: bf16 out within 2 bf16
+    ulp of the output's magnitude, int8 out within 1 code on at most 0.1%
+    of the elements (at least one): f32 sums in the tensor cores' order.
+    Two runs equal; conv3x3_in and the mode's counter move by one."""
+    h, w = hw
+    x = torch.from_numpy(_mk((1, h, w, c), 60 + c)).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(_mk((3, 3, c, 64), 70 + c, 0.3)).to(cuda)
+    b = torch.from_numpy(_mk((64,), 80 + c, 0.5)).to(cuda)
+    wq = cv.prepare_conv3x3(k, b, out_scale=torch.tensor(0.02, device=cuda) if out_i8 else None)
+    assert cv.k3_route([c], wq) == "conv_in_sm90"
+    mode = cv.conv3x3_i8out if out_i8 else cv.conv3x3
+    before = (cv.conv3x3_in.launches, mode.launches)
+    (got,) = cv.conv3x3_prepared([x], wq, relu=True)
+    torch.cuda.synchronize()
+    assert (cv.conv3x3_in.launches, mode.launches) == (before[0] + 1, before[1] + 1)
+    (want,) = cv.conv3x3_in_plain([x], wq, relu=True)
+    assert got.dtype == want.dtype and got.shape == (1, h, w, 64)
+    if out_i8:
+        d = (got.int() - want.int()).abs()
+        assert int(d.max()) <= 1 and int((d > 0).sum()) <= max(1, d.numel() // 1000)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= _ulp2(want.float())
+    assert torch.equal(cv.conv3x3_prepared([x], wq, relu=True)[0], got)
+
+
+@pytest.mark.cuda
+def test_conv3x3_in_refuses_a_misaligned_input(cuda):
+    flat = torch.zeros(1 + 4 * 40 * 5, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(1, 4, 40, 5)  # contiguous, 2 bytes past a 16-byte boundary
+    wq = cv.prepare_conv3x3(_mk((3, 3, 5, 64), 90, 0.1), None, cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        cv.conv3x3_prepared([x], wq, relu=True)
 
 
 def _up_inputs(cuda, h, w, cs, cd, f, seed=40):
