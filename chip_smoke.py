@@ -9,7 +9,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
    in parallel), with the build seconds;
 3. each kernel against its plain torch twin on the card at the main paths'
    shapes (5M-point synthetic scene, 1920x1080, full-width U-Net
-   [64,128,256,512] with seeded random weights): K1+K2 bit-exact; K3 at
+   [64,128,256,512] with seeded random weights): the v4 resolve
+   (``rtnr_resolve4``, K1 and K2 in one kernel) in both forms bit-exact
+   against its twin, against the old pair (K1 + the search K2) and between
+   two runs, also on a 20,000-point one-pixel stream, an all-culled stream, a
+   1919x1079 frame (a ragged last tile) and a one-point stream; K1 alone, the
+   tile K2 and the search K2 bit-exact against their twins; each redesigned
+   kernel timed in turns against the kernels it replaced (and required to be
+   faster); the v4 projection stage timed in its parts (projection and key
+   ops, sort, split and gather, resolve); K3 at
    all 18 conv shapes (pool, head and two-input variants included) and K4 at
    its 4 shapes within 2 bf16 ulp of the output's magnitude against the f32
    ``F.conv2d`` / ``F.conv_transpose2d`` twin (TF32 off); at each K3 shape,
@@ -22,13 +30,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``conv.cu``'s gemm<1,0> and ``F.conv_transpose2d``;
 4. the differentiable raster at the same shape: K5 (``winners_f32``) and
    the K2 ``float_sums`` expansion bit-exact against their twins; its count,
-   depth and sums equal to the serving raster's K1/K2 integer images; K5's
+   depth and sums equal to the serving raster's v4 integer images; K5's
    time beside ``torch.segment_reduce`` over the same segments; forward and
    backward ms;
 5. the alternative resolvers at the same shape: K6 (``winners5``) on the
    pixel-only stream and the carrier kernel (``resolve_carriers``, K7-K9) on
    the carrier stream bit-exact against their twins and their images against
-   K1+K2's, K6 on a 20,000-point one-pixel segment, ``rasterize_scatter``
+   the v4 resolve's, K6 on a 20,000-point one-pixel segment, ``rasterize_scatter``
    (the atomics form) equal to ``rasterize``, and the 32-bit (pixel) against
    the 64-bit (pixel, depth) sort; then K10 (``conv_direct.conv3x3_pallas``
    on ``conv_sm90.cu``) at 1088x1920, inputs (64, 64) -> 64, driven once
@@ -65,7 +73,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``conv_in_sm90.cu`` once a frame in every mode), a ``torch.profiler``
    trace of a few frames of each mode, none of which may show a kernel of
    ``conv.cu``
-   (device busy/idle share, top kernels), the U-Net output against the
+   (device busy/idle share, top kernels; one ``resolve4_tile`` and no K1 or
+   K2 kernel a frame), the U-Net output against the
    plain f32 twin net at the full shape, and a small render on the card
    against the same render on the CPU; then the same frames (without the
    host copies) for ``unet_int8="static"`` and ``"dyn"``, the static frame
@@ -81,7 +90,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    levels 2 and 3; the environment is restored;
 8. the training paths at full width (bf16 U-Net, batch 1, targets the
    scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
-   ``make_train_step`` (K1, K2 must launch) and of ``make_scene_train_step``
+   ``make_train_step`` (``rtnr_resolve4`` must launch, K1 and K2 must not) and
+   of ``make_scene_train_step``
    (K5, K2 must launch), with ms/step, peak device memory per step, finite
    losses, moved batch statistics, colours and camera matrices, non-zero
    pose and colour gradients, and a profiler trace of one scene step; then a
@@ -89,7 +99,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
 9. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times (the input conv
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
-   previous gemm<0,0> time);
+   previous gemm<0,0> time; ``resolve4`` with the old pair's time, ``expand``
+   with the search kernel's);
 10. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
@@ -117,7 +128,7 @@ INT8_FRAMES = 10  # timed frames of each int8 serving path
 CULL_FRAMES = 5  # timed frames of the culled and unculled render
 HOST_FRAMES = 3  # timed frames of compute_full, outputs copied to host numpy
 RESOLVER_FRAMES = 5  # timed frames under each RTNR_RESOLVE value
-ONE_PIXEL_POINTS = 20_000  # K6's long-segment check (the TPU kernel's lookback is ~16k)
+ONE_PIXEL_POINTS = 20_000  # long-segment checks of K6 and the v4 resolve (TPU K6 looks back ~16k)
 TRAIN_STEPS = 3  # timed steps of each train step after one warm-up
 SEED = 0
 
@@ -207,14 +218,28 @@ def same_bits(got, want) -> bool:
                                          for g, w in zip(got, want))
 
 
-def check_resolvers(renderer, M, band, rows):
-    """K6 and the carrier kernel (K7-K9) at the frame's shape, bit for bit
-    against their twins and against K1+K2's images; K6 on a 20,000-point
-    one-pixel segment; rasterize_scatter against rasterize; the sorts of
-    the three stream forms. Returns the sort and projection times."""
+def one_pixel_cloud(dev):
+    """ONE_PIXEL_POINTS points on the centre pixel in unsorted depth, a
+    partial band: (points, colours, camera matrix) on ``dev``."""
     import numpy as np
     import torch
     from rtnr_tpu_torch.camera import Camera
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    zc = 2.0 + 0.3 * torch.rand(ONE_PIXEL_POINTS, generator=g, device=dev)
+    pts = torch.stack([torch.zeros_like(zc), torch.zeros_like(zc), zc], 1)
+    cols = torch.randint(0, 256, (ONE_PIXEL_POINTS, 3), generator=g, device=dev).float()
+    M = torch.from_numpy(Camera.from_params(1100.0, 1100.0, WIDTH / 2, HEIGHT / 2, WIDTH,
+                                            HEIGHT).cam_proj(np.eye(4)).astype(np.float32))
+    return pts, cols, M.to(dev)
+
+
+def check_resolvers(renderer, M, band, rows):
+    """K6 and the carrier kernel (K7-K9) at the frame's shape, bit for bit
+    against their twins and against the v4 resolve's images; K6 on a
+    20,000-point one-pixel segment; rasterize_scatter against rasterize; the sorts of
+    the three stream forms. Returns the sort and projection times."""
+    import torch
     from rtnr_tpu_torch.ops import raster as tr
     from rtnr_tpu_torch.ops import raster_resolve4 as rr
     from rtnr_tpu_torch.ops import raster_resolve5 as r5
@@ -237,9 +262,10 @@ def check_resolvers(renderer, M, band, rows):
         fail("K6 winners5 differs from its twin")
     for packed_out, want in ((False, ref), (True, ref_packed)):
         if not same_bits(rr.expand_winners(wimg, total, hw, packed_out=packed_out), want):
-            fail(f"K6+K2 images (packed_out={packed_out}) differ from K1+K2's")
+            fail(f"K6+K2 images (packed_out={packed_out}) differ from the v4 resolve's")
     n5 = sp5.pix.numel()
-    log(f"K6 winners5 bit-exact vs twin, K6+K2 images equal K1+K2's: {n5} points, {t} winners")
+    log(f"K6 winners5 bit-exact vs twin, K6+K2 images equal the v4 resolve's: {n5} points, "
+        f"{t} winners")
 
     spc = tr.project_and_sort(*args, carriers=True, **kw)
     nc = spc.pix.numel()
@@ -249,8 +275,8 @@ def check_resolvers(renderer, M, band, rows):
     if not same_bits(got, rc.resolve_carriers_plain(spc, hw, band)):
         fail("carrier kernel differs from its twin")
     if not same_bits(got, ref):
-        fail("carrier kernel images differ from K1+K2's")
-    log(f"carrier kernel bit-exact vs twin and equal to K1+K2's images: {nc} elements")
+        fail("carrier kernel images differ from the v4 resolve's")
+    log(f"carrier kernel bit-exact vs twin and equal to the v4 resolve's images: {nc} elements")
 
     rgb_s, d_s = tr.rasterize_scatter(*args, **kw)
     rgb, d = tr.rasterize(*args, **kw)
@@ -259,15 +285,8 @@ def check_resolvers(renderer, M, band, rows):
     log("rasterize_scatter (scatter_reduce amin + index_add_) equals rasterize bit for bit")
     del rgb_s, d_s, rgb, d
 
-    # one pixel, 20,000 points in unsorted depth, a partial band
-    g = torch.Generator(device=M.device).manual_seed(SEED)
     n1 = ONE_PIXEL_POINTS
-    zc = 2.0 + 0.3 * torch.rand(n1, generator=g, device=M.device)
-    pts1 = torch.stack([torch.zeros_like(zc), torch.zeros_like(zc), zc], 1)
-    cols1 = torch.randint(0, 256, (n1, 3), generator=g, device=M.device).float()
-    M1 = torch.from_numpy(Camera.from_params(1100.0, 1100.0, WIDTH / 2, HEIGHT / 2, WIDTH,
-                                             HEIGHT).cam_proj(np.eye(4)).astype(np.float32))
-    M1 = M1.to(M.device)
+    pts1, cols1, M1 = one_pixel_cloud(M.device)
     sp1 = tr.project_and_sort(pts1, cols1, M1, width=WIDTH, height=HEIGHT, depth_key=False)
     w1, t1 = r5.winners5(sp1, hw, band)
     w1_p, t1_p = r5.winners5_plain(sp1, hw, band)
@@ -276,9 +295,9 @@ def check_resolvers(renderer, M, band, rows):
     ref1 = rr.raster_images_v4(tr.project_and_sort(pts1, cols1, M1, width=WIDTH, height=HEIGHT),
                                hw, band)
     if int(t1[0]) != 1 or not same_bits(rr.expand_winners(w1, t1, hw), ref1):
-        fail("K6+K2 on the one-pixel segment differ from K1+K2")
+        fail("K6+K2 on the one-pixel segment differ from the v4 resolve")
     log(f"K6 on one pixel of {n1} points (beyond the TPU kernel's one-part lookback): "
-        f"bit-exact vs twin and K1+K2, {int(ref1[1].max())} in band")
+        f"bit-exact vs twin and the v4 resolve, {int(ref1[1].max())} in band")
 
     k6_ms = time_ms(lambda: r5.winners5(sp5, hw, band))
     k6_plain = time_ms(lambda: r5.winners5_plain(sp5, hw, band), reps=2)
@@ -473,9 +492,10 @@ def fuse_up_frames(renderer, dyn_r, cam, E, x, counted):
     os.environ["RTNR_FUSE_UP"] = "1"
     try:
         res = serve_frames(renderer, cam, E, RESOLVER_FRAMES, counted,
-                           ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
+                           ("resolve4", "conv3x3", "convt2x2", "conv3x3_wgmma",
                             "conv3x3_up"), "bf16 RTNR_FUSE_UP=1",
-                           per_frame={"conv3x3_up": 2, "convt2x2": 2, "convt2x2_wgmma": 2,
+                           per_frame={"resolve4": 1, "winners": 0, "expand": 0,
+                                      "conv3x3_up": 2, "convt2x2": 2, "convt2x2_wgmma": 2,
                                       "conv3x3_wgmma": 15, "conv3x3_in": 1})
         trace_frames(renderer, cam, E, res["ms_per_frame"], label="bf16 RTNR_FUSE_UP=1")
         dframe = float((renderer.compute_full_tensors(cam, E)["rgb_f"] - ref).abs().max())
@@ -548,15 +568,16 @@ def check_int8_gate(renderer, static_r, dyn_r, counted):
 def resolver_frames(renderer, cam, E, counted):
     """1 warm-up + RESOLVER_FRAMES bf16 frames under RTNR_RESOLVE = v4, v5,
     v3 and v2 in turn (counts reset before each); each later frame equal to
-    the v4 frame bit for bit, each path through its own resolver (v5 never
-    launches K1; v3 and v2 neither K1 nor K2). The environment is restored."""
+    the v4 frame bit for bit, each path through its own resolver (v4 only
+    rtnr_resolve4; v5 K6 and K2; v3 and v2 the carrier kernel). The
+    environment is restored."""
     import os
 
     import torch
 
-    need = {"v4": ("winners", "expand"), "v5": ("winners5", "expand"),
+    need = {"v4": ("resolve4",), "v5": ("winners5", "expand"),
             "v3": ("resolve_carriers",), "v2": ("resolve_carriers",)}
-    others = ("winners", "winners5", "resolve_carriers", "expand")
+    others = ("resolve4", "winners", "winners5", "resolve_carriers", "expand")
     saved = os.environ.get("RTNR_RESOLVE")
     out, ref = {}, None
     try:
@@ -585,8 +606,80 @@ def resolver_frames(renderer, cam, E, counted):
     return out
 
 
-def check_resolve(sp, hw, band, rows):
-    """K1 + K2 against their twins, bit for bit, on the frame's stream."""
+def resolve4_streams(renderer, M, sp):
+    """The adversarial streams rtnr_resolve4 is held on besides the frame's:
+    name -> (stream, hw)."""
+    import torch
+    from rtnr_tpu_torch.ops import raster as tr
+
+    hw = WIDTH * HEIGHT
+    out = {"one_pixel": (tr.project_and_sort(*one_pixel_cloud(M.device), width=WIDTH,
+                                             height=HEIGHT), hw)}
+    inf_bits = torch.full_like(sp.zbits, 0x7F800000)
+    out["all_culled"] = (tr.SortedPoints(torch.full_like(sp.pix, hw), inf_bits, sp.packed), hw)
+    # 1919 x 1079 = 2,070,601 pixels: the last tile is ragged
+    w, h = WIDTH - 1, HEIGHT - 1
+    out["ragged_frame"] = (tr.project_and_sort(renderer.points, renderer.colors, M, width=w,
+                                               height=h, valid=renderer.valid), w * h)
+    out["one_point"] = (tr.SortedPoints(*(t[:1].clone() for t in sp)), hw)
+    return out
+
+
+def resolve_entries(sp, hw, band, wimg, total):
+    """Launches of ``raster_resolve.cu``'s C entries on the frame's stream and
+    K1's winner rows, their arguments and outputs bound once: the kernels'
+    times without the Python wrappers' checks and allocation, which at ~40 us
+    a kernel would leave the card waiting for the host. Keys: the v4 resolve
+    in both forms, K1 alone, the tile K2, the search K2, and the old pair (K1
+    into its own rows, then the search K2)."""
+    import torch
+    from rtnr_tpu_torch import _build
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+
+    lib = rr._lib()
+    dev = sp.pix.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    packed, sums, cnt, depth = i32(hw), i32(hw, 3), i32(hw), i32(hw)
+    n, cap = sp.pix.numel(), wimg.shape[1]
+    stream_args = (sp.pix.data_ptr(), sp.zbits.data_ptr(), sp.packed.data_ptr(), n, hw, band)
+    scratch = i32(2 * max(-(-n // 1024), 1))
+    wimg2, total2 = i32(6, max(min(n, hw), 1)), i32(1)
+    winners_args = stream_args + (scratch.data_ptr(), wimg2.data_ptr(), wimg2.shape[1],
+                                  total2.data_ptr(), stream)
+    calls = {
+        "resolve4": (lib.rtnr_resolve4, stream_args + (1, 1, packed.data_ptr(), None,
+                                                       depth.data_ptr(), stream)),
+        "resolve4_sums": (lib.rtnr_resolve4, stream_args + (1, 0, sums.data_ptr(),
+                                                            cnt.data_ptr(), depth.data_ptr(),
+                                                            stream)),
+        "winners": (lib.rtnr_winners, winners_args),
+        "expand": (lib.rtnr_expand, (wimg.data_ptr(), cap, total.data_ptr(), hw, 1,
+                                     packed.data_ptr(), None, depth.data_ptr(), stream)),
+        "expand_search": (lib.rtnr_expand_search, (wimg.data_ptr(), cap, total.data_ptr(), hw,
+                                                   1, packed.data_ptr(), None, depth.data_ptr(),
+                                                   stream)),
+        "pair_expand": (lib.rtnr_expand_search, (wimg2.data_ptr(), wimg2.shape[1],
+                                                 total2.data_ptr(), hw, 1, packed.data_ptr(),
+                                                 None, depth.data_ptr(), stream)),
+    }
+    if not all(sp_t.data_ptr() % 16 == 0 for sp_t in sp):
+        fail("the frame's stream is not 16-byte aligned")
+    for name, (fn, args) in calls.items():
+        _build.check(fn(*args), name)
+    out = {name: (lambda fn=fn, args=args: fn(*args)) for name, (fn, args) in calls.items()}
+    pair_k1, pair_k2 = out.pop("winners"), out.pop("pair_expand")
+    out["winners"] = pair_k1
+    out["pair"] = lambda: (pair_k1(), pair_k2())
+    return out
+
+
+def check_resolve(renderer, M, sp, hw, band, rows):
+    """On the frame's stream: rtnr_resolve4 in both forms bit for bit against
+    its twin and against the old pair (K1 + the search K2), and on the
+    adversarial streams; K1 alone, the tile K2 and the search K2 against
+    their twins; then the times, each new kernel in turns against the one it
+    replaced."""
     import torch
     from rtnr_tpu_torch.ops import raster_resolve4 as rr
 
@@ -599,40 +692,128 @@ def check_resolve(sp, hw, band, rows):
         bad = (wimg[:, :t] != wimg_p[:, :t]).nonzero()[:5].tolist()
         fail(f"K1 winner rows differ from the twin, first at {bad}")
     for packed_out in (True, False):
-        got = rr.expand_winners(wimg, total, hw, packed_out=packed_out)
         ref = rr.expand_plain(wimg, total, hw, packed_out)
-        for g, r in zip(got, ref):
-            if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
-                fail(f"K2 (packed_out={packed_out}) differs from the twin")
+        if not same_bits(rr.expand_winners(wimg, total, hw, packed_out=packed_out), ref):
+            fail(f"K2 tile kernel (packed_out={packed_out}) differs from the twin")
+        if not same_bits(rr.expand_search(wimg, total, hw, packed_out=packed_out), ref):
+            fail(f"K2 search kernel (packed_out={packed_out}) differs from the twin")
+        got = rr.raster_images_v4(sp, hw, band, packed_out=packed_out)
+        if not same_bits(got, ref):
+            fail(f"rtnr_resolve4 (packed_out={packed_out}) differs from K1 + K2")
+        if not same_bits(got, rr.raster_images_v4_plain(sp, hw, band, packed_out)):
+            fail(f"rtnr_resolve4 (packed_out={packed_out}) differs from its twin")
+        if not same_bits(got, rr.raster_images_v4(sp, hw, band, packed_out=packed_out)):
+            fail(f"rtnr_resolve4 (packed_out={packed_out}) differs between two runs")
     n = sp.pix.numel()
-    log(f"K1+K2 bit-exact vs twins: {n} points, {t} winners, hw {hw}")
+    n_in = int((sp.pix < hw).sum())
+    log(f"rtnr_resolve4 (both forms) bit-exact vs its twin and K1 + K2, two runs equal; K1, "
+        f"tile K2 and search K2 bit-exact vs twins: {n} points ({n_in} in frame), {t} winners, "
+        f"hw {hw}")
+    for name, (s2, hw2) in resolve4_streams(renderer, M, sp).items():
+        w2, t2 = rr.winners(s2, hw2, band)
+        for packed_out in (True, False):
+            got = rr.raster_images_v4(s2, hw2, band, packed_out=packed_out)
+            if not (same_bits(got, rr.raster_images_v4_plain(s2, hw2, band, packed_out))
+                    and same_bits(got, rr.expand_search(w2, t2, hw2, packed_out=packed_out))):
+                fail(f"rtnr_resolve4 on the {name} stream (packed_out={packed_out}) differs "
+                     "from its twin or from K1 + K2")
+        log(f"rtnr_resolve4 on the {name} stream ({s2.pix.numel()} elements, hw {hw2}, "
+            f"{int(t2[0])} winners, max count {int(got[1].max()) if hw2 else 0}): both forms "
+            "bit-exact vs its twin and K1 + K2")
+        del s2, w2, t2, got
 
-    k1_ms = time_ms(lambda: rr.winners(sp, hw, band))
+    # kernel times through the C entries, each new kernel in turns against the
+    # kernels it replaced; the wrappers' times beside them
+    k = resolve_entries(sp, hw, band, wimg, total)
+    r4_ms, pair_ms = turns_ms({"resolve4": k["resolve4"], "pair": k["pair"]})
+    k2_ms, k2_search = turns_ms({"tile": k["expand"], "search": k["expand_search"]})
+    r4_sums_ms = time_ms(k["resolve4_sums"])
+    k1_ms = time_ms(k["winners"])
+    wrapped = {
+        "resolve4": time_ms(lambda: rr.raster_images_v4(sp, hw, band, packed_out=True)),
+        "expand": time_ms(lambda: rr.expand_winners(wimg, total, hw, packed_out=True)),
+        "winners": time_ms(lambda: rr.winners(sp, hw, band))}
+    r4_plain = time_ms(lambda: rr.raster_images_v4_plain(sp, hw, band, True), reps=2)
     k1_plain = time_ms(lambda: rr.winners_plain(sp, hw, band), reps=2)
-    k2_ms = time_ms(lambda: rr.expand_winners(wimg, total, hw, packed_out=True))
     k2_plain = time_ms(lambda: rr.expand_plain(wimg, total, hw, True), reps=2)
-    # K1 reads the stream (3 x int32 a point) and writes 6 x int32 a winner;
-    # K2 reads the winner rows and writes packed rgb + depth per pixel
+    # rtnr_resolve4 reads each in-frame element once (3 x int32) and writes
+    # packed rgb + depth (8 B) or sums, count and depth (20 B) a pixel; K1
+    # reads the stream and writes 6 x int32 a winner; K2 reads the winner rows
+    # and writes packed rgb + depth a pixel
+    b4, by4 = bound_ms(12.0 * n_in + 8.0 * hw, 0.0)
+    b4s, _ = bound_ms(12.0 * n_in + 20.0 * hw, 0.0)
     b1, by1 = bound_ms(12.0 * n + 24.0 * t, 0.0)
     b2, by2 = bound_ms(24.0 * t + 8.0 * hw, 0.0)
     # yardsticks: K1's reduction as torch.segment_reduce over the same in-band
     # runs (f32 lanes r, g, b, 1; without the head search, the band test and
     # the ranks), K2 as one index_copy_ of the winner rows into a dense
-    # (H*W, 6) image (without the integer average and the packing)
+    # (H*W, 6) image (without the integer average and the packing); the v4
+    # resolve as the two together
     _, cnt_i, depth_i = rr.expand_winners(wimg, total, hw, packed_out=False)
     lib1 = segment_reduce_ms(sp, cnt_i, depth_i, hw, band, "K1")
     rows_t = wimg[:, :t].t().contiguous()
     dense = torch.zeros((hw, 6), dtype=torch.int32, device=wimg.device)
     lib2 = time_ms(lambda: dense.index_copy_(0, wimg[5, :t].long(), rows_t))
     del rows_t, dense
+    rows["resolve4"] = dict(ms=r4_ms, plain_ms=r4_plain, bound_ms=b4, bound_by=by4,
+                            library_ms=lib1 + lib2, max_abs_err=0.0, previous_ms=pair_ms,
+                            sums_ms=r4_sums_ms, sums_bound_ms=b4s,
+                            wrapper_ms=wrapped["resolve4"])
     rows["winners"] = dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
-                           library_ms=lib1, max_abs_err=0.0)
+                           library_ms=lib1, max_abs_err=0.0, wrapper_ms=wrapped["winners"])
     rows["expand"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=b2, bound_by=by2,
-                          library_ms=lib2, max_abs_err=0.0)
-    log(f"K1 winners: {k1_ms:.4f} ms (plain {k1_plain:.4f}, bound {b1:.4f} {by1}, "
-        f"segment_reduce {lib1:.4f})")
-    log(f"K2 expand:  {k2_ms:.4f} ms (plain {k2_plain:.4f}, bound {b2:.4f} {by2}, "
-        f"index_copy_ {lib2:.4f})")
+                          library_ms=lib2, max_abs_err=0.0, previous_ms=k2_search,
+                          wrapper_ms=wrapped["expand"])
+    log(f"rtnr_resolve4 (packed, C entry): {r4_ms:.4f} ms against K1 + search K2 {pair_ms:.4f} "
+        f"in turns ({pair_ms / r4_ms:.2f}x); bound {b4:.4f} {by4} ({b4 / r4_ms:.3f} of it"
+        f"{', half its bound met' if r4_ms <= 2 * b4 else ', half its bound missed'}); plain "
+        f"{r4_plain:.4f}; segment_reduce + index_copy_ {lib1 + lib2:.4f}; sums form "
+        f"{r4_sums_ms:.4f} (bound {b4s:.4f}); through its wrapper {wrapped['resolve4']:.4f}")
+    log(f"K1 winners (C entry): {k1_ms:.4f} ms (plain {k1_plain:.4f}, bound {b1:.4f} {by1}, "
+        f"segment_reduce {lib1:.4f}); through its wrapper {wrapped['winners']:.4f}")
+    log(f"K2 expand (tile, C entry): {k2_ms:.4f} ms against the search kernel {k2_search:.4f} "
+        f"in turns ({k2_search / k2_ms:.2f}x); bound {b2:.4f} {by2}"
+        f"{', half its bound met' if k2_ms <= 2 * b2 else ', half its bound missed'}; plain "
+        f"{k2_plain:.4f}, index_copy_ {lib2:.4f}; through its wrapper {wrapped['expand']:.4f}")
+    if not (r4_ms < pair_ms and k2_ms < k2_search):
+        fail("a redesigned resolve kernel is not faster than the kernels it replaced")
+
+
+def projection_split(renderer, M, band):
+    """The v4 projection stage at the frame's shape in its parts, each timed
+    alone with CUDA events: the projection and key ops, the 64-bit sort, the
+    split of the sorted key and the colour gather, and the resolve."""
+    import torch
+    from rtnr_tpu_torch.ops import raster as tr
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+
+    hw = WIDTH * HEIGHT
+    st = {}
+
+    def key():
+        u, v, z = tr.project_points(renderer.points, M)
+        pix, ok = tr._pixel_ids(u, v, z, renderer.valid, WIDTH, HEIGHT)
+        zb = torch.where(ok, z, torch.full_like(z, float("inf"))).view(torch.int32)
+        cols = renderer.colors.to(torch.int32)
+        st["packed"] = cols[:, 0] | (cols[:, 1] << 8) | (cols[:, 2] << 16)
+        st["key"] = (pix.to(torch.int64) << 32) | zb.to(torch.int64)
+
+    def sort():
+        st["key_s"], st["order"] = torch.sort(st["key"])
+
+    def gather():
+        ks = st["key_s"]
+        st["sp"] = tr.SortedPoints((ks >> 32).to(torch.int32), (ks & 0xFFFFFFFF).to(torch.int32),
+                                   st["packed"][st["order"]])
+
+    out = {"project_key_ms": time_ms(key), "sort_ms": time_ms(sort),
+           "unpack_gather_ms": time_ms(gather),
+           "resolve_ms": time_ms(lambda: rr.raster_images_v4(st["sp"], hw, band,
+                                                             packed_out=True))}
+    out["sum_ms"] = sum(out.values())
+    log("v4 projection stage in parts (CUDA events, each alone): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def check_diff_raster(points, colors, valid, M, band, rows):
@@ -726,7 +907,7 @@ def train_phase(renderer, cam, E, variables, counted):
                           height=HEIGHT)["rgb"][None].float() / 255.0
     result = {}
 
-    def run(name, state, step, args, need):
+    def run(name, state, step, args, need, absent=()):
         for fn in counted.values():
             fn.launches = 0
         stats0 = state.model.param("down0/bn0/mean").clone()
@@ -748,6 +929,9 @@ def train_phase(renderer, cam, E, variables, counted):
         for k in need:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched on the {name} path")
+        for k in absent:
+            if launches[k]:
+                fail(f"kernel {k} was launched on the {name} path")
         if not all(math.isfinite(v) for v in losses):
             fail(f"{name}: non-finite loss {losses}")
         if torch.equal(stats0, state.model.param("down0/bn0/mean")):
@@ -763,7 +947,8 @@ def train_phase(renderer, cam, E, variables, counted):
     state = tt.create_train_state(variables, dtype=torch.bfloat16, device="cuda")
     step = tt.make_train_step(width=WIDTH, height=HEIGHT)
     run("train_step", state, step,
-        (renderer.points, renderer.colors, renderer.valid, cams, targets), ("winners", "expand"))
+        (renderer.points, renderer.colors, renderer.valid, cams, targets), ("resolve4",),
+        absent=("winners", "expand"))
     del state
     torch.cuda.empty_cache()
 
@@ -1608,8 +1793,9 @@ def main() -> int:
     M = renderer._cam_proj(cam, E)
     sp = project_and_sort(renderer.points, renderer.colors, M, width=WIDTH, height=HEIGHT,
                           valid=renderer.valid)
-    check_resolve(sp, hw, cfg.depth_band, rows)
+    check_resolve(renderer, M, sp, hw, cfg.depth_band, rows)
     del sp
+    split = projection_split(renderer, M, cfg.depth_band)
     mid = render_filtered(renderer.points, renderer.colors, renderer.valid, M,
                           width=WIDTH, height=HEIGHT)
     x = mid["unet_input"][None]
@@ -1619,7 +1805,8 @@ def main() -> int:
                                 cfg.depth_band, rows)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    counted = {"winners": rr.winners, "expand": rr.expand_winners,
+    counted = {"resolve4": rr.raster_images_v4, "winners": rr.winners,
+               "expand": rr.expand_winners,
                "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32,
                "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
                "conv3x3_dyn": cv.conv3x3_dyn, "convt2x2_static": cv.convt2x2_static,
@@ -1659,10 +1846,11 @@ def main() -> int:
     # ---- the main path: bf16 ----
     torch.cuda.reset_peak_memory_stats()
     serve = serve_frames(renderer, cam, E, FRAMES, counted,
-                         ("winners", "expand", "conv3x3", "convt2x2", "conv3x3_wgmma",
+                         ("resolve4", "conv3x3", "convt2x2", "conv3x3_wgmma",
                           "convt2x2_wgmma", "conv3x3_in"), "bf16",
                          host_frames=HOST_FRAMES,
-                         per_frame={"conv3x3_wgmma": 17, "convt2x2_wgmma": 4, "conv3x3_up": 0,
+                         per_frame={"resolve4": 1, "winners": 0, "expand": 0,
+                                    "conv3x3_wgmma": 17, "convt2x2_wgmma": 4, "conv3x3_up": 0,
                                     "conv3x3_dyn_wgmma": 0, "convt2x2_static_wgmma": 0,
                                     "conv3x3_static_wgmma": 0, "conv3x3_in": 1,
                                     "conv3x3": 18, "conv3x3_i8out": 0})
@@ -1688,19 +1876,21 @@ def main() -> int:
 
     # ---- the int8 serving paths ----
     serve_static = serve_frames(static_r, cam, E, INT8_FRAMES, counted,
-                                ("winners", "expand", "conv3x3_i8out", "conv3x3_static",
+                                ("resolve4", "conv3x3_i8out", "conv3x3_static",
                                  "convt2x2_static", "convt2x2_static_wgmma",
                                  "conv3x3_static_wgmma", "conv3x3_in"), "static int8",
-                                per_frame={"conv3x3_static": 17, "conv3x3_static_wgmma": 17,
+                                per_frame={"resolve4": 1, "winners": 0, "expand": 0,
+                                           "conv3x3_static": 17, "conv3x3_static_wgmma": 17,
                                            "convt2x2_static": 4, "convt2x2_static_wgmma": 4,
                                            "convt2x2_wgmma": 0, "conv3x3_in": 1,
                                            "conv3x3_i8out": 1, "conv3x3": 0})
     serve_dyn = serve_frames(dyn_r, cam, E, INT8_FRAMES, counted,
-                             ("winners", "expand", "conv3x3", "conv3x3_dyn", "convt2x2",
+                             ("resolve4", "conv3x3", "conv3x3_dyn", "convt2x2",
                               "conv3x3_wgmma", "conv3x3_dyn_wgmma", "convt2x2_wgmma",
                               "conv3x3_in"),
                              "dyn int8",
-                             per_frame={"conv3x3_wgmma": 7, "conv3x3_dyn": 10,
+                             per_frame={"resolve4": 1, "winners": 0, "expand": 0,
+                                        "conv3x3_wgmma": 7, "conv3x3_dyn": 10,
                                         "conv3x3_dyn_wgmma": 10, "convt2x2_wgmma": 4,
                                         "conv3x3_static_wgmma": 0, "conv3x3_in": 1,
                                         "conv3x3": 8})
@@ -1718,6 +1908,14 @@ def main() -> int:
             f"{'absent' if not left else 'present: ' + ', '.join(left)}")
         if left:
             fail(f"the {label} frame still runs conv.cu kernels")
+        # the v4 resolve: one rtnr_resolve4 kernel a frame, no K1 or K2 kernel
+        old_k12 = [n for n in tr
+                   if re.search(r"winners_(count|scan|write)|expand_(tile|search)", n)]
+        r4 = [v[1] for n, v in tr.items() if "resolve4_tile" in n]
+        log(f"{label} trace: resolve4_tile x{sum(r4)} a frame; K1's and K2's kernels "
+            f"{'absent' if not old_k12 else 'present: ' + ', '.join(old_k12)}")
+        if old_k12 or sum(r4) != 1:
+            fail(f"the {label} frame does not resolve through one rtnr_resolve4 kernel")
     # end to end at a second pose, away from the calibration view
     E2 = np.eye(4)
     E2[0, 3], E2[1, 3], E2[2, 3] = 1.5, -0.5, 9.0
@@ -1748,6 +1946,10 @@ def main() -> int:
     i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
     in_src = "rtnr_tpu_torch/csrc/conv_in_sm90.cu"
     sources = {
+        # K1 and K2 of the v4 path in one kernel
+        "resolve4": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
+                     "rtnr_tpu/ops/raster_pallas4.py:663, rtnr_tpu/ops/raster_pallas4.py:920"),
+        # K1 alone: no path launches it since rtnr_resolve4 (its tests, the previous pair)
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
         "expand": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
@@ -1777,7 +1979,8 @@ def main() -> int:
         "conv3x3_in": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_in_i8out": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
     }
-    labels = {"conv3x3_in": "K3 input conv, bf16 out",
+    labels = {"resolve4": "K1 + K2, the v4 resolve (packed form)",
+              "conv3x3_in": "K3 input conv, bf16 out",
               "conv3x3_in_i8out": "K3 input conv, int8 out"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
@@ -1785,7 +1988,7 @@ def main() -> int:
              "conv_direct": conv_direct_path, "serve_fuse_up": fuse_up["serve"],
              "serve_fuse_up_dyn": {"launches": fuse_up["dyn_launches"]},
              **{f"resolve_{m}": r for m, r in resolvers.items()}}
-    own = {"winners_f32": "scene_step", "conv3x3_i8out": "serve_static",
+    own = {"expand": "resolve_v5", "winners_f32": "scene_step", "conv3x3_i8out": "serve_static",
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
            "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
            "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct",
@@ -1804,6 +2007,7 @@ def main() -> int:
             **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
             **({"pair_ms": r["pair_ms"]} if "pair_ms" in r else {}),
             **({"bf16_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
+            **({k: r[k] for k in ("sums_ms", "sums_bound_ms", "wrapper_ms") if k in r}),
         })
     summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
                "host_out_ms_per_frame": serve["host_out_ms_per_frame"],
@@ -1816,7 +2020,7 @@ def main() -> int:
                "resolvers": {m: {k: r[k] for k in ("ms_per_frame", "all_ms", "stage_ms",
                                                    "launches")}
                              for m, r in resolvers.items()},
-               "sorts": sorts,
+               "sorts": sorts, "projection_split": split,
                "fuse_up": {"kernel": conv_up, "unet_err": fuse_up["unet_err"],
                            "max_diff_from_unfused_frame": fuse_up["max_diff_from_unfused_frame"],
                            **{k: fuse_up["serve"][k] for k in ("ms_per_frame", "all_ms",

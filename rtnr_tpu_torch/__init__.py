@@ -8,7 +8,8 @@ kept as its own copies.
 Layout:
 - ``config``, ``camera``, ``scene``: host-side copies (numpy).
 - ``ops.raster``: projection + the (pixel, depth) sort.
-- ``ops.raster_resolve4``: winners (K1) and expansion (K2) CUDA kernels.
+- ``ops.raster_resolve4``: the v4 resolve (K1 and K2 as one CUDA kernel),
+  and the winners (K1) and expansion (K2) kernels on their own.
 - ``ops.prefilter``: the bit-exact depth prefilter (plain torch).
 - ``ops.conv``: 3x3 conv (K3) and 2x2/s2 transposed conv (K4) CUDA kernels.
 - ``models``: the U-Net (inference), BN folding and weight conversion.

@@ -1,5 +1,6 @@
-// Raster resolve for Hopper: winners (K1), expansion (K2), float winners (K5),
-// pixel-only winners (K6) and the carrier-stream resolve (K7-K9).
+// Raster resolve for Hopper: the v4 resolve (K1 + K2 as one kernel), winners
+// (K1), expansion (K2), float winners (K5), pixel-only winners (K6) and the
+// carrier-stream resolve (K7-K9).
 //
 // Replaces rtnr_tpu/ops/raster_pallas4.py::_winners_kernel4 (K1, wrapper
 // raster_images_pallas4) and ::_expand_kernel4 (K2, wrapper expand_winners).
@@ -8,7 +9,38 @@
 // pix (sentinel hw for culled points), z bits (positive f32 patterns), and
 // colour packed r|g<<8|b<<16.
 //
-// K1 (rtnr_winners): a segment head is an element with pix < hw whose
+// rtnr_resolve4 (the v4 path: K1 and K2 in one kernel, no winner image):
+// each tile owns TILE_P consecutive output pixels [q0, q1), and a block
+// resolves TILES_PER_BLOCK consecutive tiles in turn. At its start one warp
+// per tile bound finds, all at once, lower_bound(pix, q) for every tile
+// edge q with a 33-ary search (32 probes a step, ~5 dependent loads at 5M
+// points): a few searches a block, none a pixel. A tile's stream window is
+// [lower_bound(pix, q0), lower_bound(pix, q1)). The block streams it in
+// chunks of TILE_CHUNK elements, each thread TILE_ELEMS consecutive
+// elements by 16-byte loads (the next chunk's loads issued before the
+// current chunk is worked). Per chunk: pass A marks heads (pix[i] !=
+// pix[i-1], the previous element by a warp shuffle) and each head writes its
+// depth bits into the tile's depth row; after a barrier, pass B tests each
+// element against its pixel's head depth, !(z > z_head + band) with
+// __fadd_rn (reference render.cu:106), merges the thread's in-band run of
+// one pixel and adds it (r, g, b, count) into the tile with shared-memory
+// atomics. Integer sums commute, so the result does not depend on the order,
+// and the head depth stays in the tile across chunks, so a segment of any
+// length (one pixel of 20,000 points) is exact: it crosses chunks like any
+// other. The tile starts at the empty defaults (count 0, depth FLT_MAX,
+// reference project_cloud.cu:316) and is stored with 16-byte stores: every
+// output byte is written once, no fill pass runs, nothing crosses a tile
+// (segments are per pixel and pixels per tile), and no rank or scan is
+// needed. Culled points (pix == hw) lie outside every window and are never
+// read. The packed form does the integer-average resolve (reference
+// render.cu:160-162) and emits r|g<<8|b<<16 plus depth; the sums form
+// writes sums (HW, 3), count and depth. Bound: bytes, 12 B read per in-frame
+// element and 8 B (packed) or 20 B (sums) written per pixel: 73.6 MB at 5M
+// points / 1080p, ~22 us at 3.35 TB/s. What holds it back is the streaming
+// itself, not the resolve work (sweeps on the card, PERF.md).
+//
+// K1 (rtnr_winners, standalone: its tests and the "previous" pair; K5 and K6
+// share its head-count scan): a segment head is an element with pix < hw whose
 // predecessor has another pixel. Each head walks its own segment while
 // !(z > z_head + band) (reference render.cu:106; depth ascends within a
 // segment, so the band is a prefix) and writes that pixel's OWN totals
@@ -23,13 +55,17 @@
 // streams, no atomics; a very long segment (e.g. 5,000 points on one pixel)
 // is walked by ONE thread, which is slow but exact.
 //
-// K2 (rtnr_expand): one thread per output pixel binary-searches the
-// pixel-sorted winner stream (the TPU kernel's searchsorted window) and
-// writes its row or the empty defaults (count 0, depth FLT_MAX, reference
-// project_cloud.cu:316), so every output is written once and no fill pass
-// runs. packed_out does the integer-average resolve (reference
-// render.cu:160-162) and emits r|g<<8|b<<16 plus depth. Bound: bytes, the
-// 8 B/pixel output (~17 MB at 1080p, ~5 us) plus the winner rows.
+// K2 (rtnr_expand, for the paths that keep the winner image: v5 and the
+// differentiable forward): rtnr_resolve4's tile skeleton with the winner rows
+// as its source. Each tile of TILE_P pixels finds its window in the winner
+// pixel row wimg[5, :total] with the same searches (the TPU kernel's
+// searchsorted `starts`, found in the kernel), scatters the
+// window's rows into the tile (one column a pixel, no atomics) and stores
+// the tile as above, in the packed or the sums form. Bound: bytes, 24 B read
+// a winner and 8 B (packed) written a pixel (~17 MB + 29 MB at 1080p, ~14
+// us). rtnr_expand_search is the kernel it replaced (one thread per output
+// pixel binary-searching the winner row, ~21 dependent loads a pixel: bound
+// by latency), kept only to be timed against it.
 //
 // K2 float_sums (the differentiable forward's mode, raster_pallas4.py:503-511)
 // needs no device code of its own: the winner rows of rtnr_winners_f32 hold
@@ -97,6 +133,19 @@
 #define SCAN_THREADS 1024
 #define FLT_MAX_BITS 0x7F7FFFFF
 #define REAL_BIT (1 << 24)
+
+// the tile skeleton of rtnr_resolve4 and rtnr_expand; the sizes come from
+// sweeps on the card (PERF.md): smaller tiles and blocks were faster
+#define TILE_P 512          // output pixels a tile owns
+#define TILE_THREADS 128
+#define TILES_PER_BLOCK 3   // consecutive tiles a block resolves in turn
+#define TILE_ELEMS 4        // consecutive stream elements a thread holds (one 16-byte load)
+#define TILE_CHUNK (TILE_THREADS * TILE_ELEMS)  // stream elements a block works per step
+static_assert(TILES_PER_BLOCK + 1 <= TILE_THREADS / 32, "one warp a window bound");
+static_assert(TILE_P % 4 == 0, "16-byte stores of whole tiles");
+static_assert(TILE_ELEMS % 4 == 0, "16-byte loads of whole groups");
+#define TILE_SMEM (5 * TILE_P * 4)     // rows r, g, b, count, depth bits
+#define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ int head_flag(const int* __restrict__ pix, int i, int hw) {
   const int p = pix[i];
@@ -282,7 +331,7 @@ __global__ void resolve_carriers_kernel(const int* __restrict__ pix,
   depth_bits[p] = zb_head;
 }
 
-__global__ void expand_kernel(const int* __restrict__ wimg, int cap,
+__global__ void expand_search_kernel(const int* __restrict__ wimg, int cap,
                               const int* __restrict__ total_p, int hw, int packed_out,
                               int* __restrict__ out0, int* __restrict__ out_cnt,
                               float* __restrict__ out_depth) {
@@ -314,6 +363,277 @@ __global__ void expand_kernel(const int* __restrict__ wimg, int cap,
     out_cnt[q] = cnt;
   }
   out_depth[q] = __int_as_float(zb);
+}
+
+// ---- the tile skeleton: rtnr_resolve4 (the stream) and rtnr_expand (winner rows) ----
+
+// First i in [0, n] with a[i] >= v (a ascending), found by one full warp:
+// each step probes 32 positions spread over [lo, hi) and keeps the part
+// between the last probe below v and the first at or above it (~1/33 of
+// the range), so 5M elements take 5 dependent loads.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int n, int v,
+                                                int lane) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int pos = lo + (int)(((long long)(hi - lo) * (lane + 1)) / 33);
+    const unsigned m = __ballot_sync(FULL_MASK, a[pos] >= v);
+    if (m == 0u) {
+      lo = __shfl_sync(FULL_MASK, pos, 31) + 1;
+    } else {
+      const int f = __ffs(m) - 1;
+      const int below = __shfl_sync(FULL_MASK, pos, f > 0 ? f - 1 : 0);
+      hi = __shfl_sync(FULL_MASK, pos, f);
+      if (f > 0) lo = below + 1;
+    }
+  }
+  const int i = lo + lane;
+  const unsigned m = __ballot_sync(FULL_MASK, i < hi && a[i] >= v);
+  return m ? lo + __ffs(m) - 1 : hi;
+}
+
+// Warps 0..TILES_PER_BLOCK find, all at once, the windows of the block's
+// tiles: win[j] = lower_bound(a, min((tile0 + j) * TILE_P, hw)), so tile
+// tile0 + j reads [win[j], win[j + 1]) (read after the next barrier).
+__device__ __forceinline__ void tile_windows(const int* __restrict__ a, int n, int tile0, int hw,
+                                             int* win) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp <= TILES_PER_BLOCK) {
+    const int w = warp_lower_bound(a, n, min((tile0 + warp) * TILE_P, hw), lane);
+    if (lane == 0) win[warp] = w;
+  }
+}
+
+// The tile's five rows at the empty defaults: sums and count 0, depth FLT_MAX.
+__device__ __forceinline__ void tile_init(int* tile) {
+  int4* v = reinterpret_cast<int4*>(tile);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const int4 fmax = make_int4(FLT_MAX_BITS, FLT_MAX_BITS, FLT_MAX_BITS, FLT_MAX_BITS);
+  for (int i = threadIdx.x; i < TILE_SMEM / 16; i += TILE_THREADS) v[i] = i < TILE_P ? zero : fmax;
+}
+
+__device__ __forceinline__ void store4(int* dst, int avail, const int v[4]) {
+  if (avail >= 4) {
+    *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < avail) dst[j] = v[j];
+  }
+}
+
+// The tile's pixels [q0, q1) to the outputs, 16 bytes a store (q0 is a
+// multiple of 4, so is 3 * q0): packed rgb (integer average) and depth, or
+// sums (HW, 3), count and depth.
+template <bool PACKED>
+__device__ __forceinline__ void tile_store(const int* tile, int q0, int q1, int* __restrict__ out0,
+                                           int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+  const int* tr = tile;
+  const int* tg = tile + TILE_P;
+  const int* tb = tile + 2 * TILE_P;
+  const int* tc = tile + 3 * TILE_P;
+  const int* td = tile + 4 * TILE_P;
+  const int np = q1 - q0;
+  for (int g = 4 * threadIdx.x; g < np; g += 4 * TILE_THREADS) {
+    const int4 c4 = *reinterpret_cast<const int4*>(tc + g);
+    const int4 d4 = *reinterpret_cast<const int4*>(td + g);
+    const int cnt[4] = {c4.x, c4.y, c4.z, c4.w};
+    const int dep[4] = {d4.x, d4.y, d4.z, d4.w};
+    store4(out_depth + q0 + g, np - g, dep);
+    if (PACKED) {
+      const int4 r4 = *reinterpret_cast<const int4*>(tr + g);
+      const int4 g4 = *reinterpret_cast<const int4*>(tg + g);
+      const int4 b4 = *reinterpret_cast<const int4*>(tb + g);
+      const int r[4] = {r4.x, r4.y, r4.z, r4.w};
+      const int gg[4] = {g4.x, g4.y, g4.z, g4.w};
+      const int b[4] = {b4.x, b4.y, b4.z, b4.w};
+      int pk[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // sums and counts are non-negative: unsigned division gives the same quotient
+        const unsigned c = cnt[j] > 0 ? (unsigned)cnt[j] : 1u;
+        pk[j] = cnt[j] > 0 ? (int)(((unsigned)r[j] / c) | (((unsigned)gg[j] / c) << 8) |
+                                   (((unsigned)b[j] / c) << 16))
+                           : 0;
+      }
+      store4(out0 + q0 + g, np - g, pk);
+    } else {
+      store4(out_cnt + q0 + g, np - g, cnt);
+    }
+  }
+  if (!PACKED) {
+    const int ns = 3 * np;
+    int* o = out0 + 3 * (size_t)q0;
+    for (int j = 4 * threadIdx.x; j < ns; j += 4 * TILE_THREADS) {
+      int v[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int f = min(j + m, ns - 1);
+        const int px = f / 3, ch = f - 3 * px;
+        v[m] = ch == 0 ? tr[px] : (ch == 1 ? tg[px] : tb[px]);
+      }
+      store4(o + j, ns - j, v);
+    }
+  }
+}
+
+// TILE_ELEMS consecutive stream elements from index base (a multiple of 4):
+// 16-byte loads where a group of 4 lies in the stream and the pointers are
+// 16-byte aligned (vec), else one by one; past the end an element gets pixel
+// INT_MAX, which no tile owns.
+__device__ __forceinline__ void load_group(const int* __restrict__ pix,
+                                           const int* __restrict__ zbits,
+                                           const int* __restrict__ packed, int n, int base,
+                                           int vec, int p[TILE_ELEMS], int z[TILE_ELEMS],
+                                           int k[TILE_ELEMS]) {
+#pragma unroll
+  for (int g = 0; g < TILE_ELEMS; g += 4) {
+    const int b = base + g;
+    if (vec && b + 4 <= n) {
+      const int4 p4 = __ldg(reinterpret_cast<const int4*>(pix + b));
+      const int4 z4 = __ldg(reinterpret_cast<const int4*>(zbits + b));
+      const int4 k4 = __ldg(reinterpret_cast<const int4*>(packed + b));
+      p[g] = p4.x; p[g + 1] = p4.y; p[g + 2] = p4.z; p[g + 3] = p4.w;
+      z[g] = z4.x; z[g + 1] = z4.y; z[g + 2] = z4.z; z[g + 3] = z4.w;
+      k[g] = k4.x; k[g + 1] = k4.y; k[g + 2] = k4.z; k[g + 3] = k4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = b + j < n;
+        p[g + j] = in ? pix[b + j] : 0x7FFFFFFF;
+        z[g + j] = in ? zbits[b + j] : 0;
+        k[g + j] = in ? packed[b + j] : 0;
+      }
+    }
+  }
+}
+
+// One tile of rtnr_resolve4: the stream window [s, e) into the tile (at its
+// defaults), pixels [q0, q1).
+__device__ __forceinline__ void resolve4_window(const int* __restrict__ pix,
+                                                const int* __restrict__ zbits,
+                                                const int* __restrict__ packed, int n, int s,
+                                                int e, int q0, int q1, float band, int vec,
+                                                int* tile) {
+  int* tr = tile;
+  int* tg = tile + TILE_P;
+  int* tb = tile + 2 * TILE_P;
+  int* tc = tile + 3 * TILE_P;
+  int* td = tile + 4 * TILE_P;
+  const int lane = threadIdx.x & 31;
+  int c = s & ~3;  // aligned down: the elements before the window have pix < q0
+  int p[TILE_ELEMS], z[TILE_ELEMS], k[TILE_ELEMS];
+  if (c < e) load_group(pix, zbits, packed, n, c + TILE_ELEMS * threadIdx.x, vec, p, z, k);
+  for (; c < e; c += TILE_CHUNK) {
+    const int base = c + TILE_ELEMS * threadIdx.x;
+    const bool more = c + TILE_CHUNK < e;
+    int np[TILE_ELEMS], nz[TILE_ELEMS], nk[TILE_ELEMS];
+    if (more) load_group(pix, zbits, packed, n, base + TILE_CHUNK, vec, np, nz, nk);
+    int prev = __shfl_up_sync(FULL_MASK, p[TILE_ELEMS - 1], 1);
+    if (lane == 0) prev = (base > 0 && base <= n) ? pix[base - 1] : -1;
+    // pass A: each head of the tile writes its depth bits (the minimum of its pixel)
+#pragma unroll
+    for (int j = 0; j < TILE_ELEMS; ++j) {
+      if (p[j] >= q0 && p[j] < q1 && p[j] != prev) td[p[j] - q0] = z[j];
+      prev = p[j];
+    }
+    __syncthreads();
+    // pass B: the in-band elements, merged per pixel within the thread, into the tile.
+    // A later chunk's pass A writes only pixels above every pixel of this chunk, so
+    // it needs no barrier after this pass.
+    int cur = -1, sr = 0, sg = 0, sb = 0, sc = 0;
+    float lim = 0.0f;
+#pragma unroll
+    for (int j = 0; j < TILE_ELEMS; ++j) {
+      if (p[j] < q0 || p[j] >= q1) continue;
+      if (p[j] != cur) {
+        if (sc > 0) {
+          atomicAdd(tr + cur - q0, sr);
+          atomicAdd(tg + cur - q0, sg);
+          atomicAdd(tb + cur - q0, sb);
+          atomicAdd(tc + cur - q0, sc);
+        }
+        cur = p[j];
+        lim = __fadd_rn(__int_as_float(td[cur - q0]), band);
+        sr = sg = sb = sc = 0;
+      }
+      if (!(__int_as_float(z[j]) > lim)) {
+        sr += k[j] & 255;
+        sg += (k[j] >> 8) & 255;
+        sb += (k[j] >> 16) & 255;
+        sc += 1;
+      }
+    }
+    if (sc > 0) {
+      atomicAdd(tr + cur - q0, sr);
+      atomicAdd(tg + cur - q0, sg);
+      atomicAdd(tb + cur - q0, sb);
+      atomicAdd(tc + cur - q0, sc);
+    }
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < TILE_ELEMS; ++j) {
+        p[j] = np[j];
+        z[j] = nz[j];
+        k[j] = nk[j];
+      }
+    }
+  }
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(TILE_THREADS)
+resolve4_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
+              const int* __restrict__ packed, int n, int hw, float band, int vec,
+              int* __restrict__ out0, int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+  __shared__ int4 tile4[TILE_SMEM / 16];
+  int* tile = reinterpret_cast<int*>(tile4);
+  __shared__ int win[TILES_PER_BLOCK + 1];
+  const int tile0 = blockIdx.x * TILES_PER_BLOCK;
+  tile_windows(pix, n, tile0, hw, win);
+  for (int j = 0; j < TILES_PER_BLOCK; ++j) {
+    const int q0 = (tile0 + j) * TILE_P;
+    if (q0 >= hw) break;
+    const int q1 = min(q0 + TILE_P, hw);
+    tile_init(tile);
+    __syncthreads();
+    resolve4_window(pix, zbits, packed, n, win[j], win[j + 1], q0, q1, band, vec, tile);
+    __syncthreads();
+    tile_store<PACKED>(tile, q0, q1, out0, out_cnt, out_depth);
+    __syncthreads();  // the next tile's defaults overwrite this one
+  }
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(TILE_THREADS)
+expand_tile(const int* __restrict__ wimg, int cap, const int* __restrict__ total_p, int hw,
+            int* __restrict__ out0, int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+  __shared__ int4 tile4[TILE_SMEM / 16];
+  int* tile = reinterpret_cast<int*>(tile4);
+  __shared__ int win[TILES_PER_BLOCK + 1];
+  const int tile0 = blockIdx.x * TILES_PER_BLOCK;
+  const int* __restrict__ wpix = wimg + 5 * (size_t)cap;
+  tile_windows(wpix, *total_p, tile0, hw, win);
+  for (int t = 0; t < TILES_PER_BLOCK; ++t) {
+    const int q0 = (tile0 + t) * TILE_P;
+    if (q0 >= hw) break;
+    const int q1 = min(q0 + TILE_P, hw);
+    tile_init(tile);
+    __syncthreads();
+    const int e = win[t + 1];
+    for (int j = win[t] + threadIdx.x; j < e; j += TILE_THREADS) {
+      const int q = wpix[j] - q0;
+#pragma unroll
+      for (int row = 0; row < 5; ++row) tile[row * TILE_P + q] = wimg[row * (size_t)cap + j];
+    }
+    __syncthreads();
+    tile_store<PACKED>(tile, q0, q1, out0, out_cnt, out_depth);
+    __syncthreads();  // the next tile's defaults overwrite this one
+  }
+}
+
+static int tile_blocks(int hw) {
+  const int tiles = (hw + TILE_P - 1) / TILE_P;
+  return (tiles + TILES_PER_BLOCK - 1) / TILES_PER_BLOCK;
 }
 
 // The first two launches of every winners entry: per-block head counts, then
@@ -387,16 +707,52 @@ extern "C" int rtnr_resolve_carriers(const void* pix, const void* zbits, const v
   return (int)cudaGetLastError();
 }
 
+extern "C" int rtnr_resolve4(const void* pix, const void* zbits, const void* packed, int n,
+                             int hw, float band, int vec, int packed_out, void* out0,
+                             void* out_cnt, void* out_depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = tile_blocks(hw);
+  if (blocks == 0) return 0;
+  if (packed_out) {
+    resolve4_tile<true><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
+        (int*)out_cnt, (int*)out_depth);
+  } else {
+    resolve4_tile<false><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
+        (int*)out_cnt, (int*)out_depth);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rtnr_expand(const void* wimg, int cap, const void* total, int hw,
                            int packed_out, void* out0, void* out_cnt, void* out_depth,
                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = tile_blocks(hw);
+  if (blocks == 0) return 0;
+  if (packed_out) {
+    expand_tile<true><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)wimg, cap, (const int*)total, hw, (int*)out0, (int*)out_cnt,
+        (int*)out_depth);
+  } else {
+    expand_tile<false><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)wimg, cap, (const int*)total, hw, (int*)out0, (int*)out_cnt,
+        (int*)out_depth);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnr_expand_search(const void* wimg, int cap, const void* total, int hw,
+                                  int packed_out, void* out0, void* out_cnt, void* out_depth,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
   const int threads = 256;
   const int blocks = (hw + threads - 1) / threads;
   if (blocks > 0) {
-    expand_kernel<<<blocks, threads, 0, s>>>((const int*)wimg, cap, (const int*)total, hw,
-                                             packed_out, (int*)out0, (int*)out_cnt,
-                                             (float*)out_depth);
+    expand_search_kernel<<<blocks, threads, 0, s>>>((const int*)wimg, cap, (const int*)total, hw,
+                                                    packed_out, (int*)out0, (int*)out_cnt,
+                                                    (float*)out_depth);
   }
   return (int)cudaGetLastError();
 }

@@ -1,24 +1,32 @@
-"""Carrier-free raster resolve: winners (K1), float winners (K5) and
-expansion (K2).
+"""Carrier-free raster resolve: the v4 resolve (K1 + K2 in one kernel),
+winners (K1), float winners (K5) and expansion (K2).
 
 Counterpart of ``rtnr_tpu/ops/raster_pallas4.py``: ``raster_images_pallas4``
-becomes ``raster_images_v4``; ``expand_winners`` keeps its name;
+becomes ``raster_images_v4``, which on the card is ONE kernel
+(``rtnr_resolve4``: each block owns a tile of output pixels, finds its
+window of the sorted stream with two searches and resolves it in shared
+memory; no winner image, no ranks); ``expand_winners`` keeps its name;
 ``winners_f32`` takes the place of ``compact_rows_by_rank`` (K5) and of the
 prefix sums and ranks the differentiable forward computes before it. The
 CUDA kernels are in ``csrc/raster_resolve.cu`` (its header notes what each
 replaces, its bound and its design); ``_lib`` loads and binds that library
 for this module, ``raster_resolve5`` and ``raster_resolve_carriers``.
 
-Intermediate contract: a winner image ``wimg`` (6, cap) int32, rows (r sum,
-g sum, b sum, count, head depth bits, pixel id), one column per winner (=
-pixel with at least one point) in pixel order, and the winner total as a
-(1,) int32 tensor that stays on the device. ``winners`` writes integer sums;
-``winners_f32`` writes f32 bit patterns, which ``expand_winners(...,
-float_sums=True)`` returns as f32 images.
+Intermediate contract of the paths that keep it (v5, the differentiable
+forward, and the standalone ``winners``): a winner image ``wimg`` (6, cap)
+int32, rows (r sum, g sum, b sum, count, head depth bits, pixel id), one
+column per winner (= pixel with at least one point) in pixel order, and the
+winner total as a (1,) int32 tensor that stays on the device. ``winners``
+writes integer sums; ``winners_f32`` writes f32 bit patterns, which
+``expand_winners(..., float_sums=True)`` returns as f32 images.
+``expand_winners`` runs the tile kernel; ``expand_search`` launches the
+per-pixel binary-search kernel it replaced, kept only to be timed against
+it.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
-twin only for CPU tensors. ``winners.launches`` / ``winners_f32.launches`` /
-``expand_winners.launches`` count kernel launches.
+twin only for CPU tensors. ``raster_images_v4.launches`` /
+``winners.launches`` / ``winners_f32.launches`` / ``expand_winners.launches``
+/ ``expand_search.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -32,20 +40,31 @@ from rtnr_tpu_torch.ops.raster import SortedDiff, SortedPoints
 
 _FLT_MAX_BITS = 0x7F7FFFFF
 _WIN_BLOCK = 1024  # elements per block of the winners kernels (csrc)
+# the tile skeleton of rtnr_resolve4 / rtnr_expand (csrc TILE_P, TILE_ELEMS,
+# TILE_CHUNK, TILES_PER_BLOCK): output pixels a tile owns, stream elements a
+# thread holds, stream elements a block works per step, tiles a block resolves
+TILE_P = 512
+TILE_ELEMS = 4
+TILE_CHUNK = 512
+TILES_PER_BLOCK = 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    """Argument types of every entry of ``csrc/raster_resolve.cu`` (K6 and
-    the carrier kernel included: ``_build.load`` binds a library once)."""
+    """Argument types of every entry of ``csrc/raster_resolve.cu`` (the v4
+    resolve, K6 and the carrier kernel included: ``_build.load`` binds a
+    library once)."""
     for fn in (lib.rtnr_winners, lib.rtnr_winners_f32, lib.rtnr_winners5):
         fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P, _P]
         fn.restype = _I
-    lib.rtnr_expand.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
+    for fn in (lib.rtnr_expand, lib.rtnr_expand_search):
+        fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.rtnr_resolve_carriers.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
-    for fn in (lib.rtnr_expand, lib.rtnr_resolve_carriers):
+    lib.rtnr_resolve4.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
+    for fn in (lib.rtnr_expand, lib.rtnr_expand_search, lib.rtnr_resolve_carriers,
+               lib.rtnr_resolve4):
         fn.restype = _I
 
 
@@ -212,43 +231,86 @@ def _as_float_sums(sums: torch.Tensor, count: torch.Tensor, depth: torch.Tensor)
     return sums.view(torch.float32), count.view(torch.float32), depth
 
 
-def expand_winners(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
-                   packed_out: bool = False, float_sums: bool = False):
-    """K2: winner rows -> dense images. Returns (sums (HW,3) i32, count (HW,)
-    i32, depth (HW,) f32); with ``float_sums`` (rows of ``winners_f32``) the
-    sums and count are f32; with ``packed_out`` (packed rgb (HW,) i32, depth
-    (HW,) f32)."""
-    if wimg.dtype != torch.int32 or wimg.dim() != 2 or wimg.shape[0] != 6:
-        raise ValueError("wimg must be a (6, cap) int32 tensor")
-    if packed_out and float_sums:
-        raise ValueError("packed_out resolves integer sums; float_sums has none")
-    if wimg.device.type == "cpu":
-        return expand_plain(wimg, total, hw, packed_out, float_sums)
-    if wimg.device.type != "cuda":
-        raise ValueError(f"unsupported device {wimg.device}")
-    wimg = wimg.contiguous()
-    dev = wimg.device
+def _dense_outputs(dev, hw: int, packed_out: bool):
+    """Uninitialised output images of a tile kernel: (out0, count or None,
+    depth); every element is written once by the kernel."""
     depth = torch.empty((hw,), dtype=torch.float32, device=dev)
     if packed_out:
-        out0 = torch.empty((hw,), dtype=torch.int32, device=dev)
-        cnt_ptr = None
-    else:
-        out0 = torch.empty((hw, 3), dtype=torch.int32, device=dev)
-        count = torch.empty((hw,), dtype=torch.int32, device=dev)
-        cnt_ptr = count.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().rtnr_expand(
-        wimg.data_ptr(), wimg.shape[1], total.data_ptr(), hw, int(packed_out),
-        out0.data_ptr(), cnt_ptr, depth.data_ptr(), stream,
-    )
-    _build.check(rc, "rtnr_expand")
-    expand_winners.launches += 1
+        return torch.empty((hw,), dtype=torch.int32, device=dev), None, depth
+    return (torch.empty((hw, 3), dtype=torch.int32, device=dev),
+            torch.empty((hw,), dtype=torch.int32, device=dev), depth)
+
+
+def _expand_images(out0, count, depth, packed_out: bool, float_sums: bool):
     if packed_out:
         return out0, depth
     return _as_float_sums(out0, count, depth) if float_sums else (out0, count, depth)
 
 
+def _check_wimg(wimg: torch.Tensor, packed_out: bool, float_sums: bool) -> None:
+    if wimg.dtype != torch.int32 or wimg.dim() != 2 or wimg.shape[0] != 6:
+        raise ValueError("wimg must be a (6, cap) int32 tensor")
+    if packed_out and float_sums:
+        raise ValueError("packed_out resolves integer sums; float_sums has none")
+
+
+def _launch_expand(fn: str, wimg: torch.Tensor, total: torch.Tensor, hw: int,
+                   packed_out: bool, float_sums: bool):
+    """Run the C entry ``fn`` (rtnr_expand or rtnr_expand_search) on CUDA
+    tensors."""
+    _check_wimg(wimg, packed_out, float_sums)
+    if wimg.device.type != "cuda" or total.device != wimg.device:
+        raise ValueError(f"{fn} takes CUDA tensors on one device, not {wimg.device}")
+    wimg = wimg.contiguous()
+    dev = wimg.device
+    out0, count, depth = _dense_outputs(dev, hw, packed_out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(_lib(), fn)(
+        wimg.data_ptr(), wimg.shape[1], total.data_ptr(), hw, int(packed_out),
+        out0.data_ptr(), None if count is None else count.data_ptr(), depth.data_ptr(), stream,
+    )
+    _build.check(rc, fn)
+    return _expand_images(out0, count, depth, packed_out, float_sums)
+
+
+def expand_winners(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
+                   packed_out: bool = False, float_sums: bool = False):
+    """K2: winner rows -> dense images. Returns (sums (HW,3) i32, count (HW,)
+    i32, depth (HW,) f32); with ``float_sums`` (rows of ``winners_f32``) the
+    sums and count are f32; with ``packed_out`` (packed rgb (HW,) i32, depth
+    (HW,) f32). On the card: the tile kernel ``rtnr_expand``."""
+    _check_wimg(wimg, packed_out, float_sums)
+    if wimg.device.type == "cpu":
+        return expand_plain(wimg, total, hw, packed_out, float_sums)
+    if wimg.device.type != "cuda":
+        raise ValueError(f"unsupported device {wimg.device}")
+    out = _launch_expand("rtnr_expand", wimg, total, hw, packed_out, float_sums)
+    expand_winners.launches += 1
+    return out
+
+
 expand_winners.launches = 0
+
+
+def expand_search(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
+                  packed_out: bool = False, float_sums: bool = False):
+    """K2 as it was before the tile kernel (``rtnr_expand_search``: one
+    thread per output pixel binary-searching the winner pixel row), CUDA
+    tensors only; no path of the port calls it. It is kept so that the card
+    can time the tile kernel against it."""
+    out = _launch_expand("rtnr_expand_search", wimg, total, hw, packed_out, float_sums)
+    expand_search.launches += 1
+    return out
+
+
+expand_search.launches = 0
+
+
+def raster_images_v4_plain(sp: SortedPoints, hw: int, depth_band: float,
+                           packed_out: bool = False):
+    """Plain torch twin of ``rtnr_resolve4``: K1's twin, then K2's."""
+    wimg, total = winners_plain(sp, hw, depth_band)
+    return expand_plain(wimg, total, hw, packed_out)
 
 
 def raster_images_v4(sp: SortedPoints, hw: int, depth_band: float,
@@ -256,6 +318,26 @@ def raster_images_v4(sp: SortedPoints, hw: int, depth_band: float,
     """Dense images from a carrier-free (pixel, depth)-sorted stream:
     (sums (HW,3) i32, count (HW,) i32, depth (HW,) f32), or with
     ``packed_out`` (packed rgb (HW,) i32, depth (HW,) f32) — the contract of
-    ``raster_images_pallas4``."""
-    wimg, total = winners(sp, hw, depth_band)
-    return expand_winners(wimg, total, hw, packed_out=packed_out)
+    ``raster_images_pallas4``. On the card: one launch of ``rtnr_resolve4``
+    (no winner image); for CPU tensors the plain twin."""
+    _check_stream(sp)
+    if sp.pix.device.type == "cpu":
+        return raster_images_v4_plain(sp, hw, depth_band, packed_out)
+    if sp.pix.device.type != "cuda":
+        raise ValueError(f"unsupported device {sp.pix.device}")
+    dev = sp.pix.device
+    out0, count, depth = _dense_outputs(dev, hw, packed_out)
+    # 16-byte stream loads where every pointer allows them
+    vec = int(all(t.data_ptr() % 16 == 0 for t in sp))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().rtnr_resolve4(
+        sp.pix.data_ptr(), sp.zbits.data_ptr(), sp.packed.data_ptr(), sp.pix.numel(), hw,
+        float(depth_band), vec, int(packed_out), out0.data_ptr(),
+        None if count is None else count.data_ptr(), depth.data_ptr(), stream,
+    )
+    _build.check(rc, "rtnr_resolve4")
+    raster_images_v4.launches += 1
+    return _expand_images(out0, count, depth, packed_out, False)
+
+
+raster_images_v4.launches = 0

@@ -71,7 +71,7 @@ def _render(points, colors, valid, cam_proj, unet: Optional[Callable], *, width:
     if unet is None:
         raw_rgb, raw_depth = rasterize(points, colors, cam_proj, width=width, height=height,
                                        valid=valid, depth_band=depth_band)
-    else:  # the integer-average resolve runs inside the expansion kernel
+    else:  # the integer-average resolve runs inside the resolve kernel
         packed, raw_depth = rasterize_packed(points, colors, cam_proj, width=width,
                                              height=height, valid=valid, depth_band=depth_band)
         raw_rgb = unpack_rgb8(packed)

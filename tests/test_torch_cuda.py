@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6, the carrier kernel for K7-K9, K10 on K3,
+"""The port's CUDA kernels (the v4 resolve, K1-K6, the carrier kernel for K7-K9, K10 on K3,
 K3's fused-ConvTranspose mode, the input conv on conv_in_sm90.cu, and the int8
 modes of K3/K4 on conv.cu and on
 the s8 wgmma kernels of conv_i8_sm90.cu) against their
@@ -65,6 +65,86 @@ def test_resolve_kernels_match_twins(cuda, n):
         want = rr.expand_plain(wimg_p, total_p, w * h, packed_out)
         for g, x in zip(got, want):
             assert torch.equal(g.view(torch.int32), x.view(torch.int32))
+
+
+def _dense_stream(cuda, n, w, h, seed=11):
+    rng = np.random.default_rng(seed)
+    px, py = rng.integers(0, w, n), rng.integers(0, h // 4, n)
+    z = rng.uniform(2.0, 8.0, n)
+    pts = np.stack([(px - w / 2) * z / 40.0, (py - h / 2) * z / 40.0, z], 1).astype(np.float32)
+    cols = rng.integers(0, 256, (n, 3)).astype(np.float32)
+    M = Camera.from_params(40.0, 40.0, w / 2, h / 2, w, h).cam_proj(np.eye(4)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    return tr.project_and_sort(t(pts), t(cols), t(M), width=w, height=h)
+
+
+def _resolve4_stream(cuda, case):
+    """(stream, hw) of the rtnr_resolve4 cases: 96 x 64 = 6,144 = 3 tiles of
+    2,048 pixels; 97 x 61 = 5,917 is not a multiple of the tile."""
+    if case in ("n1", "n50000"):
+        return _dense_stream(cuda, 1 if case == "n1" else 50_000, 96, 64), 96 * 64
+    w, h = 97, 61
+    if case == "one_pixel_20000":
+        pts, cols, M = _resolver_cloud(cuda, 3_000, w, h, 22, one_pixel=20_000)
+    elif case == "all_culled":
+        pts, cols, M = _resolver_cloud(cuda, 4_000, w, h, 23)
+        pts = pts * torch.tensor([1.0, 1.0, -1.0], device=cuda)  # behind the camera
+    else:
+        pts, cols, M = _resolver_cloud(cuda, 30_000, w, h, 24)
+    sp = tr.project_and_sort(pts, cols, M, width=w, height=h)
+    if case == "unaligned":  # 4-byte offsets: the kernel's element-by-element loads
+        sp = tr.SortedPoints(*(t[1:] for t in sp))
+    return sp, w * h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n1", "n50000", "one_pixel_20000", "all_culled",
+                                  "hw_not_multiple_of_p", "unaligned"])
+def test_resolve4_matches_twin_and_old_pair(cuda, case):
+    """rtnr_resolve4 in both forms against its twin and against K1 + the
+    search K2, bit for bit; one launch of its own counter a call, none of
+    K1's or K2's; two runs equal."""
+    sp, hw = _resolve4_stream(cuda, case)
+    if case == "all_culled":
+        assert int((sp.pix < hw).sum()) == 0
+    for packed_out in (False, True):
+        before = (rr.raster_images_v4.launches, rr.winners.launches, rr.expand_winners.launches)
+        got = rr.raster_images_v4(sp, hw, 0.02, packed_out=packed_out)
+        assert (rr.raster_images_v4.launches, rr.winners.launches,
+                rr.expand_winners.launches) == (before[0] + 1, before[1], before[2])
+        assert _same_bits(got, rr.raster_images_v4_plain(sp, hw, 0.02, packed_out))
+        wimg, total = rr.winners(sp, hw, 0.02)
+        assert _same_bits(got, rr.expand_search(wimg, total, hw, packed_out=packed_out))
+        assert _same_bits(got, rr.raster_images_v4(sp, hw, 0.02, packed_out=packed_out))
+        if case == "one_pixel_20000" and not packed_out:
+            assert int(got[1].max()) >= 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 50_000])
+@pytest.mark.parametrize("form", ["packed", "sums", "float_sums"])
+def test_expand_tile_matches_twin_and_search(cuda, n, form):
+    """The tile K2 (rtnr_expand) in its three forms against expand_plain and
+    the search kernel it replaced, bit for bit; its counter counts it, the
+    search kernel's its own."""
+    w, h = 97, 61
+    hw = w * h
+    sp = _dense_stream(cuda, n, w, h, seed=13)
+    packed_out, float_sums = form == "packed", form == "float_sums"
+    if float_sums:
+        frac = torch.rand((sp.pix.numel(), 3), generator=torch.Generator(device=cuda)
+                          .manual_seed(5), device=cuda)
+        rgb = torch.stack([(sp.packed >> s) & 255 for s in (0, 8, 16)], 1).float() + frac
+        wimg, total = rr.winners_f32(tr.SortedDiff(sp.pix, sp.zbits, rgb.contiguous()), hw, 0.02)
+    else:
+        wimg, total = rr.winners(sp, hw, 0.02)
+    before = (rr.expand_winners.launches, rr.expand_search.launches)
+    got = rr.expand_winners(wimg, total, hw, packed_out=packed_out, float_sums=float_sums)
+    assert (rr.expand_winners.launches, rr.expand_search.launches) == (before[0] + 1, before[1])
+    assert _same_bits(got, rr.expand_plain(wimg, total, hw, packed_out, float_sums))
+    old = rr.expand_search(wimg, total, hw, packed_out=packed_out, float_sums=float_sums)
+    assert rr.expand_search.launches == before[1] + 1
+    assert _same_bits(got, old)
 
 
 @pytest.mark.cuda
@@ -355,8 +435,9 @@ def test_conv3x3_direct_matches_twin(cuda, n, cs, bias):
 @pytest.mark.cuda
 def test_renderer_frames_equal_under_each_resolve(cuda, monkeypatch):
     """A Renderer frame under RTNR_RESOLVE = v5, v3 and v2 equals the v4
-    frame bit for bit, through each resolver's own kernel (v5 launches K6
-    and never K1)."""
+    frame bit for bit, through each resolver's own kernel (v4 launches
+    rtnr_resolve4 once and neither K1 nor K2; v5 launches K6 and never K1
+    or rtnr_resolve4)."""
     from rtnr_tpu_torch.config import RenderConfig
     from rtnr_tpu_torch.models.convert import init_unet_numpy
     from rtnr_tpu_torch.pipeline import Renderer
@@ -369,13 +450,17 @@ def test_renderer_frames_equal_under_each_resolve(cuda, monkeypatch):
     r = Renderer(scene, RenderConfig(unet_features=(16, 32)), init_unet_numpy(1, (16, 32)),
                  device="cuda")
     monkeypatch.setenv("RTNR_RESOLVE", "v4")
+    pair = lambda: (rr.winners.launches, rr.expand_winners.launches)
+    k12, v4 = pair(), rr.raster_images_v4.launches
     ref = r.compute_full(cam, E)
+    assert pair() == k12 and rr.raster_images_v4.launches == v4 + 1
     for mode, own in (("v5", r5.winners5), ("v3", rc.resolve_carriers),
                       ("v2", rc.resolve_carriers)):
         monkeypatch.setenv("RTNR_RESOLVE", mode)
-        k1, mine = rr.winners.launches, own.launches
+        k1, v4, mine = rr.winners.launches, rr.raster_images_v4.launches, own.launches
         out = r.compute_full(cam, E)
         assert rr.winners.launches == k1 and own.launches == mine + 1
+        assert rr.raster_images_v4.launches == v4
         for key in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
             assert np.array_equal(out[key], ref[key]), (mode, key)
 

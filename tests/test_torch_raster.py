@@ -190,9 +190,12 @@ def test_resolve_wrappers_take_the_twin_only_on_cpu():
     w, h = 16, 8
     pts, cols, M = _cloud(500, w, h, seed=9)
     sp = tr.project_and_sort(_t(pts), _t(cols), _t(M), width=w, height=h)
-    before = (rr.winners.launches, rr.expand_winners.launches)
+    counts = lambda: (rr.winners.launches, rr.expand_winners.launches,
+                      rr.raster_images_v4.launches)
+    before = counts()
     wimg, total = rr.winners(sp, w * h, 0.02)
     rr.expand_winners(wimg, total, w * h, packed_out=True)
-    assert (rr.winners.launches, rr.expand_winners.launches) == before
+    rr.raster_images_v4(sp, w * h, 0.02, packed_out=True)
+    assert counts() == before
     ref = rr.winners_plain(sp, w * h, 0.02)
     assert torch.equal(wimg, ref[0]) and torch.equal(total, ref[1])
