@@ -96,12 +96,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
    losses, moved batch statistics, colours and camera matrices, non-zero
    pose and colour gradients, and a profiler trace of one scene step; then a
    small scene step on the card against the CPU;
-9. one JSON ``kernels`` line: every kernel and int8 mode with its launches
+9. the host layer, the render CLI and the bench line: the 5M-point scene
+   written with ``data.ply.write_ply``, a 3-pose TUM trajectory around the
+   bench pose, a COLMAP ``cameras.txt`` and a ``.msgpack`` checkpoint of the
+   weights under a temporary directory; ``Scene.from_file`` timed cold,
+   building the ``pcd.npz`` cache and from it (each equal to the scene);
+   ``apps.render_trajectory.main`` in process at ``--stage full --depth
+   --timings`` with every launch count set to 0 just before and read just
+   after (exit 0, 3 PNGs and 3 depth PNGs, ``rtnr_resolve4`` 1,
+   ``conv_sm90.cu``'s conv 17 and ``conv_in_sm90.cu``'s 1 a frame, no int8
+   kernel; each PNG the same bytes as ``write_png`` of an in-process
+   ``Renderer.compute_full`` at the pose) and its fps; then
+   ``bench.run`` at 1920x1080 (5 frames, 1 trial, static int8 with bf16
+   beside it; every ``bench.py`` field) and at 960x720 (falls back to bf16);
+10. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times (the input conv
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
    previous gemm<0,0> time; ``resolve4`` with the old pair's time, ``expand``
    with the search kernel's);
-10. the last line ``{"ok": true, "device": {...}}``.
+11. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
 """
@@ -966,6 +979,140 @@ def train_phase(renderer, cam, E, variables, counted):
     result["scene_step"]["trace"] = trace_step(lambda: sstep(sstate, *sargs),
                                                result["scene_step"]["ms_per_step"])
     return result
+
+
+CLI_POSES = ("0 0 0 -12 0 0 0 1", "1 0.3 0 -12 0 0 0 1",
+             "2 -0.2 0.1 -11.5 0.0087 0.0175 0 0.9998")  # TUM lines around the bench pose
+
+
+def host_cli_bench_phase(scene, variables, counted, card, static_ms):
+    """The host layer, the render CLI and the bench line on the card: the
+    scene written as PLY, a 3-pose TUM trajectory, a COLMAP ``cameras.txt``
+    and a ``.msgpack`` checkpoint under a temporary directory; ``Scene.from_file``
+    timed cold and through the cache; ``apps.render_trajectory.main`` run in
+    process at ``--stage full`` with every launch count set to 0 just before
+    and read just after (``rtnr_resolve4`` 1, ``conv_sm90.cu``'s conv 17 and
+    ``conv_in_sm90.cu``'s 1 a frame, no int8 kernel), its PNGs equal to
+    ``write_png`` of an in-process ``Renderer.compute_full`` at the same poses;
+    then ``bench.run`` at 1920x1080 (static int8 with bf16 beside it) and at
+    960x720 (falls back to bf16)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rtnr_tpu_torch import bench
+    from rtnr_tpu_torch.apps import render_trajectory as cli
+    from rtnr_tpu_torch.camera import Camera, Trajectory
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.data.ply import write_ply
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils.checkpoint import save_msgpack
+    from rtnr_tpu_torch.utils.image import read_png, write_png
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cloud, traj_f = os.path.join(tmp, "cloud.ply"), os.path.join(tmp, "traj.txt")
+        calib, ckpt = os.path.join(tmp, "cameras.txt"), os.path.join(tmp, "unet.msgpack")
+        cache, outdir = os.path.join(tmp, "cache"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        write_ply(cloud, scene.points, scene.colors)
+        with open(traj_f, "w") as f:
+            f.write("\n".join(CLI_POSES) + "\n")
+        with open(calib, "w") as f:
+            f.write(f"1 OPENCV {WIDTH} {HEIGHT} 1100 1100 {WIDTH / 2} {HEIGHT / 2} 0 0 0 0 0\n")
+        save_msgpack(ckpt, variables)
+        res["write_s"] = time.perf_counter() - t0
+        times = {}
+        for label, kw in (("cold", {}), ("cache_build", {"cache_dir": cache}),
+                          ("cache_hit", {"cache_dir": cache})):
+            t0 = time.perf_counter()
+            loaded = Scene.from_file(cloud, **kw)
+            times[label] = time.perf_counter() - t0
+            for k in ("points", "colors", "block_keys"):
+                if not np.array_equal(getattr(loaded, k), getattr(scene, k)):
+                    fail(f"Scene.from_file ({label}): {k} differs from the written scene")
+        res["from_file_s"] = times
+        log(f"host layer: PLY + TUM + cameras.txt + msgpack written in {res['write_s']:.3f} s; "
+            f"Scene.from_file cold {times['cold']:.3f} s, building the cache "
+            f"{times['cache_build']:.3f} s, from the cache {times['cache_hit']:.3f} s")
+
+        for fn in counted.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([cloud, traj_f, calib, "-o", outdir, "--stage", "full", "--ckpt",
+                           ckpt, "--depth", "--timings", "--cache-dir", cache])
+        launches = {k: fn.launches for k, fn in counted.items()}
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            log(f"  cli| {line}")
+        if rc != 0:
+            fail(f"render CLI exited {rc}")
+        n = len(CLI_POSES)
+        names = sorted(os.listdir(outdir))
+        want = sorted([f"frame_{i + 1}.png" for i in range(n)]
+                      + [f"frame_{i + 1}_depth.png" for i in range(n)])
+        if names != want:
+            fail(f"render CLI wrote {names}, not {want}")
+        log(f"render CLI launches over {n} frames: {launches}")
+        per_frame = {"resolve4": 1, "conv3x3_wgmma": 17, "conv3x3_in": 1, "convt2x2_wgmma": 4,
+                     "winners": 0, "expand": 0, "conv3x3_static_wgmma": 0,
+                     "conv3x3_dyn_wgmma": 0, "convt2x2_static_wgmma": 0, "conv3x3_up": 0}
+        for k, m in per_frame.items():
+            if launches[k] != m * n:
+                fail(f"render CLI: {k} launched {launches[k]} times in {n} frames, not {m} a frame")
+        rec = json.loads(lines[-1])
+        res.update(cli=rec, launches=launches)
+        # the same frames in process: the PNGs must be the same bytes
+        cam = Camera.load_calibration(calib)
+        traj = Trajectory.load(traj_f)
+        r = Renderer(Scene.from_file(cloud, cache_dir=cache), RenderConfig(), variables,
+                     cull_budget="auto", device="cuda")
+        split = {"compute_full_ms": [], "write_png_ms": []}
+        for i in range(n):
+            t0 = time.perf_counter()
+            frame = r.compute_full(cam, traj.world_to_cam(i))
+            t1 = time.perf_counter()
+            ref = os.path.join(tmp, "want.png")
+            write_png(ref, frame["rgb"])
+            split["compute_full_ms"].append((t1 - t0) * 1e3)
+            split["write_png_ms"].append((time.perf_counter() - t1) * 1e3)
+            with open(ref, "rb") as a, open(os.path.join(outdir, f"frame_{i + 1}.png"), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"render CLI frame {i + 1} differs from compute_full's PNG")
+            if read_png(os.path.join(outdir, f"frame_{i + 1}_depth.png")).shape != (HEIGHT, WIDTH):
+                fail("render CLI depth PNG has the wrong shape")
+        del r, frame
+        res["split"] = split
+        log(f"render CLI --stage full at {WIDTH}x{HEIGHT}, {POINTS} points: {n} PNGs equal to "
+            f"compute_full's, {n} depth PNGs; {rec['fps']} fps over {rec['frames']} frames "
+            f"({rec['seconds']} s, PNG writes included) on {card}; in process, compute_full "
+            f"{[round(v, 3) for v in split['compute_full_ms']]} ms and write_png of the RGB "
+            f"frame {[round(v, 3) for v in split['write_png_ms']]} ms a frame")
+    torch.cuda.empty_cache()
+
+    rec = bench.run(n_points=POINTS, width=WIDTH, height=HEIGHT, frames=5, trials=1)
+    log(json.dumps(rec))
+    fields = {"metric", "value", "unit", "vs_baseline", "trials", "unet_int8", "batch",
+              "points_per_s", "pixels_per_s", "ms_per_frame", "fps_bf16_exact",
+              "ms_per_frame_bf16", "device"}
+    if set(rec) != fields or rec["unet_int8"] != "static" or not rec["value"] > 0:
+        fail(f"bench line at {WIDTH}x{HEIGHT}: fields {sorted(rec)}, mode {rec['unet_int8']}")
+    log(f"bench line at {WIDTH}x{HEIGHT} ({card}): static int8 {rec['ms_per_frame']} ms/frame "
+        f"({rec['value']} fps), bf16 {rec['ms_per_frame_bf16']} ms/frame; phase 7's "
+        f"compute_full_tensors static median {static_ms:.3f} ms/frame (a different loop)")
+    res["bench"] = rec
+    torch.cuda.empty_cache()
+    rec = bench.run(n_points=POINTS, width=960, height=720, frames=2, trials=1)
+    log(json.dumps(rec))
+    if rec["unet_int8"] != "off" or "fps_bf16_exact" in rec:
+        fail(f"bench line at 960x720 did not fall back to bf16: {rec}")
+    res["bench_960x720"] = rec
+    return res
 
 
 def trace_step(run, step_ms: float):
@@ -1942,6 +2089,11 @@ def main() -> int:
     train = train_phase(renderer, cam, E, variables, counted)
     check_small_train_vs_cpu()
 
+    # ---- the host layer, the render CLI and the bench line ----
+    del renderer
+    torch.cuda.empty_cache()
+    host = host_cli_bench_phase(scene, variables, counted, card, serve_static["ms_per_frame"])
+
     sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
     i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
     in_src = "rtnr_tpu_torch/csrc/conv_in_sm90.cu"
@@ -1984,6 +2136,7 @@ def main() -> int:
               "conv3x3_in_i8out": "K3 input conv, int8 out"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
+             "render_cli": host,
              "train_step": train["train_step"], "scene_step": train["scene_step"],
              "conv_direct": conv_direct_path, "serve_fuse_up": fuse_up["serve"],
              "serve_fuse_up_dyn": {"launches": fuse_up["dyn_launches"]},
@@ -2026,7 +2179,9 @@ def main() -> int:
                            **{k: fuse_up["serve"][k] for k in ("ms_per_frame", "all_ms",
                                                                "stage_ms", "launches")},
                            "dyn_launches": fuse_up["dyn_launches"]},
-               "int8_gate": int8_gate, "int8_kernels": int8_kernels}
+               "int8_gate": int8_gate, "int8_kernels": int8_kernels,
+               "host": {k: host[k] for k in ("write_s", "from_file_s", "cli", "split", "bench",
+                                             "bench_960x720")}}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
     log(json.dumps({"kernels": kernels}))

@@ -2,11 +2,15 @@
 
 Counterpart of the JAX package ``rtnr_tpu`` (which stays the reference).
 The port imports ``torch`` and numpy only: no JAX, and nothing of
-``rtnr_tpu`` — the host-side pieces it needs (config, camera, scene) are
-kept as its own copies.
+``rtnr_tpu`` — the host-side pieces it needs (config, camera, scene, file
+formats) are kept as its own copies.
 
 Layout:
-- ``config``, ``camera``, ``scene``: host-side copies (numpy).
+- ``config``, ``camera``, ``scene``: host-side copies (numpy): calibration
+  files, trajectories, the npz and ``.oct`` scene caches.
+- ``data``: PLY and ``.oct`` readers and writers; ``utils``: PNG I/O and
+  U-Net checkpoints (flax ``.msgpack``, torch ``.pth.tar``).
+- ``apps.render_trajectory``: the render CLI; ``bench``: the benchmark line.
 - ``ops.raster``: projection + the (pixel, depth) sort.
 - ``ops.raster_resolve4``: the v4 resolve (K1 and K2 as one CUDA kernel),
   and the winners (K1) and expansion (K2) kernels on their own.

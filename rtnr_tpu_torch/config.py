@@ -2,12 +2,14 @@
 
 Defaults reproduce the reference constants (reference project_cloud.cu:20-26,
 render.cu:106). The port keeps its own copy so it never imports the JAX
-package.
+package. The fields, their order and ``to_json`` are the JAX package's, so
+both packages write the same JSON for the same configuration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 
@@ -29,9 +31,12 @@ class RenderConfig:
       activations quantised in the kernel on the levels with >= 256
       features; "static" int8 activations with per-layer scales from a
       one-time calibration on the first view (``rtnr_tpu/config.py:43-50``).
-
-    The port always times its stages (``Renderer.last_timings``), so the JAX
-    package's ``stage_timing`` switch has no counterpart.
+    - ``stage_timing``: the JAX package's per-stage timing switch
+      (``rtnr_tpu/config.py:52-56``). The port's ``Renderer`` always marks
+      its stages with CUDA events (``Renderer.last_timings``), so the switch
+      changes no output and no timing.
+    - ``unet_in_channels`` / ``unet_out_channels``: the U-Net's 5 inputs
+      (RGB, mask, depth) and 3 outputs.
     """
 
     depth_band: float = 0.02
@@ -41,8 +46,19 @@ class RenderConfig:
     block_size_m: float = 0.25
     unet_dtype: str = "bf16"
     unet_int8: str = "off"
+    stage_timing: bool = False
     unet_features: Tuple[int, ...] = (64, 128, 256, 512)
+    unet_in_channels: int = 5
     unet_out_channels: int = 3
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @classmethod
+    def from_json(cls, s: str) -> "RenderConfig":
+        d = json.loads(s)
+        d["unet_features"] = tuple(d.get("unet_features", (64, 128, 256, 512)))
+        return cls(**d)
 
 
 # 0x7F7FFFFF == FLT_MAX seeds the z-buffer (reference project_cloud.cu:316);

@@ -18,6 +18,13 @@ are:
 ``init_unet_numpy`` makes seeded random raw variables (numpy only) at any
 width, for the chip check and tests.
 
+``convert_state_dict`` / ``load_torch_checkpoint`` read the reference's
+torch ``model.pth.tar`` (reference model/model.py:21-45, export_pt.py:6-8)
+into the same nested numpy variables as the JAX package's converter
+(``rtnr_tpu/models/convert.py:29-101``): Conv2d ``(O,I,kh,kw)`` ->
+``(kh,kw,I,O)``, ConvTranspose2d ``(I,O,kh,kw)`` -> ``(kh,kw,I,O)`` flipped
+in space, BatchNorm as ``bn{j}`` scale/bias plus mean/var statistics.
+
 For training, ``train_state_from_flax`` turns raw variables into the
 trainable ``UNetTrain`` (same leaves, keyed by their tree paths), and
 ``to_flax_variables`` turns it back into the same nested numpy tree, which
@@ -68,6 +75,80 @@ def from_flax_variables(variables: Dict) -> Dict[str, np.ndarray]:
         state[f"{name}/kernel"] = np.asarray(params[name]["kernel"], np.float32)
         state[f"{name}/bias"] = np.asarray(params[name]["bias"], np.float32)
     return state
+
+
+def _conv_w(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _convT_w(w: np.ndarray) -> np.ndarray:
+    # (I, O, kh, kw) -> (kh, kw, I, O) with spatial flip
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))[::-1, ::-1])
+
+
+def _double_conv(sd: Mapping[str, np.ndarray], prefix: str) -> Dict:
+    params, stats = {}, {}
+    for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+        params[f"conv{j}"] = {"kernel": _conv_w(np.asarray(sd[f"{prefix}.conv.{ci}.weight"]))}
+        params[f"bn{j}"] = {
+            "scale": np.asarray(sd[f"{prefix}.conv.{bi}.weight"]),
+            "bias": np.asarray(sd[f"{prefix}.conv.{bi}.bias"]),
+        }
+        stats[f"bn{j}"] = {
+            "mean": np.asarray(sd[f"{prefix}.conv.{bi}.running_mean"]),
+            "var": np.asarray(sd[f"{prefix}.conv.{bi}.running_var"]),
+        }
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_state_dict(
+    sd: Mapping[str, np.ndarray], features: Sequence[int] = (64, 128, 256, 512)
+) -> Dict:
+    """Map a torch UNet state dict (arrays as numpy) to the raw variables
+    (``params`` + ``batch_stats``) in the Flax tree layout."""
+    sd = {k: np.asarray(v, dtype=np.float32) for k, v in sd.items()}
+    params: Dict = {}
+    stats: Dict = {}
+
+    for i in range(len(features)):
+        dc = _double_conv(sd, f"downs.{i}")
+        params[f"down{i}"] = dc["params"]
+        stats[f"down{i}"] = dc["batch_stats"]
+
+    dc = _double_conv(sd, "bottleneck")
+    params["bottleneck"] = dc["params"]
+    stats["bottleneck"] = dc["batch_stats"]
+
+    for k in range(len(features)):
+        params[f"up{k}"] = {
+            "kernel": _convT_w(sd[f"ups.{2 * k}.weight"]),
+            "bias": np.asarray(sd[f"ups.{2 * k}.bias"]),
+        }
+        dc = _double_conv(sd, f"ups.{2 * k + 1}")
+        params[f"updc{k}"] = dc["params"]
+        stats[f"updc{k}"] = dc["batch_stats"]
+
+    params["final_conv"] = {
+        "kernel": _conv_w(sd["final_conv.weight"]),
+        "bias": np.asarray(sd["final_conv.bias"]),
+    }
+    return {"params": params, "batch_stats": stats}
+
+
+def load_torch_checkpoint(path: str, features: Sequence[int] = (64, 128, 256, 512)) -> Dict:
+    """Load a .pth/.pth.tar state dict with ``torch.load`` on the CPU and
+    convert it. Accepts a bare state dict or one under the wrapper keys
+    ``state_dict``, ``model`` or ``model_state_dict``."""
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and not any(k.startswith("downs.") for k in obj):
+        for key in ("state_dict", "model", "model_state_dict"):
+            if key in obj:
+                obj = obj[key]
+                break
+    sd = {k: v.detach().cpu().numpy() for k, v in obj.items() if hasattr(v, "detach")}
+    return convert_state_dict(sd, features)
 
 
 def init_unet_numpy(

@@ -61,6 +61,16 @@ from rtnr_tpu_torch.ops.conv import (
 )
 
 
+def int8_shape_ok(features: Sequence[int], h: int, w: int) -> bool:
+    """The shape terms of JAX's ``phase_input_ok`` (``unet.py:210-228``) for
+    an (h, w) input, n = len(features): ``h % (4 << n) == 0``, ``w % 2^n ==
+    0``, ``w / 2^n <= 128`` and ``features[0] % 8 == 0``. Where they fail,
+    JAX's net runs its XLA path: exact bf16, unfused."""
+    n = len(features)
+    return (h % (4 << n) == 0 and w % (1 << n) == 0 and w >> n <= 128
+            and features[0] % 8 == 0)
+
+
 def _buf(name: str) -> str:
     return name.replace("/", "__")
 
@@ -182,13 +192,8 @@ class UNet(nn.Module):
         return c["p"]
 
     def int8_applies(self, h: int, w: int) -> bool:
-        """The shape terms of JAX's ``phase_input_ok`` (``unet.py:210-228``)
-        for an (h, w) input, n = len(features): ``h % (4 << n) == 0``,
-        ``w % 2^n == 0``, ``w / 2^n <= 128`` and ``features[0] % 8 == 0``.
-        Where they fail, JAX's net runs its XLA path: exact bf16, unfused."""
-        n = len(self.features)
-        return (h % (4 << n) == 0 and w % (1 << n) == 0 and w >> n <= 128
-                and self.features[0] % 8 == 0)
+        """``int8_shape_ok`` for this net's widths."""
+        return int8_shape_ok(self.features, h, w)
 
     def fuse_levels(self, h: int) -> frozenset:
         """The decoder levels whose ConvTranspose JAX fuses for an h-row
@@ -244,9 +249,18 @@ class UNet(nn.Module):
 
     def _check_input(self, x: torch.Tensor) -> None:
         m = 1 << len(self.features)
-        if x.dim() != 4 or x.shape[0] != 1 or x.shape[1] % m or x.shape[2] % m:
-            raise ValueError(f"U-Net input must be (1, H, W, C) with H, W multiples of {m}; "
+        if x.dim() != 4 or x.shape[0] < 1 or x.shape[1] % m or x.shape[2] % m:
+            raise ValueError(f"U-Net input must be (B, H, W, C) with H, W multiples of {m}; "
                              f"got {tuple(x.shape)}")
+
+    @staticmethod
+    def _frames(x: torch.Tensor, run) -> torch.Tensor:
+        """``run`` on each frame of the batch, one after another over the
+        same prepared weights, concatenated (JAX's phase path unrolls a batch
+        the same way, ``rtnr_tpu/models/unet.py:537-550, 710-711``)."""
+        if x.shape[0] == 1:
+            return run(x)
+        return torch.cat([run(x[i:i + 1]) for i in range(x.shape[0])])
 
     def _run_prepared(self, x: torch.Tensor, p: dict, conv3x3_fn, convt2x2_fn,
                       fused: AbstractSet[int] = frozenset()) -> torch.Tensor:
@@ -264,28 +278,29 @@ class UNet(nn.Module):
 
     def forward(self, x: torch.Tensor, act_scales: Optional[dict] = None, *,
                 levels: Optional[int] = None) -> torch.Tensor:
-        """Forward on the K3/K4 kernels: (1,H,W,5) -> (1,H,W,out) bf16. Exact
-        bf16, or with ``quant_int8`` static int8 (``act_scales``) or dyn
-        int8 where ``int8_applies`` and ``levels`` (the caller's pyramid
-        levels, None: the net's own) equals ``len(features)``, else exact
-        bf16; ``act_scales`` is ignored without ``quant_int8``, as in JAX.
+        """Forward on the K3/K4 kernels: (B,H,W,5) -> (B,H,W,out) bf16, frame
+        by frame (``_frames``). Exact bf16, or with ``quant_int8`` static int8
+        (``act_scales``) or dyn int8 where ``int8_applies`` and ``levels``
+        (the caller's pyramid levels, None: the net's own) equals
+        ``len(features)``, else exact bf16; ``act_scales`` is ignored without ``quant_int8``, as in JAX.
         ``RTNR_FUSE_UP=1`` fuses the ConvTranspose where JAX would (module
         doc)."""
         self._check_input(x)
         p, fused = self._plan(x, act_scales, levels)
-        return self._run_prepared(x, p, conv3x3_prepared, convt2x2_prepared, fused)
+        return self._frames(x, lambda f: self._run_prepared(f, p, conv3x3_prepared,
+                                                            convt2x2_prepared, fused))
 
     def forward_plain(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                       act_scales: Optional[dict] = None) -> torch.Tensor:
         """Plain torch twin net in ``dtype`` (float32: the f32 reference).
         With ``quant_int8`` it is ``forward``'s topology (int8 where it
         applies, else exact bf16) on the twins (bf16 out; ``dtype`` is not
-        read)."""
+        read). A batch runs frame by frame, as ``forward``."""
         self._check_input(x)
         if self.quant_int8:
             p, fused = self._plan(x, act_scales, None)
-            return self._run_prepared(x, p, conv3x3_prepared_plain, convt2x2_prepared_plain,
-                                      fused)
+            return self._frames(x, lambda f: self._run_prepared(
+                f, p, conv3x3_prepared_plain, convt2x2_prepared_plain, fused))
 
         def conv(xs, name, pool=False, head=False):
             kw = {}
@@ -299,42 +314,46 @@ class UNet(nn.Module):
             return convt2x2_plain(h, self.param(f"{name}/kernel"), self.param(f"{name}/bias"),
                                   dtype=dtype)
 
-        return self._run(x.to(dtype).contiguous(), conv, convt)
+        return self._frames(x, lambda f: self._run(f.to(dtype).contiguous(), conv, convt))
 
 
 def calibrate_act_scales(unet: UNet, x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Static-int8 calibration (``unet.py:714-744``): one exact bf16 forward
-    of ``unet`` on a representative (1,H,W,5) input, recording ``max|y|``
+    of ``unet`` on a representative (B,H,W,5) input, recording ``max|y|``
     of every conv0 output, every conv1 output before the pool except the
     head conv's, and every ConvTranspose output, under the JAX package's
     keys (``down{i}/c0``, ``bottleneck/c1``, ``u{i}t``, ``updc{i}/c0``, ...;
     the ``sow`` points of ``unet.py:318-332, 690-692``). Each scale is
     ``max(m, 1e-8) * f32(1/127)``, a 0-d f32 tensor on the net's device:
-    nothing goes back to the host."""
+    nothing goes back to the host. Over a batch the frames run one by one and
+    each key keeps its max over all frames, as JAX folds a layer's repeated
+    ``sow`` values with ``jnp.maximum``."""
     unet._check_input(x)
     p = unet.prepare()
     seen: Dict[str, torch.Tensor] = {}
 
-    def amax(t: torch.Tensor) -> torch.Tensor:
-        return t.to(torch.float32).abs().amax()
+    def record(key: str, t: torch.Tensor) -> None:
+        m = t.to(torch.float32).abs().amax()
+        seen[key] = m if key not in seen else torch.maximum(seen[key], m)
 
     def conv(xs, name, pool=False, head=False):
         out = conv3x3_prepared(xs, p[name], relu=True, pool=pool,
                                head=p["final_conv"] if head else None)
         block, layer = name.split("/")
         if layer == "conv0":
-            seen[f"{block}/c0"] = amax(out[0])
+            record(f"{block}/c0", out[0])
         elif not head:
-            seen[f"{block}/c1"] = amax(out[0])
+            record(f"{block}/c1", out[0])
         return out
 
     def convt(h, name):
         y = convt2x2_prepared(h, p[name])
-        seen[f"u{name[2:]}t"] = amax(y)
+        record(f"u{name[2:]}t", y)
         return y
 
     with torch.no_grad():
-        unet._run(x.to(torch.bfloat16).contiguous(), conv, convt)
+        for i in range(x.shape[0]):
+            unet._run(x[i:i + 1].to(torch.bfloat16).contiguous(), conv, convt)
     return {k: torch.clamp_min(m, 1e-8) * INV127 for k, m in seen.items()}
 
 

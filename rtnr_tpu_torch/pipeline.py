@@ -350,10 +350,13 @@ class Renderer:
                                          unet_ms=spans[2], total_ms=sum(spans))
         return out
 
-    def compute_filtered_rgbd(self, camera: Camera, extrinsics: np.ndarray) -> Dict[str, np.ndarray]:
+    def compute_filtered_rgbd(self, camera: Camera, extrinsics: np.ndarray,
+                              timings: bool = False) -> Dict[str, np.ndarray]:
+        """Projection + prefilter; ``timings`` as in ``compute_full``."""
         return _numpy(self._stages(camera, extrinsics, full=False))
 
-    def compute_full_tensors(self, camera: Camera, extrinsics: np.ndarray) -> Dict[str, torch.Tensor]:
+    def compute_full_tensors(self, camera: Camera, extrinsics: np.ndarray,
+                             timings: bool = False) -> Dict[str, torch.Tensor]:
         """``compute_full`` without the copy to host numpy (outputs stay on
         the device)."""
         if self.unet is None:
@@ -361,6 +364,13 @@ class Renderer:
         self.calibrate(camera, extrinsics)
         return self._stages(camera, extrinsics, full=True)
 
-    def compute_full(self, camera: Camera, extrinsics: np.ndarray) -> Dict[str, np.ndarray]:
-        """Full neural render; ``last_timings`` holds the staged times."""
+    def compute_full(self, camera: Camera, extrinsics: np.ndarray,
+                     timings: bool = False) -> Dict[str, np.ndarray]:
+        """Full neural render; ``last_timings`` holds the staged times.
+
+        ``timings`` (and ``config.stage_timing``) is the JAX package's switch
+        to run the stages as separate synchronised programs
+        (``rtnr_tpu/pipeline.py:474-488``). The port always marks the same
+        stages with CUDA events on one stream, so the switch changes neither
+        the outputs nor the timings."""
         return _numpy(self.compute_full_tensors(camera, extrinsics))

@@ -815,3 +815,66 @@ def test_new_wgmma_counters_only_move_on_routed_calls(cuda):
     m = (cv.convt2x2_wgmma.launches, cv.convt2x2.launches)
     cv.convt2x2_prepared(x, wt)
     assert (cv.convt2x2_wgmma.launches, cv.convt2x2.launches) == (m[0], m[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "static", "dyn"])
+def test_unet_batch_on_card_equals_single_frames(cuda, mode):
+    """A batch of 2 through ``UNet.forward`` on the Hopper kernels (features
+    (64, 128): the wgmma routes and the input conv) gives the two
+    single-frame outputs bit for bit, in each mode."""
+    from rtnr_tpu_torch.models.convert import from_flax_variables, init_unet_numpy
+    from rtnr_tpu_torch.models.unet import UNet, calibrate_act_scales
+
+    feats = (64, 128)
+    state = from_flax_variables(init_unet_numpy(3, feats))
+    x = torch.from_numpy(_mk((2, 64, 128, 5), 5)).to(cuda)
+    net = UNet(state, features=feats, quant_int8=mode != "bf16").to(cuda)
+    scales = None
+    if mode == "static":
+        scales = calibrate_act_scales(UNet(state, features=feats).to(cuda), x)
+    if mode == "dyn":
+        net.quant_min_f = 64
+    before = cv.conv3x3_in.launches
+    got = net(x, act_scales=scales)
+    assert cv.conv3x3_in.launches == before + 2
+    assert got.shape == (2, 64, 128, 3)
+    for i in range(2):
+        assert torch.equal(got[i:i + 1], net(x[i:i + 1], act_scales=scales)), i
+
+
+@pytest.mark.cuda
+def test_render_cli_full_stage_on_card(cuda, tmp_path, capsys):
+    """``apps.render_trajectory`` on the card: the full stage's PNGs are
+    ``write_png`` of the card Renderer's ``compute_full`` frames."""
+    from rtnr_tpu_torch.apps.render_trajectory import main
+    from rtnr_tpu_torch.camera import Trajectory
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.data.ply import write_ply
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils.checkpoint import save_msgpack
+    from rtnr_tpu_torch.utils.image import write_png
+
+    scene = Scene.synthetic(20_000, seed=3, extent=6.0)
+    write_ply(tmp_path / "c.ply", scene.points, scene.colors)
+    Camera.from_params(60.0, 60.0, 32.0, 24.0, 64, 48, (0, 0, 0, 0, 0)).save_calibration(
+        tmp_path / "calib.txt")
+    (tmp_path / "t.txt").write_text("0 0 0 -8 0 0 0 1\n1 0.2 0 -8 0 0 0 1\n")
+    raw = init_unet_numpy(1, (16, 32))
+    save_msgpack(tmp_path / "u.msgpack", raw)
+    argv = [str(tmp_path / f) for f in ("c.ply", "t.txt", "calib.txt")] + [
+        "-o", str(tmp_path / "out"), "--stage", "full", "--ckpt", str(tmp_path / "u.msgpack"),
+        "--features", "16", "32", "--levels", "2", "--timings"]
+    assert main(argv) == 0
+    assert '"stage": "full"' in capsys.readouterr().out
+    cam = Camera.load_calibration(tmp_path / "calib.txt")
+    traj = Trajectory.load(tmp_path / "t.txt")
+    r = Renderer(Scene.from_file(tmp_path / "c.ply"),
+                 RenderConfig(unet_features=(16, 32), pyramid_levels=2), raw,
+                 cull_budget="auto")
+    for i in range(2):
+        write_png(tmp_path / "want.png", r.compute_full(cam, traj.world_to_cam(i))["rgb"])
+        assert (tmp_path / "out" / f"frame_{i + 1}.png").read_bytes() == \
+            (tmp_path / "want.png").read_bytes()

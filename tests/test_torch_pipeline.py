@@ -2,6 +2,8 @@
 render_full against JAX render_full on its phase path (RTNR_SPLIT_FORCE=1)
 at the shape of tests/test_unet_split.py:40-79, and Renderer on the CPU."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from rtnr_tpu_torch.models.convert import from_flax_variables, init_unet_numpy
 from rtnr_tpu_torch.models.unet import UNet
 from rtnr_tpu_torch.pipeline import FrameTimings, Renderer, render_full
 from rtnr_tpu_torch.scene import Scene
+from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 FEAT = (16, 32)
 
@@ -121,3 +124,41 @@ def test_renderer_f32_net_ignores_unet_int8(small_setup):
                     device="cpu").compute_full(cam, E)
     for k in want:
         np.testing.assert_array_equal(out[k], want[k], err_msg=k)
+
+
+def test_timings_switch_changes_no_output(small_setup):
+    """The JAX Renderer's ``timings=`` and ``RenderConfig.stage_timing``:
+    accepted, and the outputs are the same bits with them on or off."""
+    scene, cam, E = small_setup
+    raw = init_unet_numpy(2, FEAT)
+    r = Renderer(scene, RenderConfig(unet_features=FEAT), raw, device="cpu")
+    rt = Renderer(scene, RenderConfig(unet_features=FEAT, stage_timing=True), raw, device="cpu")
+    for name in ("compute_full", "compute_filtered_rgbd", "compute_full_tensors"):
+        want = getattr(r, name)(cam, E)
+        for got in (getattr(r, name)(cam, E, timings=True),
+                    getattr(r, name)(cam, E, timings=False), getattr(rt, name)(cam, E)):
+            assert set(got) == set(want)
+            for k in want:
+                a, b = got[k], want[k]
+                if isinstance(a, torch.Tensor):
+                    assert torch.equal(a, b), (name, k)
+                else:
+                    np.testing.assert_array_equal(a, b, err_msg=f"{name} {k}")
+        t = r.last_timings
+        assert t.projection_ms > 0 and t.filter_ms > 0
+        assert (t.unet_ms > 0) == (name != "compute_filtered_rgbd")
+
+
+@pytest.mark.parametrize("kw", [{}, dict(stage_timing=True, unet_int8="static"),
+                                dict(unet_features=(16, 32), pyramid_levels=2, depth_band=0.05,
+                                     unet_dtype="f32", unet_in_channels=5,
+                                     unet_out_channels=3)])
+def test_render_config_json_is_jax(kw):
+    from rtnr_tpu.config import RenderConfig as JConfig
+
+    c, jc = RenderConfig(**kw), JConfig(**kw)
+    assert c.to_json() == jc.to_json()
+    assert RenderConfig.from_json(jc.to_json()) == c
+    assert JConfig.from_json(c.to_json()) == jc
+    assert [f.name for f in dataclasses.fields(RenderConfig)] == \
+        [f.name for f in dataclasses.fields(JConfig)]

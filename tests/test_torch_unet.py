@@ -14,7 +14,8 @@ from rtnr_tpu.models.fold_bn import fold_batchnorm as j_fold
 from rtnr_tpu.models.unet import UNet as JUNet
 from rtnr_tpu_torch.models.convert import from_flax_variables, init_unet_numpy
 from rtnr_tpu_torch.models.fold_bn import fold_batchnorm
-from rtnr_tpu_torch.models.unet import UNet
+from rtnr_tpu_torch.models.unet import UNet, calibrate_act_scales
+from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 FEAT = (16, 32)
 H, W = 16, 32
@@ -99,3 +100,56 @@ def test_unet_rejects_unpadded_input(raw_vars):
     net = UNet(from_flax_variables(raw_vars), features=FEAT)
     with pytest.raises(ValueError):
         net(torch.zeros((1, H + 2, W, 5)))
+
+
+@pytest.fixture(scope="module")
+def x_batch():
+    return np.random.default_rng(4).standard_normal((2, H, W, 5)).astype(np.float32)
+
+
+@pytest.mark.parametrize("path", ["forward", "plain_bf16", "plain_f32", "static", "dyn"])
+def test_batch_equals_single_frames(raw_vars, x_batch, path):
+    """A batch of 2 gives the two single-frame outputs bit for bit on every
+    path (the frames run one by one on the same prepared weights)."""
+    quant = path in ("static", "dyn")
+    net = UNet(from_flax_variables(raw_vars), features=FEAT, quant_int8=quant)
+    x = torch.from_numpy(x_batch)
+    scales = None
+    if path == "static":
+        scales = calibrate_act_scales(UNet(from_flax_variables(raw_vars), features=FEAT), x)
+    if path == "dyn":
+        net.quant_min_f = 1  # quantise every level at toy widths
+    fn = {"forward": lambda t: net(t), "plain_bf16": lambda t: net.forward_plain(t, torch.bfloat16),
+          "plain_f32": lambda t: net.forward_plain(t, torch.float32),
+          "static": lambda t: net(t, act_scales=scales),
+          "dyn": lambda t: net(t)}[path]
+    got = fn(x)
+    assert got.shape == (2, H, W, 3)
+    for i in range(2):
+        assert torch.equal(got[i:i + 1], fn(x[i:i + 1])), i
+    if quant:  # the int8 twins of the same topology
+        twin = net.forward_plain(x, act_scales=scales)
+        assert torch.equal(got, twin)
+
+
+def test_batch_matches_jax_xla(raw_vars, x_batch):
+    """The f32 net on a batch of 2 against JAX's ``UNet.apply`` on the same
+    batch (one jitted call), within the conversion budget."""
+    jnet = JUNet(features=FEAT, dtype=jnp.float32, fold_bn=True, conv_impl="xla")
+    want = np.asarray(jax.jit(jnet.apply)(j_fold(raw_vars), jnp.asarray(x_batch)))
+    got = UNet(from_flax_variables(raw_vars), features=FEAT).forward_plain(
+        torch.from_numpy(x_batch), torch.float32).numpy()
+    assert got.shape == want.shape == (2, H, W, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_calibration_over_a_batch_takes_each_layers_max(raw_vars, x_batch):
+    net = UNet(from_flax_variables(raw_vars), features=FEAT)
+    x = torch.from_numpy(x_batch)
+    both = calibrate_act_scales(net, x)
+    one, two = (calibrate_act_scales(net, x[i:i + 1]) for i in range(2))
+    assert set(both) == set(one) == set(two) and len(both) == 3 * len(FEAT) + 2 + 2 * len(FEAT) - 1
+    for k in both:
+        assert torch.equal(both[k], torch.maximum(one[k], two[k])), k
+    with pytest.raises(ValueError):
+        net(torch.zeros((0, H, W, 5)))
