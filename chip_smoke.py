@@ -33,7 +33,15 @@ Phases (any failure exits non-zero, and the result line is not printed):
    depth and sums equal to the serving raster's v4 integer images; K5's
    time beside ``torch.segment_reduce`` over the same segments; forward and
    backward ms;
-5. the alternative resolvers at the same shape: K6 (``winners5``) on the
+5. the alternative resolvers at the same shape: the v5 resolve as one
+   kernel (``rtnr_resolve5``, K6 and K2 in one tile kernel) in both forms
+   bit-exact against its twin and the v4 resolve's images, two runs equal,
+   one launch a call, also on a 20,000-point one-pixel stream, the same with
+   its minimum last, an all-culled stream, a 1919x1079 frame, one point and
+   an empty stream, and timed through its C entry in turns against the
+   K6 + K2 pair it replaced (and required to be faster), beside the library
+   yardstick (``segment_reduce`` min, the band, ``segment_reduce`` sum,
+   ``index_copy_``); K6 alone (``winners5``) on the
    pixel-only stream and the carrier kernel (``resolve_carriers``, K7-K9) on
    the carrier stream bit-exact against their twins and their images against
    the v4 resolve's, K6 on a 20,000-point one-pixel segment, ``rasterize_scatter``
@@ -42,10 +50,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    on ``conv_sm90.cu``) at 1088x1920, inputs (64, 64) -> 64, driven once
    with the counts reset, within 2 bf16 ulp of its f32 twin, beside gemm<0,0>;
    then K3's fused-ConvTranspose kernel at the fused levels updc2 and updc3
-   on the net's own activations, within 2 bf16 ulp of its f32 twin, with
-   the share of outputs that differ from the card's unfused K4 ->
-   ``conv_sm90.cu`` pair, timed in turns against that pair and against
-   ``F.conv_transpose2d`` + ``F.conv2d``; and the int8 gate: at 960x720
+   on the net's own activations, within 2 bf16 ulp of its f32 twin and
+   bit-equal to the card's unfused K4 -> ``conv_sm90.cu`` pair, timed in
+   turns against that pair and against ``F.conv_transpose2d`` +
+   ``F.conv2d``, with its share of the bound; and the int8 gate: at 960x720
    (outside JAX's phase shapes) the static and dyn Renderers equal the bf16
    frame bit for bit, with no int8 launch and no calibration;
 6. the int8 modes: the static net's lazy calibration (timed), then every
@@ -83,7 +91,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the unculled one, with its kept share and both frame times; and 1 warm-up
    + 5 bf16 frames under each of ``RTNR_RESOLVE=v4``, ``v5``, ``v3`` and
    ``v2`` (counts reset before each), every one equal to the v4 frame bit for
-   bit, each through its own resolver kernel; 1 warm-up + 5 bf16 frames
+   bit, each through its own resolver kernel (v5: ``rtnr_resolve5`` once a
+   frame and no K6 or K2 launch), with the v5 and v4 projection stages of
+   the same call side by side; 1 warm-up + 5 bf16 frames
    under ``RTNR_FUSE_UP=1`` (``conv3x3_up`` 2, K4 2, ``conv_sm90.cu``'s
    plain conv 15 and ``conv_in_sm90.cu`` 1 a frame) with a trace, the fused net against the f32 twin
    net, its frame against the unfused one, and one dyn frame fused at
@@ -112,8 +122,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
 10. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times (the input conv
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
-   previous gemm<0,0> time; ``resolve4`` with the old pair's time, ``expand``
-   with the search kernel's);
+   previous gemm<0,0> time; ``resolve4`` with the old pair's time,
+   ``resolve5`` with K6 + K2's, ``expand`` with the search kernel's,
+   ``conv3x3_up`` with the pair's);
 11. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
@@ -268,6 +279,7 @@ def check_resolvers(renderer, M, band, rows):
     sp5 = tr.project_and_sort(*args, depth_key=False, **kw)
     if not torch.equal(sp5.pix, sp4.pix):
         fail("the pixel-only stream's pixel ids differ from the (pixel, depth) stream's")
+    check_resolve5(renderer, M, band, sp5, ref, ref_packed, rows)
     wimg, total = r5.winners5(sp5, hw, band)
     wimg_p, total_p = r5.winners5_plain(sp5, hw, band)
     t = int(total[0])
@@ -346,6 +358,153 @@ def check_resolvers(renderer, M, band, rows):
     return sorts
 
 
+def resolve5_streams(renderer, M, sp5):
+    """The edge streams rtnr_resolve5 is held on besides the frame's, each a
+    pixel-only-sorted stream: name -> (stream, hw)."""
+    import torch
+    from rtnr_tpu_torch.ops import raster as tr
+
+    hw = WIDTH * HEIGHT
+    pts1, cols1, M1 = one_pixel_cloud(M.device)
+    one = tr.project_and_sort(pts1, cols1, M1, width=WIDTH, height=HEIGHT, depth_key=False)
+    out = {"one_pixel": (one, hw)}
+    # the same segment with its minimum last: depth descending
+    order = torch.argsort(one.zbits, descending=True, stable=True)
+    out["min_last"] = (tr.SortedPoints(*(t[order].contiguous() for t in one)), hw)
+    inf_bits = torch.full_like(sp5.zbits, 0x7F800000)
+    out["all_culled"] = (tr.SortedPoints(torch.full_like(sp5.pix, hw), inf_bits, sp5.packed), hw)
+    w, h = WIDTH - 1, HEIGHT - 1  # a ragged last tile
+    out["ragged_frame"] = (tr.project_and_sort(renderer.points, renderer.colors, M, width=w,
+                                               height=h, valid=renderer.valid, depth_key=False),
+                           w * h)
+    out["one_point"] = (tr.SortedPoints(*(t[:1].clone() for t in sp5)), hw)
+    out["empty_frame"] = (tr.SortedPoints(*(t[:0].clone() for t in sp5)), hw)
+    return out
+
+
+def v4_order(sp):
+    """The same elements sorted by (pixel, depth bits), the v4 resolve's input."""
+    import torch
+    from rtnr_tpu_torch.ops import raster as tr
+
+    key = (sp.pix.to(torch.int64) << 32) | sp.zbits.to(torch.int64)
+    order = torch.argsort(key, stable=True)
+    return tr.SortedPoints(*(t[order].contiguous() for t in sp))
+
+
+def resolve5_entries(sp5, hw, band):
+    """rtnr_resolve5 (packed) and the K6 + K2 pair it replaced (rtnr_winners5's
+    three launches into its own rows, then rtnr_expand) through their C
+    entries, arguments and outputs bound once."""
+    import torch
+    from rtnr_tpu_torch import _build
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+
+    lib = rr._lib()
+    dev = sp5.pix.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    packed, depth = i32(hw), i32(hw)
+    n = sp5.pix.numel()
+    stream_args = (sp5.pix.data_ptr(), sp5.zbits.data_ptr(), sp5.packed.data_ptr(), n, hw, band)
+    scratch, wimg, total = i32(2 * max(-(-n // 1024), 1)), i32(6, max(min(n, hw), 1)), i32(1)
+    calls = {
+        "resolve5": (lib.rtnr_resolve5, stream_args + (1, 1, packed.data_ptr(), None,
+                                                       depth.data_ptr(), stream)),
+        "winners5": (lib.rtnr_winners5, stream_args + (scratch.data_ptr(), wimg.data_ptr(),
+                                                       wimg.shape[1], total.data_ptr(), stream)),
+        "expand": (lib.rtnr_expand, (wimg.data_ptr(), wimg.shape[1], total.data_ptr(), hw, 1,
+                                     packed.data_ptr(), None, depth.data_ptr(), stream)),
+    }
+    if not all(t.data_ptr() % 16 == 0 for t in sp5):
+        fail("the frame's pixel-only stream is not 16-byte aligned")
+    for name, (fn, args) in calls.items():
+        _build.check(fn(*args), name)
+    k = {name: (lambda fn=fn, args=args: fn(*args)) for name, (fn, args) in calls.items()}
+    return k["resolve5"], lambda: (k["winners5"](), k["expand"]())
+
+
+def check_resolve5(renderer, M, band, sp5, ref, ref_packed, rows):
+    """The v5 resolve as one kernel: rtnr_resolve5 in both forms bit for bit
+    against its twin and the v4 resolve's images, two runs equal, one
+    launch a call; the same on the edge streams; then its time through its C
+    entry in turns against the K6 + K2 pair it replaced, beside the library
+    yardstick and its bound."""
+    import torch
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+    from rtnr_tpu_torch.ops import raster_resolve5 as r5
+
+    hw = WIDTH * HEIGHT
+    for packed_out, want in ((False, ref), (True, ref_packed)):
+        n0 = (r5.raster_images_v5.launches, r5.winners5.launches, rr.expand_winners.launches)
+        got = r5.raster_images_v5(sp5, hw, band, packed_out=packed_out)
+        torch.cuda.synchronize()
+        if (r5.raster_images_v5.launches, r5.winners5.launches,
+                rr.expand_winners.launches) != (n0[0] + 1, n0[1], n0[2]):
+            fail("raster_images_v5 did not launch rtnr_resolve5 alone, once")
+        if not same_bits(got, r5.raster_images_v5_plain(sp5, hw, band, packed_out)):
+            fail(f"rtnr_resolve5 (packed_out={packed_out}) differs from its twin")
+        if not same_bits(got, want):
+            fail(f"rtnr_resolve5 (packed_out={packed_out}) differs from the v4 resolve's images")
+        if not same_bits(got, r5.raster_images_v5(sp5, hw, band, packed_out=packed_out)):
+            fail(f"rtnr_resolve5 (packed_out={packed_out}) differs between two runs")
+    n = sp5.pix.numel()
+    n_in = int((sp5.pix < hw).sum())
+    log(f"rtnr_resolve5 (both forms) bit-exact vs its twin and the v4 resolve's images, two runs "
+        f"equal, one launch a call: {n} points ({n_in} in frame), hw {hw}")
+    for name, (s2, hw2) in resolve5_streams(renderer, M, sp5).items():
+        for packed_out in (True, False):
+            got = r5.raster_images_v5(s2, hw2, band, packed_out=packed_out)
+            if not (same_bits(got, r5.raster_images_v5_plain(s2, hw2, band, packed_out))
+                    and same_bits(got, rr.raster_images_v4(v4_order(s2), hw2, band,
+                                                           packed_out=packed_out))):
+                fail(f"rtnr_resolve5 on the {name} stream (packed_out={packed_out}) differs "
+                     "from its twin or from the v4 resolve")
+        log(f"rtnr_resolve5 on the {name} stream ({s2.pix.numel()} elements, hw {hw2}, max "
+            f"count {int(got[1].max()) if hw2 else 0}): both forms bit-exact vs its twin and "
+            "the v4 resolve")
+        del s2, got
+
+    r5_entry, pair = resolve5_entries(sp5, hw, band)
+    ms, prev = turns_ms({"resolve5": r5_entry, "pair": pair})
+    sums_ms = time_ms(lambda: r5.raster_images_v5(sp5, hw, band))
+    wrapper_ms = time_ms(lambda: r5.raster_images_v5(sp5, hw, band, packed_out=True))
+    plain = time_ms(lambda: r5.raster_images_v5_plain(sp5, hw, band, True), reps=2)
+    # bytes: each in-frame element read once (3 x int32), packed rgb + depth a pixel
+    bnd, by = bound_ms(12.0 * n_in + 8.0 * hw, 0.0)
+    # the library yardstick: segment_reduce "min" over the pixel segments, the
+    # band mask against it, segment_reduce "sum" of the in-band f32 lanes and
+    # index_copy_ of the per-pixel rows into a dense image (no average, no
+    # packing)
+    inb = sp5.pix < hw
+    pix_in = sp5.pix[inb]
+    zf = sp5.zbits[inb].view(torch.float32)
+    pk = sp5.packed[inb]
+    lanes = torch.stack([pk & 255, (pk >> 8) & 255, (pk >> 16) & 255, torch.ones_like(pk)],
+                        1).float()
+    pixels, lengths = torch.unique_consecutive(pix_in, return_counts=True)
+    dense = torch.zeros((hw, 5), dtype=torch.float32, device=sp5.pix.device)
+    bandt = torch.tensor(band, dtype=torch.float32, device=sp5.pix.device)
+
+    def library():
+        zmin = torch.segment_reduce(zf, "min", lengths=lengths)
+        keep = ~(zf > torch.repeat_interleave(zmin, lengths, output_size=zf.numel()) + bandt)
+        sums = torch.segment_reduce(lanes * keep[:, None], "sum", lengths=lengths, axis=0)
+        dense.index_copy_(0, pixels.long(), torch.cat([sums, zmin[:, None]], 1))
+
+    lib_ms = time_ms(library)
+    rows["resolve5"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                            max_abs_err=0.0, previous_ms=prev, sums_ms=sums_ms,
+                            wrapper_ms=wrapper_ms)
+    log(f"rtnr_resolve5 (packed, C entry): {ms:.4f} ms against K6 + K2 (rtnr_winners5's three "
+        f"launches + rtnr_expand) {prev:.4f} in turns ({prev / ms:.2f}x); bound {bnd:.4f} {by} "
+        f"({bnd / ms:.3f} of it); plain {plain:.4f}; segment_reduce min + band + sum + "
+        f"index_copy_ {lib_ms:.4f}; sums form through its wrapper {sums_ms:.4f}, packed "
+        f"{wrapper_ms:.4f}")
+    if not ms < prev:
+        fail("rtnr_resolve5 is not faster than the K6 + K2 pair it replaced")
+
+
 def check_conv_direct(rows, counted):
     """K10's counterpart at the decoder's finest two-input shape: driven once
     through ``conv_direct.conv3x3_pallas`` with every count reset just
@@ -397,11 +556,11 @@ def check_conv_up(unet, x, rows):
     """K3's fused-ConvTranspose mode at the full-width net's fused levels
     (updc2, updc3) on the bf16 net's own activations at the frame's shape:
     within 2 bf16 ulp of its f32 twin (the up values rounded to bf16 once, as
-    the contract has it), two runs equal; the share of elements that differ
-    from the card's unfused K4 -> ``conv_sm90.cu`` pair and the largest
-    difference; timed in turns against that pair and against
-    ``F.conv_transpose2d`` + ``F.conv2d`` on the concat (two library calls,
-    a yardstick only)."""
+    the contract has it), two runs equal, and bit-equal to the card's unfused
+    K4 -> ``conv_sm90.cu`` pair (its summation order is the pair's); timed in
+    turns against that pair and against ``F.conv_transpose2d`` + ``F.conv2d``
+    on the concat (two library calls, a yardstick only), with its share of
+    the operations bound."""
     import torch
     import torch.nn.functional as Fn
     from rtnr_tpu_torch.ops import conv as cv
@@ -441,6 +600,9 @@ def check_conv_up(unet, x, rows):
         (yp,) = cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], w, relu=True)
         d = (y.float() - yp.float()).abs()
         share, dmax = float((d > 0).float().mean()), float(d.max())
+        if not torch.equal(y, yp):
+            fail(f"K3-up updc{i}: differs from the card's K4 -> conv_sm90 pair on {share:.4g} "
+                 f"of elements (max {dmax:.3g}); it must equal it bit for bit")
         del y2, yp, d, ref
 
         kt = cv._bf16_values(unet.param(f"up{i}/kernel"))
@@ -473,21 +635,22 @@ def check_conv_up(unet, x, rows):
             acc[k] += v
         acc["err"] = max(acc["err"], err)
         per_shape[f"updc{i}"] = {"ms": ms, "pair_ms": pair_ms, "library_ms": lib,
-                                 "plain_ms": plain, "bound_ms": b, "err": err, "tol": tol,
-                                 "differs_from_pair": share, "max_diff_from_pair": dmax,
-                                 "all_ms": t}
+                                 "plain_ms": plain, "bound_ms": b, "share_of_bound": b / ms,
+                                 "err": err, "tol": tol, "differs_from_pair": share,
+                                 "max_diff_from_pair": dmax, "all_ms": t}
         log(f"K3-up updc{i} {h}x{wd}x({cs}+up {cd}->{F})->{F} err {err:.3g} (tol {tol:.3g}); "
-            f"differs from the card's K4 -> conv_sm90 pair on {share:.4g} of elements, max "
-            f"{dmax:.3g} | fused {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), pair "
-            f"{pair_ms:.4f}, F.conv_transpose2d + F.conv2d {lib:.4f}, bound {b:.4f} {by}, "
-            f"plain {plain:.4f}; turns {t}")
+            f"bit-equal to the card's K4 -> conv_sm90 pair (differs on {share:.4g} of "
+            f"elements) | fused {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b / ms:.3f} of "
+            f"its bound {b:.4f} {by}), pair {pair_ms:.4f}, F.conv_transpose2d + F.conv2d "
+            f"{lib:.4f}, plain {plain:.4f}; turns {t}")
     _, by = bound_ms(acc["nbytes"], acc["flops"])
     rows["conv3x3_up"] = dict(ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
                               bound_by=by, library_ms=acc["library_ms"], max_abs_err=acc["err"],
                               pair_ms=acc["pair_ms"])
     log(f"K3-up per frame (2 shapes): fused {acc['ms']:.4f} ms against the card's pair "
         f"{acc['pair_ms']:.4f} ({acc['pair_ms'] / acc['ms']:.2f}x) and the library pair "
-        f"{acc['library_ms']:.4f}; bound {acc['bound_ms']:.4f}, plain {acc['plain_ms']:.4f}")
+        f"{acc['library_ms']:.4f}; bound {acc['bound_ms']:.4f} "
+        f"({acc['bound_ms'] / acc['ms']:.3f} of it), plain {acc['plain_ms']:.4f}")
     return per_shape
 
 
@@ -588,16 +751,17 @@ def resolver_frames(renderer, cam, E, counted):
 
     import torch
 
-    need = {"v4": ("resolve4",), "v5": ("winners5", "expand"),
+    need = {"v4": ("resolve4",), "v5": ("resolve5",),
             "v3": ("resolve_carriers",), "v2": ("resolve_carriers",)}
-    others = ("resolve4", "winners", "winners5", "resolve_carriers", "expand")
+    others = ("resolve4", "resolve5", "winners", "winners5", "resolve_carriers", "expand")
     saved = os.environ.get("RTNR_RESOLVE")
     out, ref = {}, None
     try:
         for mode, own in need.items():
             os.environ["RTNR_RESOLVE"] = mode
             res = serve_frames(renderer, cam, E, RESOLVER_FRAMES, counted,
-                               own + ("conv3x3", "convt2x2"), f"bf16 RTNR_RESOLVE={mode}")
+                               own + ("conv3x3", "convt2x2"), f"bf16 RTNR_RESOLVE={mode}",
+                               per_frame={own[0]: 1})
             stray = [k for k in others if k not in own and res["launches"][k]]
             if stray:
                 fail(f"RTNR_RESOLVE={mode} launched {stray}")
@@ -616,6 +780,9 @@ def resolver_frames(renderer, cam, E, counted):
     log("resolver frames equal the v4 frame bit for bit (raw_rgb, raw_depth, depth, mask, "
         "rgb_f): " + ", ".join(f"{m} {r['ms_per_frame']:.3f} ms/frame (projection "
                                f"{r['stage_ms']['projection']:.3f})" for m, r in out.items()))
+    p4, p5 = out["v4"]["stage_ms"]["projection"], out["v5"]["stage_ms"]["projection"]
+    log(f"projection stage, same call: v5 (32-bit sort, rtnr_resolve5) {p5:.3f} ms against v4 "
+        f"(64-bit sort, rtnr_resolve4) {p4:.3f} ms ({p4 - p5:+.3f})")
     return out
 
 
@@ -1952,7 +2119,8 @@ def main() -> int:
                                 cfg.depth_band, rows)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    counted = {"resolve4": rr.raster_images_v4, "winners": rr.winners,
+    counted = {"resolve4": rr.raster_images_v4, "resolve5": r5.raster_images_v5,
+               "winners": rr.winners,
                "expand": rr.expand_winners,
                "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32,
                "conv3x3_i8out": cv.conv3x3_i8out, "conv3x3_static": cv.conv3x3_static,
@@ -2101,6 +2269,9 @@ def main() -> int:
         # K1 and K2 of the v4 path in one kernel
         "resolve4": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                      "rtnr_tpu/ops/raster_pallas4.py:663, rtnr_tpu/ops/raster_pallas4.py:920"),
+        # K6 and K2 of the v5 path in one kernel
+        "resolve5": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
+                     "rtnr_tpu/ops/raster_pallas5.py:516, rtnr_tpu/ops/raster_pallas4.py:920"),
         # K1 alone: no path launches it since rtnr_resolve4 (its tests, the previous pair)
         "winners": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                     "rtnr_tpu/ops/raster_pallas4.py:663"),
@@ -2132,6 +2303,7 @@ def main() -> int:
         "conv3x3_in_i8out": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
     }
     labels = {"resolve4": "K1 + K2, the v4 resolve (packed form)",
+              "resolve5": "K6 + K2, the v5 resolve (packed form)",
               "conv3x3_in": "K3 input conv, bf16 out",
               "conv3x3_in_i8out": "K3 input conv, int8 out"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
@@ -2141,7 +2313,8 @@ def main() -> int:
              "conv_direct": conv_direct_path, "serve_fuse_up": fuse_up["serve"],
              "serve_fuse_up_dyn": {"launches": fuse_up["dyn_launches"]},
              **{f"resolve_{m}": r for m, r in resolvers.items()}}
-    own = {"expand": "resolve_v5", "winners_f32": "scene_step", "conv3x3_i8out": "serve_static",
+    own = {"resolve5": "resolve_v5", "expand": "scene_step", "winners_f32": "scene_step",
+           "conv3x3_i8out": "serve_static",
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
            "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
            "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct",

@@ -87,38 +87,58 @@
 // being the conv's zero padding. It runs the full-width U-Net's decoder
 // levels 2 and 3 (skip 128 + up 128 -> 128 from 256 deep channels; 64 + 64
 // -> 64 from 128), where JAX's fuse_up_ok fuses, and takes C_up == F in
-// {64, 128}, so one tile (BN == F) holds every channel and computes its up
-// values once. Bound: operations, 342 GFLOP a level (308 of conv, 34 of
-// ConvTranspose) against ~0.27 GB moved: 0.346 ms at 989 TFLOP/s; the
-// unfused pair writes and reads the up tensor (267 MB at updc3) besides.
-// - Per tile, first a small implicit GEMM: the tile's up halo (10 x 18 up
-//   pixels, rows y0-1 .. y0+8, columns x0-1 .. x0+16) comes from 6 x 10 =
-//   60 deep pixels, one TMA box (64 c, 10 x, 6 y) a 64-channel chunk of
-//   C_deep that fills 60 rows of an m64 wgmma. B is the K-major (4 C_up,
-//   C_deep) copy of the flipped up kernel (ConvT2x2Weights.wmat_t), one
-//   (64 k, 256 n) box a stage: 4 subpixels x 64 up channels. Consumer cw
-//   takes subpixel row dy = cw (n 128, both dx). Its epilogue adds the bias,
-//   rounds to bf16, writes zeros for up pixels outside [0,H) x [0,W) (the
-//   ragged edges included), and puts each value at its place in a shared
-//   up tile of 18-pixel rows (23 KB a 64-channel chunk, 16-byte chunks
-//   XOR-swizzled by pixel).
-// - Then the conv: the skip input's stages exactly as conv3x3_wgmma's; the
-//   up tile's stages load only the three dy taps' weights, and take A from
-//   registers (wgmma's RS form), ldmatrix'd from the up tile at the tap's
-//   pixel shift. A TMA box or a wgmma descriptor would need each dx shift
-//   of one pixel (128 bytes) on a 1024-byte swizzle boundary, three copies
-//   of the tile: 120 KB at F = 128, more than the ring leaves.
-// - Two 256-thread barriers a tile order the two consumers' up-tile writes
-//   against their reads. The up GEMM and the RS stages wait for their wgmma
-//   group before the next (the A registers are read asynchronously); the
-//   skip stages keep one group in flight, as conv3x3_wgmma does.
-// - Shared memory: a ring of 4 stages at F = 64 and 2 at F = 128 (an up
-//   GEMM stage is 8 KB of deep box + 32 KB of weights, within a conv
-//   stage), the up tile, the epilogue staging: 215 KB / 197 KB, one block
-//   an SM; its own occupancy query.
-// - It sums the up GEMM in another order than conv.cu's gemm<1,0> (K4), so
-//   it is not bit-equal to the unfused card pair; no split-K and no
-//   atomics, so a call gives the same bits every time.
+// {64, 128}, so one tile holds every channel and computes its up values once.
+// Bound: operations, 342 GFLOP a level (308 of conv, 34 of ConvTranspose)
+// against ~0.27 GB moved: 0.346 ms at 989 TFLOP/s. The first design (8x16
+// tiles) lost to the card's K4 + K3 pair: each tile recomputed a 10x18
+// up halo from 60 deep rows for 32 interior ones, its up GEMM and its
+// register-A stages waited on every wgmma group, two 256-thread barriers
+// ordered each tile, its ring held 2 stages at F = 128, and every tile
+// streamed the conv's and the up kernel's weights whole from L2 (1,012 KiB a
+// 128-pixel tile at level 2). This design:
+// - Tiles of 16 rows x 16 columns, twice the pixels per weight byte: 341 KiB
+//   (level 3) and 1,148 KiB (level 2) through L2 a 256-pixel tile, against
+//   566 and 2,024 before. Consumer warpgroup cw owns rows 8cw .. 8cw+7 as two
+//   m64 blocks of 8 x 8 pixels (mb: columns 8mb .. 8mb+7), all F channels.
+// - Each consumer computes the up values of its own band: up rows 8cw-1 ..
+//   8cw+8 and columns -1 .. 16 (10 x 18) from the 6 x 10 deep pixels at rows
+//   4cw .. 4cw+5 of a (64 c, 10 x, 10 y) deep box, one m64 (60 rows used)
+//   against 256 columns of the K-major (4 C_up, C_deep) up kernel
+//   (ConvT2x2Weights.wmat_t: 4 subpixels x 64 up channels): one m64n256
+//   accumulator holds a 64-channel chunk of the band, and the halo costs the
+//   same 2x of the ConvTranspose's work as before. The band's up tile is the
+//   consumer's own (23,040 bytes a chunk, 128B-swizzled by absolute address):
+//   no barrier joins the consumers; a 128-thread barrier before and one after
+//   its write order it against the consumer's own reads.
+// - Every stage reads A from shared memory (no register-A form): the up
+//   stages start their descriptor at the tap's pixel shift inside the up
+//   tile (a 128B-swizzled K-major operand may start at any 128-byte row: the
+//   swizzle follows the address), with an 8-row group stride of 18 pixels;
+//   the skip stages read the halo box at a stride of 16 pixels. Register-A
+//   fragments made ptxas serialize every wgmma of the kernel (their
+//   registers are redefined while groups are in flight) or ran out of
+//   registers: ptxas builds a 384-thread block within 168 registers a
+//   thread. The producer / consumer split (setmaxnreg 40 / 232) stays:
+//   without it the consumers spill at F = 128 and level 3 runs slower.
+// - Two rings: A slots of 36 KB (the skip halo box (64 c, 16 x, 18 y), or an
+//   up-kernel box (64 k, 256 n)) and B slots of 16 KB (one tap row dy's
+//   weights (64 k, F n), or the deep box). An up GEMM stage (up chunk, deep
+//   chunk) takes one of each, a skip stage (dx, chunk) an A slot and three
+//   B slots, an up stage (dx, up chunk) three B slots. One wgmma group a tap
+//   row, each keeping the one before it in flight (wait_group 1), so that
+//   the consumers hold two B slots and the producer fills the rest: 2 A + 6
+//   B at F = 64 (219,264 bytes), 2 A + 4 B at F = 128 (231,520).
+// - Epilogue: bias, ReLU, one bf16 rounding, staged in the consumer's up
+//   tile (free after its last up stage) with the output map's 128B swizzle,
+//   then one TMA store a block of 8 x 8 pixels x 64 channels, which clips the
+//   ragged edge; the next tile's up epilogue waits until the stores have
+//   read the staging.
+// - Summation order: the up GEMM adds its k16 steps as convt2x2_wgmma does
+//   (deep chunks, then k16 steps, on m64n256k16), and the conv walks its K
+//   as conv3x3_wgmma walks [skip, up]: for each dx the skip chunks, then the
+//   up chunks, each tap row dy's k16 steps in turn, on m64nFk16. The output
+//   equals the card's unfused K4 + K3 pair bit for bit (chip_smoke.py gates
+//   it); no split-K and no atomics, so a call gives the same bits every time.
 //
 // convt2x2_wgmma is K4's exact bf16 mode (rtnr_tpu/ops/conv_phase.py::
 // _convt_phase_kernel, wrapper convt2x2_phase, conv_phase.py:1051-1320): a
@@ -198,39 +218,48 @@ struct Sm90Args {
   bf16* hout;         // (H, W, OC) or null
 };
 
-// the fused-ConvTranspose kernel: the deep box, the up weights, the up tile
-#define UP_DX 10                              // deep columns of a tile's up halo
-#define UP_DY 6                               // deep rows
-#define DEEP_BYTES (UP_DX * UP_DY * BK * 2)   // the deep box of a 64-channel chunk: 7,680
-#define DEEP_SLOT 8192                        // ... padded to the m64 operand
-#define UPB_BYTES (256 * BK * 2)              // 4 subpixels x 64 up channels x 64 k: 32 KB
-#define UT_W 18                               // up tile columns x0-1 .. x0+16
-#define UT_H 10                               // up tile rows y0-1 .. y0+8
-#define UT_CHUNK (UT_W * UT_H * BK * 2)       // the up tile, a 64-channel chunk: 23,040
+// the fused-ConvTranspose kernel: tiles of UT_Y x TILE_X output pixels
+#define UT_Y 16                                  // output rows of a tile, 8 a consumer
+#define UA_BYTES ((UT_Y + 2) * ROW_BYTES)        // an A slot: the skip halo box, 36 KB
+#define UB_BYTES 16384                           // a B slot: one dy's weights or a deep box
+#define DEEP_X 10                                // the deep box: 10 x 10 pixels, rows 4cw ..
+#define DEEP_Y 10                                //   4cw+5 are consumer cw's 6 x 10
+#define DEEP_BYTES (DEEP_X * DEEP_Y * BK * 2)    // 12,800
+#define DEEP_CW (4 * DEEP_X * BK * 2)            // consumer cw's rows start 5,120 cw bytes in
+#define WUP_BYTES (256 * BK * 2)                 // 4 subpixels x 64 up channels x 64 k: 32 KB
+#define UT_W 18                                  // a consumer's up tile: columns x0-1 .. x0+16,
+#define UT_H 10                                  //   rows of its band and the halo
+#define UT_CHUNK (UT_W * UT_H * BK * 2)          // a 64-channel chunk of it: 23,040
 
 template <int BN> struct UpCfg;
-template <> struct UpCfg<64> { enum { STAGES = 4 }; };
-template <> struct UpCfg<128> { enum { STAGES = 2 }; };
+template <> struct UpCfg<64> { enum { SA = 2, SB = 6 }; };
+template <> struct UpCfg<128> { enum { SA = 2, SB = 4 }; };
 
 template <int BN> struct UpLayout {
   enum {
-    STAGES = UpCfg<BN>::STAGES,
-    STAGE_BYTES = Layout<BN>::STAGE_BYTES,  // a conv stage, or the deep box + up weights
-    UT_OFF = STAGES * STAGE_BYTES,
-    STG_OFF = UT_OFF + (BN / 64) * UT_CHUNK,  // C_up == F == BN
-    BAR_OFF = STG_OFF + 2 * STG_BYTES,
-    SMEM = BAR_OFF + 2 * STAGES * 8,
+    SA = UpCfg<BN>::SA,
+    SB = UpCfg<BN>::SB,
+    B_OFF = SA * UA_BYTES,
+    UT_OFF = B_OFF + SB * UB_BYTES,
+    // a consumer's up tile (C_up == F == BN), 1 KB aligned: after the tile's
+    // last up stage it stages the output for the TMA store
+    UT_CON = ((BN / 64) * UT_CHUNK + 1023) / 1024 * 1024,
+    BAR_OFF = UT_OFF + 2 * UT_CON,
+    SMEM = BAR_OFF + 2 * (SA + SB) * 8,
   };
 };
-static_assert(DEEP_SLOT + UPB_BYTES <= Layout<64>::STAGE_BYTES, "an up GEMM stage fits a stage");
+static_assert(WUP_BYTES <= UA_BYTES && DEEP_CW + 64 * BK * 2 <= UB_BYTES &&
+                  128 * BK * 2 <= UB_BYTES && UA_BYTES % 1024 == 0 && DEEP_CW % 1024 == 0,
+              "slots");
 static_assert(UpLayout<64>::SMEM <= 232448 && UpLayout<128>::SMEM <= 232448, "shared memory");
+static_assert(2 * 64 * 128 <= UpLayout<64>::UT_CON && 4 * 64 * 128 <= UpLayout<128>::UT_CON,
+              "the output staging fits the up tile");
 
 struct UpArgs {
   int Cs, Cd, H, W;    // skip and deep channels; the output's (even) H and W
   int relu;
   const float* bias;   // (F,) conv bias, f32 values of bf16
   const float* ubias;  // (F,) up bias, f32 values of bf16
-  bf16* out;           // (H, W, F)
 };
 
 // K4 bf16
@@ -342,56 +371,6 @@ __device__ __forceinline__ void wgmma<256>(float* d, uint64_t da, uint64_t db) {
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1));
-}
-
-// D(64 x N, f32) += A(64 x 16, bf16, registers) * B(16 x N, bf16, K-major smem):
-// warp w holds rows 16w..16w+15 of A as mma.m16n8k16 does (ldmatrix.x4 order)
-template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // 64-channel block nb of a consumer's accumulator: bias (channels of
@@ -577,227 +556,341 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<BN>::MINB)
 
 // ------------------------------------------------------------ the fused-ConvTranspose kernel
 
+// a 4-byte shared-memory store (where ok, with no branch)
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v, bool ok = true) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.shared.b32 [%0], %1;\n}" ::"r"(addr),
+      "r"(v), "r"((int)ok)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the TMA store of a staged box, its bulk group, and the wait until the
+// stores have read shared memory
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a ring of slots: the next slot and the parity of its next fill
+struct Ring {
+  int i;
+  uint32_t ph;
+};
+
+// wait for the next slot of ring r (bar0: its barriers; flip 1 for the
+// producer's wait on the empty barriers) and step the ring on
+template <int N>
+__device__ __forceinline__ int ring_take(uint32_t bar0, Ring& r, uint32_t flip) {
+  const int s = r.i;
+  mbar_wait(bar0 + 8 * s, r.ph ^ flip);
+  if (++r.i == N) {
+    r.i = 0;
+    r.ph ^= 1;
+  }
+  return s;
+}
+
+// the slots of the last committed wgmma group, released once it retires:
+// A slot a (-1: none) and nb B slots from b on in ring order
+struct Pending {
+  int a, b, nb;
+};
+
+template <int SB>
+__device__ __forceinline__ void release(Pending& p, uint32_t emptyA, uint32_t emptyB, int t) {
+  if (t == 0) {
+    if (p.a >= 0) mbar_arrive(emptyA + 8 * p.a);
+    for (int j = 0, s = p.b; j < p.nb; ++j, s = s + 1 == SB ? 0 : s + 1)
+      mbar_arrive(emptyB + 8 * s);
+  }
+  p.a = -1;
+  p.nb = 0;
+}
+
+// after committing a group that holds slots (a, b, nb): wait for the group
+// before it, release that group's slots, and hold these
+template <int R, int SB>
+__device__ __forceinline__ void retire_prev(float* acc, Pending& p, int a, int b, int nb,
+                                            uint32_t emptyA, uint32_t emptyB, int t) {
+  fence_acc<R>(acc);
+  wg_wait<1>();
+  fence_acc<R>(acc);
+  release<SB>(p, emptyA, emptyB, t);
+  p.a = a;
+  p.b = b;
+  p.nb = nb;
+}
+
+template <int R, int SB>
+__device__ __forceinline__ void retire_all(float* acc, Pending& p, uint32_t emptyA,
+                                           uint32_t emptyB, int t) {
+  fence_acc<R>(acc);
+  wg_wait<0>();
+  fence_acc<R>(acc);
+  release<SB>(p, emptyA, emptyB, t);
+}
+
+// sw128_desc with another stride between 8-row groups (sbo bytes); the
+// start may be any 128-byte row, the swizzle follows the absolute address
+__device__ __forceinline__ uint64_t sw128_desc_sbo(uint32_t saddr, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
 template <int BN>
 __global__ void __launch_bounds__(NTHREADS, 1)
     conv3x3_up_wgmma(const __grid_constant__ CUtensorMap map_skip,
                      const __grid_constant__ CUtensorMap map_deep,
                      const __grid_constant__ CUtensorMap map_wup,
-                     const __grid_constant__ CUtensorMap map_w, const UpArgs a) {
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_out, const UpArgs a) {
   typedef UpLayout<BN> L;
-  constexpr int STAGES = L::STAGES;
-  constexpr int B_BYTES = Layout<BN>::B_BYTES;
-  constexpr int NU = BN / 64;  // 64-channel chunks of the up tile
+  constexpr int SA = L::SA, SB = L::SB;
+  constexpr int NU = BN / 64;      // 64-channel chunks of the up channels
+  constexpr int WB = BN * BK * 2;  // one tap row's weight box (64 k, BN n)
+  constexpr int NACC = BN / 2;     // an m64 block's accumulator registers
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
-  const uint32_t full0 = base + L::BAR_OFF;
-  const uint32_t empty0 = full0 + 8 * STAGES;
+  const uint32_t fullA = base + L::BAR_OFF, emptyA = fullA + 8 * SA;
+  const uint32_t fullB = emptyA + 8 * SA, emptyB = fullB + 8 * SB;
 
   if (threadIdx.x == 0) {
     if (base & 1023) __trap();
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 2);
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(fullA + 8 * s, 1);   // the producer's expect_tx arrival
+      mbar_init(emptyA + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(fullB + 8 * s, 1);
+      mbar_init(emptyB + 8 * s, 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int TX = (a.W + TILE_X - 1) / TILE_X;
-  const int TY = (a.H + TILE_Y - 1) / TILE_Y;
-  const int ntiles = TX * TY;
+  const int ntiles = TX * ((a.H + UT_Y - 1) / UT_Y);
   const int ct = a.Cs + BN;  // the conv's input channels: skip, then up (C_up == F == BN)
   const int nkd = a.Cd / BK, nkc = a.Cs / BK;
   const int wg = threadIdx.x >> 7;
 
   if (wg == 0) {
     // ---- producer. A tile's stages: NU * nkd up GEMM stages (u, deep
-    // chunk), 3 * nkc skip stages (dx, chunk), 3 * NU up tile stages (dx, u)
+    // chunk: the up kernel's box into an A slot, the deep box into a B slot),
+    // then for each dx nkc skip stages (the halo box into an A slot, the tap
+    // rows' weights into three B slots) and NU up stages (three B slots)
+    setmaxnreg_dec40();
     if (threadIdx.x != 0) return;
-    const int n_up = NU * nkd, n_skip = 3 * nkc;
-    int stage = 0;
-    uint32_t phase = 0;
+    Ring ra = {0, 0}, rb = {0, 0};
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int x0 = (tile % TX) * TILE_X, y0 = (tile / TX) * TILE_Y;
-      for (int ks = 0; ks < n_up + n_skip + 3 * NU; ++ks) {
-        const uint32_t full = full0 + 8 * stage;
-        const uint32_t sa = base + stage * L::STAGE_BYTES;
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        if (ks < n_up) {
-          const int u = ks / nkd, c = (ks % nkd) * BK;
-          mbar_expect_tx(full, DEEP_BYTES + UPB_BYTES);
-          // deep rows y0/2-1 .. y0/2+4, columns x0/2-1 .. x0/2+8 (zeros outside)
-          tma_load_3d(sa, &map_deep, full, c, x0 / 2 - 1, y0 / 2 - 1);
-          tma_load_2d(sa + DEEP_SLOT, &map_wup, full, c, 256 * u);
-        } else {
-          int dx, k0;  // the stage's weight rows: tap (dy, dx) at (3dy + dx) * ct + k0
-          if (ks < n_up + n_skip) {
-            dx = (ks - n_up) / nkc;
-            k0 = ((ks - n_up) % nkc) * BK;
-            mbar_expect_tx(full, A_BYTES + 3 * B_BYTES);
-            tma_load_3d(sa, &map_skip, full, k0, x0 + dx - 1, y0 - 1);
-          } else {
-            dx = (ks - n_up - n_skip) / NU;
-            k0 = a.Cs + 64 * ((ks - n_up - n_skip) % NU);
-            mbar_expect_tx(full, 3 * B_BYTES);
-          }
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy)
-            tma_load_2d(sa + A_BYTES + dy * B_BYTES, &map_w, full, (3 * dy + dx) * ct + k0, 0);
+      const int x0 = (tile % TX) * TILE_X, y0 = (tile / TX) * UT_Y;
+      for (int u = 0; u < NU; ++u) {
+        for (int kc = 0; kc < nkd; ++kc) {
+          int s = ring_take<SA>(emptyA, ra, 1);
+          mbar_expect_tx(fullA + 8 * s, WUP_BYTES);
+          tma_load_2d(base + s * UA_BYTES, &map_wup, fullA + 8 * s, kc * BK, 256 * u);
+          s = ring_take<SB>(emptyB, rb, 1);
+          mbar_expect_tx(fullB + 8 * s, DEEP_BYTES);
+          // deep rows y0/2-1 .. y0/2+8, columns x0/2-1 .. x0/2+8 (zeros outside)
+          tma_load_3d(base + L::B_OFF + s * UB_BYTES, &map_deep, fullB + 8 * s, kc * BK,
+                      x0 / 2 - 1, y0 / 2 - 1);
         }
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
+      }
+      for (int dx = 0; dx < 3; ++dx) {
+        for (int j = 0; j < nkc + NU; ++j) {
+          int k0;  // the stage's weight rows: tap (dy, dx) at (3dy + dx) * ct + k0
+          if (j < nkc) {
+            k0 = j * BK;
+            const int s = ring_take<SA>(emptyA, ra, 1);
+            mbar_expect_tx(fullA + 8 * s, UA_BYTES);
+            // image rows y0-1 .. y0+16 at columns x0+dx-1 ..
+            tma_load_3d(base + s * UA_BYTES, &map_skip, fullA + 8 * s, k0, x0 + dx - 1, y0 - 1);
+          } else {
+            k0 = a.Cs + (j - nkc) * BK;
+          }
+          for (int dy = 0; dy < 3; ++dy) {
+            const int s = ring_take<SB>(emptyB, rb, 1);
+            mbar_expect_tx(fullB + 8 * s, WB);
+            tma_load_2d(base + L::B_OFF + s * UB_BYTES, &map_w, fullB + 8 * s,
+                        (3 * dy + dx) * ct + k0, 0);
+          }
         }
       }
     }
   } else {
+    setmaxnreg_inc232();
     const int cw = wg - 1;
     const int t = threadIdx.x & 127;
     const int warp = t >> 5, lane = t & 31;
-    unsigned char* stg = smem + L::STG_OFF + cw * STG_BYTES;
-    unsigned char* ut = smem + L::UT_OFF;
-    // this lane's ldmatrix row: pixel column lcol of the warp's 16, 16-byte
-    // chunk lhalf of each k16 step
-    const int lcol = (lane & 7) + 8 * ((lane >> 3) & 1), lhalf = lane >> 4;
-    int stage = 0;
-    uint32_t phase = 0;
+    // this consumer's up tile: rows 8cw-1 .. 8cw+8 of the tile, columns -1 .. 16
+    const uint32_t ut_s = base + L::UT_OFF + cw * L::UT_CON;
+    Ring ra = {0, 0}, rb = {0, 0};
+    Pending pend = {-1, 0, 0};
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int x0 = (tile % TX) * TILE_X, y0 = (tile / TX) * TILE_Y;
+      const int x0 = (tile % TX) * TILE_X, y0 = (tile / TX) * UT_Y;
 
-      // ---- 1. the up GEMM, a 64-channel chunk u of C_up at a time: rows =
-      // the 6 x 10 deep pixels (60 of the m64), columns = subpixels (cw, 0)
-      // and (cw, 1), 64 channels each
+      // ---- 1. the band's up values, a 64-channel chunk u at a time: rows =
+      // the 6 x 10 deep pixels (60 of the m64), columns = 4 subpixels x 64
 #pragma unroll 1
       for (int u = 0; u < NU; ++u) {
-        float uacc[64];
+        float uacc[128];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) uacc[i] = 0.0f;
+        for (int i = 0; i < 128; ++i) uacc[i] = 0.0f;
         for (int kc = 0; kc < nkd; ++kc) {
-          mbar_wait(full0 + 8 * stage, phase);
-          const uint32_t sa = base + stage * L::STAGE_BYTES;
-          fence_acc<64>(uacc);
-          __syncwarp();
+          const int sa = ring_take<SA>(fullA, ra, 0);
+          const int sb = ring_take<SB>(fullB, rb, 0);
+          fence_acc<128>(uacc);
+          __syncwarp();  // the .aligned wgmma instructions need the whole warp
           wg_fence();
-          const uint64_t da = sw128_desc(sa);
-          const uint64_t db = sw128_desc(sa + DEEP_SLOT + cw * (UPB_BYTES / 2));
+          const uint64_t da = sw128_desc(base + L::B_OFF + sb * UB_BYTES + cw * DEEP_CW);
+          const uint64_t db = sw128_desc(base + sa * UA_BYTES);
 #pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) wgmma<128>(uacc, da + 2 * kk, db + 2 * kk);
+          for (int kk = 0; kk < BK / 16; ++kk) wgmma<256>(uacc, da + 2 * kk, db + 2 * kk);
           wg_commit();
-          fence_acc<64>(uacc);
-          wg_wait<0>();
-          fence_acc<64>(uacc);
-          if (t == 0) mbar_arrive(empty0 + 8 * stage);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
+          retire_prev<128, SB>(uacc, pend, sa, sb, 1, emptyA, emptyB, t);
+        }
+        retire_all<128, SB>(uacc, pend, emptyA, emptyB, t);
+        // every warp of this consumer is done reading the previous tile's up
+        // values, and its TMA stores have read the staged output
+        if (u == 0) {
+          if (t == 0) bulk_wait_read();
+          named_bar(1 + cw);
+        }
+        // bias, one bf16 rounding, zeros outside the image, into the up tile:
+        // each (row half h, subpixel) gives the thread one up pixel p, whose
+        // stores are predicated on p lying in the tile
+#pragma unroll
+        for (int hs = 0; hs < 8; ++hs) {
+          const int h = hs >> 2, sy = (hs >> 1) & 1, sx = hs & 1;
+          const int m = warp * 16 + (lane >> 2) + 8 * h;  // deep pixel of the band's box
+          const int ur = 2 * (m / DEEP_X) + sy - 1;       // up tile row and column
+          const int uc = 2 * (m % DEEP_X) + sx - 1;
+          const bool ok = m < 6 * DEEP_X && ur >= 0 && ur < UT_H && uc >= 0 && uc < UT_W;
+          const int uy = y0 + 8 * cw - 1 + ur, ux = x0 - 1 + uc;
+          const bool in = uy >= 0 && uy < a.H && ux >= 0 && ux < a.W;
+          const int p = ok ? ur * UT_W + uc : 0;
+          const uint32_t row = ut_s + u * UT_CHUNK + p * 128 + 4 * (lane & 3);
+          // the 128B swizzle of the absolute row (wgmma reads by address)
+          const int sw = (p + u * (UT_CHUNK >> 7)) & 7;
+#pragma unroll
+          for (int ch = 0; ch < 8; ++ch) {
+            const int i = 8 * (2 * sy + sx) + ch;  // column block: subpixel, 8 channels
+            const float2 ub =
+                __ldg(reinterpret_cast<const float2*>(a.ubias + 64 * u + 8 * ch + 2 * (lane & 3)));
+            const float v0 = in ? uacc[4 * i + 2 * h] + ub.x : 0.0f;
+            const float v1 = in ? uacc[4 * i + 2 * h + 1] + ub.y : 0.0f;
+            st_shared(row + ((ch ^ sw) << 4), pack_bf16(v0, v1), ok);
           }
         }
-        // the other consumer is done reading the previous tile's up values
-        if (u == 0) consumers_bar();
-        // bias, one bf16 rounding, zeros outside the image, into the up tile
-        unsigned char* utu = ut + u * UT_CHUNK;
+      }
+      fence_proxy_async();  // the up tile's values, visible to wgmma's operand reads
+      named_bar(1 + cw);    // the band's up values are written
+
+      // ---- 2. the conv: m64 block mb is the 8 x 8 pixels at rows 8cw ..
+      // 8cw+7, columns 8mb .. 8mb+7. For each dx the skip stages (A: the halo
+      // box, 16-pixel rows), then the up stages (A: the up tile, 18-pixel rows,
+      // started at the tap's pixel shift), one wgmma group a tap row, so that
+      // a group and the one before it hold two B slots and the producer has
+      // the rest to fill
+      float acc[2 * NACC];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int j = 8 * (i & 7) + 2 * (lane & 3);  // up channel within the chunk
-          const float b0 = a.ubias[64 * u + j], b1 = a.ubias[64 * u + j + 1];
+      for (int i = 0; i < 2 * NACC; ++i) acc[i] = 0.0f;
+#pragma unroll 1
+      for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll 1
+        for (int j = 0; j < nkc + NU; ++j) {
+          const bool skip = j < nkc;
+          const int sa = skip ? ring_take<SA>(fullA, ra, 0) : -1;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = warp * 16 + (lane >> 2) + 8 * h;  // deep pixel of the halo
-            const int ur = 2 * (m / UP_DX) + cw - 1;        // up tile row and column
-            const int uc = 2 * (m % UP_DX) + (i >> 3) - 1;
-            if (m < UP_DX * UP_DY && ur >= 0 && ur < UT_H && uc >= 0 && uc < UT_W) {
-              const int uy = y0 - 1 + ur, ux = x0 - 1 + uc;
-              const bool in = uy >= 0 && uy < a.H && ux >= 0 && ux < a.W;
-              const float v0 = in ? uacc[4 * i + 2 * h] + b0 : 0.0f;
-              const float v1 = in ? uacc[4 * i + 2 * h + 1] + b1 : 0.0f;
-              const int p = ur * UT_W + uc;
-              *reinterpret_cast<__nv_bfloat162*>(utu + p * 128 + (((i & 7) ^ (p & 7)) << 4) +
-                                                 4 * (lane & 3)) = __floats2bfloat162_rn(v0, v1);
+          for (int dy = 0; dy < 3; ++dy) {
+            const int sb = ring_take<SB>(fullB, rb, 0);
+            fence_acc<2 * NACC>(acc);
+            __syncwarp();
+            wg_fence();
+            const uint64_t db = sw128_desc(base + L::B_OFF + sb * UB_BYTES);
+#pragma unroll
+            for (int mb = 0; mb < 2; ++mb) {
+              // output pixel (r, c) of the block at tap (dy, dx): box row
+              // 8cw + r + dy, column 8mb + c (the box starts at dx - 1); up
+              // tile row r + dy, column 8mb + c + dx
+              const uint64_t da =
+                  skip ? sw128_desc_sbo(base + sa * UA_BYTES +
+                                            ((8 * cw + dy) * TILE_X + 8 * mb) * 128,
+                                        TILE_X * 128)
+                       : sw128_desc_sbo(ut_s + (j - nkc) * UT_CHUNK +
+                                            (dy * UT_W + 8 * mb + dx) * 128,
+                                        UT_W * 128);
+#pragma unroll
+              for (int kk = 0; kk < BK / 16; ++kk)
+                wgmma<BN>(acc + mb * NACC, da + 2 * kk, db + 2 * kk);
+            }
+            wg_commit();
+            // the A slot goes with the stage's last group
+            retire_prev<2 * NACC, SB>(acc, pend, dy == 2 ? sa : -1, sb, 1, emptyA, emptyB, t);
+          }
+        }
+      }
+      retire_all<2 * NACC, SB>(acc, pend, emptyA, emptyB, t);
+
+      // ---- epilogue: bias, ReLU, one bf16 rounding, staged in this
+      // consumer's up tile (an 8 x 8-pixel block x 64 channels at a time, the
+      // 128B swizzle of the output map), then one TMA store a block (it clips
+      // the ragged edge); the next tile's up epilogue waits until the stores
+      // have read it
+      named_bar(1 + cw);  // every warp's wgmma reads of the up tile are done
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < NU; ++nb) {
+          const uint32_t stg = ut_s + (mb * NU + nb) * (64 * 128);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = 64 * nb + 8 * i + 2 * (lane & 3);
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(a.bias + col));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = warp * 16 + (lane >> 2) + 8 * h;  // pixel (r / 8, r % 8)
+              float v0 = acc[mb * NACC + 32 * nb + 4 * i + 2 * h] + bb.x;
+              float v1 = acc[mb * NACC + 32 * nb + 4 * i + 2 * h + 1] + bb.y;
+              if (a.relu) {
+                v0 = fmaxf(v0, 0.0f);
+                v1 = fmaxf(v1, 0.0f);
+              }
+              st_shared(stg + stg_off(r, i) + 4 * (lane & 3), pack_bf16(v0, v1));
             }
           }
         }
-      }
-
-      // ---- 2. the skip input, A by TMA as in conv3x3_wgmma
-      float acc[BN / 2];
+      fence_proxy_async();  // the staged values, visible to the TMA unit
+      named_bar(1 + cw);
+      if (t == 0) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-      int prev = 0;
-      for (int ks = 0; ks < 3 * nkc; ++ks) {
-        mbar_wait(full0 + 8 * stage, phase);
-        const uint32_t sa = base + stage * L::STAGE_BYTES;
-        fence_acc<BN / 2>(acc);
-        __syncwarp();
-        wg_fence();
+        for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const uint64_t da = sw128_desc(sa + (dy + 4 * cw) * ROW_BYTES);
-          const uint64_t db = sw128_desc(sa + A_BYTES + dy * B_BYTES);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk);
-        }
-        wg_commit();
-        fence_acc<BN / 2>(acc);
-        wg_wait<1>();
-        fence_acc<BN / 2>(acc);
-        if (ks > 0 && t == 0) mbar_arrive(empty0 + 8 * prev);
-        prev = stage;
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wg_wait<0>();
-      fence_acc<BN / 2>(acc);
-      if (t == 0) mbar_arrive(empty0 + 8 * prev);
-
-      // ---- 3. the up tile, A from registers at the tap's shift; every up
-      // value of the tile is written once both consumers pass the barrier
-      consumers_bar();
-      for (int s = 0; s < 3 * NU; ++s) {
-        const int dx = s / NU;
-        const uint32_t utu = base + L::UT_OFF + (s % NU) * UT_CHUNK;
-        uint32_t af[3][BK / 16][4];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          // output row 4cw + warp at tap dy reads up tile row 4cw + warp + dy
-          const int p = (4 * cw + warp + dy) * UT_W + lcol + dx;
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            ldmatrix_x4(af[dy][kk], utu + p * 128 + (((2 * kk + lhalf) ^ (p & 7)) << 4));
-        }
-        mbar_wait(full0 + 8 * stage, phase);
-        const uint32_t sa = base + stage * L::STAGE_BYTES;
-        fence_acc<BN / 2>(acc);
-        __syncwarp();
-        wg_fence();
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const uint64_t db = sw128_desc(sa + A_BYTES + dy * B_BYTES);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<BN>(acc, af[dy][kk], db + 2 * kk);
-        }
-        wg_commit();
-        fence_acc<BN / 2>(acc);
-        wg_wait<0>();
-        fence_acc<BN / 2>(acc);
-        if (t == 0) mbar_arrive(empty0 + 8 * stage);
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-
-      // ---- epilogue: bias, ReLU, bf16, staged, stored
-      const int yb = y0 + 4 * cw;
-#pragma unroll
-      for (int nb = 0; nb < NU; ++nb) {
-        named_bar(1 + cw);
-        stage_block(acc, nb, a.bias + 64 * nb, a.relu, stg, warp, lane);
-        named_bar(1 + cw);
-        store_block(stg, a.out, a.H, a.W, BN, yb, x0, 64 * nb, t);
+          for (int nb = 0; nb < NU; ++nb)
+            tma_store_3d(&map_out, ut_s + (mb * NU + nb) * (64 * 128), 64 * nb, x0 + 8 * mb,
+                         y0 + 8 * cw);
+        bulk_commit();
       }
     }
+    if (t == 0) bulk_wait_read();  // the block's shared memory outlives its stores' reads
   }
 }
 
@@ -959,16 +1052,18 @@ static int launch(const CUtensorMap& m0, const CUtensorMap& m1, const CUtensorMa
 
 template <int BN>
 static int launch_up(const CUtensorMap& ms, const CUtensorMap& md, const CUtensorMap& mu,
-                     const CUtensorMap& mw, const UpArgs& a, cudaStream_t s) {
+                     const CUtensorMap& mw, const CUtensorMap& mo, const UpArgs& a,
+                     cudaStream_t s) {
   constexpr int smem = UpLayout<BN>::SMEM;
   static int grid_max = 0;  // resident blocks on the card, this kernel's own
   if (grid_max == 0) {
-    const int e = query_grid(conv3x3_up_wgmma<BN>, NTHREADS, smem, &grid_max);
+    int e = check_regs(conv3x3_up_wgmma<BN>);
+    if (!e) e = query_grid(conv3x3_up_wgmma<BN>, NTHREADS, smem, &grid_max);
     if (e) return e;
   }
-  const int ntiles = ((a.W + TILE_X - 1) / TILE_X) * ((a.H + TILE_Y - 1) / TILE_Y);
-  conv3x3_up_wgmma<BN><<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, smem, s>>>(ms, md, mu,
-                                                                                     mw, a);
+  const int ntiles = ((a.W + TILE_X - 1) / TILE_X) * ((a.H + UT_Y - 1) / UT_Y);
+  conv3x3_up_wgmma<BN><<<ntiles < grid_max ? ntiles : grid_max, NTHREADS, smem, s>>>(
+      ms, md, mu, mw, mo, a);
   return (int)cudaGetLastError();
 }
 
@@ -1023,10 +1118,11 @@ extern "C" int rtnr_conv3x3_up_wgmma(const void* skip, const void* deep, int Cs,
     return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorInvalidValue;
-  CUtensorMap ms, md, mu, mw;
-  if (!encode_act(enc, &ms, skip, Cs, H, W) ||
-      !encode_act(enc, &md, deep, Cd, H / 2, W / 2, UP_DX, UP_DY) ||
-      !encode_w(enc, &mu, wup_t, Cd, 4 * F, 256) || !encode_w(enc, &mw, wt, 9 * (Cs + F), F, F))
+  CUtensorMap ms, md, mu, mw, mo;
+  if (!encode_act(enc, &ms, skip, Cs, H, W, TILE_X, UT_Y + 2) ||
+      !encode_act(enc, &md, deep, Cd, H / 2, W / 2, DEEP_X, DEEP_Y) ||
+      !encode_w(enc, &mu, wup_t, Cd, 4 * F, 256) || !encode_w(enc, &mw, wt, 9 * (Cs + F), F, F) ||
+      !encode_act(enc, &mo, out, F, H, W, 8, 8))  // the stores: 64 c, 8 x, 8 y
     return (int)cudaErrorInvalidValue;
   UpArgs a;
   a.Cs = Cs;
@@ -1036,9 +1132,9 @@ extern "C" int rtnr_conv3x3_up_wgmma(const void* skip, const void* deep, int Cs,
   a.relu = relu;
   a.bias = (const float*)bias;
   a.ubias = (const float*)ubias;
-  a.out = (bf16*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  return F == 128 ? launch_up<128>(ms, md, mu, mw, a, s) : launch_up<64>(ms, md, mu, mw, a, s);
+  return F == 128 ? launch_up<128>(ms, md, mu, mw, mo, a, s)
+                  : launch_up<64>(ms, md, mu, mw, mo, a, s);
 }
 
 // K4 bf16. x: (H, W, C) bf16; wt: (4F, C) bf16, row (u*4 + dy*2 + dx)*64 + j

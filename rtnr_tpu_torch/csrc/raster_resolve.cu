@@ -1,6 +1,7 @@
-// Raster resolve for Hopper: the v4 resolve (K1 + K2 as one kernel), winners
-// (K1), expansion (K2), float winners (K5), pixel-only winners (K6) and the
-// carrier-stream resolve (K7-K9).
+// Raster resolve for Hopper: the v4 resolve (K1 + K2 as one kernel), the v5
+// resolve (K6 + K2 as one kernel), winners (K1), expansion (K2), float
+// winners (K5), pixel-only winners (K6) and the carrier-stream resolve
+// (K7-K9).
 //
 // Replaces rtnr_tpu/ops/raster_pallas4.py::_winners_kernel4 (K1, wrapper
 // raster_images_pallas4) and ::_expand_kernel4 (K2, wrapper expand_winners).
@@ -38,6 +39,26 @@
 // element and 8 B (packed) or 20 B (sums) written per pixel: 73.6 MB at 5M
 // points / 1080p, ~22 us at 3.35 TB/s. What holds it back is the streaming
 // itself, not the resolve work (sweeps on the card, PERF.md).
+//
+// rtnr_resolve5 (the v5 path, RTNR_RESOLVE=v5: K6 and K2 in one kernel, no
+// winner image): replaces rtnr_tpu/ops/raster_pallas5.py::_winners_kernel5
+// and the expansion after it (raster_images_pallas5). Its stream is sorted by
+// pixel id alone, so depth order inside a segment is arbitrary. It runs
+// rtnr_resolve4's tile skeleton (the windows are valid because pix is
+// sorted) with two passes over each tile's window: pass A streams the window
+// and takes each pixel's minimum depth bits into the tile's depth row with
+// shared-memory atomicMin (positive f32 and +inf order as their int32 bits;
+// a thread merges its run of one pixel first); one barrier after the whole
+// window, since the minimum must be final before any band test; pass B
+// streams the window again (from L2) and adds each element with
+// !(z > zmin + band) (__fadd_rn, reference render.cu:106), merged per run,
+// with shared-memory atomics. The depth row starts at MIN_EMPTY (above +inf,
+// so that a pixel whose minimum is +inf keeps it) and the store turns an
+// untouched pixel's MIN_EMPTY into FLT_MAX. No rank, no scan and no winner
+// image; a segment of any length is exact; its images equal rtnr_resolve4's
+// on the same points. Bound: bytes, as rtnr_resolve4's (12 B read per
+// in-frame element once from device memory, 8 B or 20 B written a pixel:
+// ~22 us packed at 5M points / 1080p); the second pass reads from L2.
 //
 // K1 (rtnr_winners, standalone: its tests and the "previous" pair; K5 and K6
 // share its head-count scan): a segment head is an element with pix < hw whose
@@ -92,10 +113,10 @@
 // GB at 5M points / 1080p, ~45 us at 3.35 TB/s. As in K1, one thread walks
 // a very long segment, which is slow but exact.
 //
-// K6 (rtnr_winners5): replaces rtnr_tpu/ops/raster_pallas5.py::
-// _winners_kernel5 (wrapper raster_images_pallas5, RTNR_RESOLVE=v5). Input:
-// the carrier-free stream sorted by pixel id ONLY, so depth order inside a
-// segment is arbitrary. Each head walks its segment twice: first the min of
+// K6 (rtnr_winners5, standalone since rtnr_resolve5: its tests and the
+// "previous" pair): rtnr_tpu/ops/raster_pallas5.py::_winners_kernel5 as a
+// winner image. Input: the carrier-free stream sorted by pixel id ONLY, so
+// depth order inside a segment is arbitrary. Each head walks its segment twice: first the min of
 // the depth bits (positive f32 or +inf, so the int order is the float
 // order), then the sums of r, g, b and count over the elements with
 // !(z > zmin + band) (the f32 add of reference render.cu:106). It writes
@@ -134,8 +155,9 @@
 #define FLT_MAX_BITS 0x7F7FFFFF
 #define REAL_BIT (1 << 24)
 
-// the tile skeleton of rtnr_resolve4 and rtnr_expand; the sizes come from
-// sweeps on the card (PERF.md): smaller tiles and blocks were faster
+// the tile skeleton of rtnr_resolve4, rtnr_resolve5 and rtnr_expand; the
+// sizes come from sweeps on the card (PERF.md): smaller tiles and blocks were
+// faster
 #define TILE_P 512          // output pixels a tile owns
 #define TILE_THREADS 128
 #define TILES_PER_BLOCK 3   // consecutive tiles a block resolves in turn
@@ -145,6 +167,7 @@ static_assert(TILES_PER_BLOCK + 1 <= TILE_THREADS / 32, "one warp a window bound
 static_assert(TILE_P % 4 == 0, "16-byte stores of whole tiles");
 static_assert(TILE_ELEMS % 4 == 0, "16-byte loads of whole groups");
 #define TILE_SMEM (5 * TILE_P * 4)     // rows r, g, b, count, depth bits
+#define MIN_EMPTY 0x7FFFFFFF           // rtnr_resolve5's depth row before any element: above +inf
 #define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ int head_flag(const int* __restrict__ pix, int i, int hw) {
@@ -403,11 +426,12 @@ __device__ __forceinline__ void tile_windows(const int* __restrict__ a, int n, i
   }
 }
 
-// The tile's five rows at the empty defaults: sums and count 0, depth FLT_MAX.
-__device__ __forceinline__ void tile_init(int* tile) {
+// The tile's five rows at the empty defaults: sums and count 0, depth
+// FLT_MAX (or rtnr_resolve5's MIN_EMPTY, the start of its running minimum).
+__device__ __forceinline__ void tile_init(int* tile, int depth0 = FLT_MAX_BITS) {
   int4* v = reinterpret_cast<int4*>(tile);
   const int4 zero = make_int4(0, 0, 0, 0);
-  const int4 fmax = make_int4(FLT_MAX_BITS, FLT_MAX_BITS, FLT_MAX_BITS, FLT_MAX_BITS);
+  const int4 fmax = make_int4(depth0, depth0, depth0, depth0);
   for (int i = threadIdx.x; i < TILE_SMEM / 16; i += TILE_THREADS) v[i] = i < TILE_P ? zero : fmax;
 }
 
@@ -423,8 +447,9 @@ __device__ __forceinline__ void store4(int* dst, int avail, const int v[4]) {
 
 // The tile's pixels [q0, q1) to the outputs, 16 bytes a store (q0 is a
 // multiple of 4, so is 3 * q0): packed rgb (integer average) and depth, or
-// sums (HW, 3), count and depth.
-template <bool PACKED>
+// sums (HW, 3), count and depth. MIN_ROW: the depth row was a running
+// minimum from MIN_EMPTY, which an empty pixel still holds.
+template <bool PACKED, bool MIN_ROW = false>
 __device__ __forceinline__ void tile_store(const int* tile, int q0, int q1, int* __restrict__ out0,
                                            int* __restrict__ out_cnt, int* __restrict__ out_depth) {
   const int* tr = tile;
@@ -437,7 +462,12 @@ __device__ __forceinline__ void tile_store(const int* tile, int q0, int q1, int*
     const int4 c4 = *reinterpret_cast<const int4*>(tc + g);
     const int4 d4 = *reinterpret_cast<const int4*>(td + g);
     const int cnt[4] = {c4.x, c4.y, c4.z, c4.w};
-    const int dep[4] = {d4.x, d4.y, d4.z, d4.w};
+    int dep[4] = {d4.x, d4.y, d4.z, d4.w};
+    if (MIN_ROW) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (dep[j] == MIN_EMPTY) dep[j] = FLT_MAX_BITS;  // a pixel no element reached
+    }
     store4(out_depth + q0 + g, np - g, dep);
     if (PACKED) {
       const int4 r4 = *reinterpret_cast<const int4*>(tr + g);
@@ -603,6 +633,124 @@ resolve4_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
   }
 }
 
+// One tile of rtnr_resolve5: the window [s, e) of the pixel-only-sorted
+// stream into the tile, pixels [q0, q1). Pass A streams the whole window and
+// takes each pixel's minimum depth bits with shared-memory atomicMin
+// (positive f32 and +inf order as their int32 bits); after one barrier, pass
+// B streams it again and adds each element with !(z > zmin + band) into the
+// tile, a thread's in-band run of one pixel merged first.
+__device__ __forceinline__ void resolve5_window(const int* __restrict__ pix,
+                                                const int* __restrict__ zbits,
+                                                const int* __restrict__ packed, int n, int s,
+                                                int e, int q0, int q1, float band, int vec,
+                                                int* tile) {
+  int* tr = tile;
+  int* tg = tile + TILE_P;
+  int* tb = tile + 2 * TILE_P;
+  int* tc = tile + 3 * TILE_P;
+  int* td = tile + 4 * TILE_P;
+  const int c0 = s & ~3;  // aligned down: the elements before the window have pix < q0
+  int p[TILE_ELEMS], z[TILE_ELEMS], k[TILE_ELEMS];
+  // pass A: the minimum
+  if (c0 < e) load_group(pix, zbits, packed, n, c0 + TILE_ELEMS * threadIdx.x, vec, p, z, k);
+  for (int c = c0; c < e; c += TILE_CHUNK) {
+    const bool more = c + TILE_CHUNK < e;
+    int np[TILE_ELEMS], nz[TILE_ELEMS], nk[TILE_ELEMS];
+    if (more) load_group(pix, zbits, packed, n, c + TILE_CHUNK + TILE_ELEMS * threadIdx.x, vec,
+                         np, nz, nk);
+    int cur = -1, zmin = MIN_EMPTY;
+#pragma unroll
+    for (int j = 0; j < TILE_ELEMS; ++j) {
+      if (p[j] < q0 || p[j] >= q1) continue;
+      if (p[j] != cur) {
+        if (cur >= 0) atomicMin(td + cur - q0, zmin);
+        cur = p[j];
+        zmin = z[j];
+      } else {
+        zmin = min(zmin, z[j]);
+      }
+    }
+    if (cur >= 0) atomicMin(td + cur - q0, zmin);
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < TILE_ELEMS; ++j) {
+        p[j] = np[j];
+        z[j] = nz[j];
+        k[j] = nk[j];
+      }
+    }
+  }
+  __syncthreads();  // every pixel's minimum is final before any band test
+  // pass B: the band sums (the window again, from L2)
+  if (c0 < e) load_group(pix, zbits, packed, n, c0 + TILE_ELEMS * threadIdx.x, vec, p, z, k);
+  for (int c = c0; c < e; c += TILE_CHUNK) {
+    const bool more = c + TILE_CHUNK < e;
+    int np[TILE_ELEMS], nz[TILE_ELEMS], nk[TILE_ELEMS];
+    if (more) load_group(pix, zbits, packed, n, c + TILE_CHUNK + TILE_ELEMS * threadIdx.x, vec,
+                         np, nz, nk);
+    int cur = -1, sr = 0, sg = 0, sb = 0, sc = 0;
+    float lim = 0.0f;
+#pragma unroll
+    for (int j = 0; j < TILE_ELEMS; ++j) {
+      if (p[j] < q0 || p[j] >= q1) continue;
+      if (p[j] != cur) {
+        if (sc > 0) {
+          atomicAdd(tr + cur - q0, sr);
+          atomicAdd(tg + cur - q0, sg);
+          atomicAdd(tb + cur - q0, sb);
+          atomicAdd(tc + cur - q0, sc);
+        }
+        cur = p[j];
+        lim = __fadd_rn(__int_as_float(td[cur - q0]), band);
+        sr = sg = sb = sc = 0;
+      }
+      if (!(__int_as_float(z[j]) > lim)) {
+        sr += k[j] & 255;
+        sg += (k[j] >> 8) & 255;
+        sb += (k[j] >> 16) & 255;
+        sc += 1;
+      }
+    }
+    if (sc > 0) {
+      atomicAdd(tr + cur - q0, sr);
+      atomicAdd(tg + cur - q0, sg);
+      atomicAdd(tb + cur - q0, sb);
+      atomicAdd(tc + cur - q0, sc);
+    }
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < TILE_ELEMS; ++j) {
+        p[j] = np[j];
+        z[j] = nz[j];
+        k[j] = nk[j];
+      }
+    }
+  }
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(TILE_THREADS)
+resolve5_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
+              const int* __restrict__ packed, int n, int hw, float band, int vec,
+              int* __restrict__ out0, int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+  __shared__ int4 tile4[TILE_SMEM / 16];
+  int* tile = reinterpret_cast<int*>(tile4);
+  __shared__ int win[TILES_PER_BLOCK + 1];
+  const int tile0 = blockIdx.x * TILES_PER_BLOCK;
+  tile_windows(pix, n, tile0, hw, win);
+  for (int j = 0; j < TILES_PER_BLOCK; ++j) {
+    const int q0 = (tile0 + j) * TILE_P;
+    if (q0 >= hw) break;
+    const int q1 = min(q0 + TILE_P, hw);
+    tile_init(tile, MIN_EMPTY);
+    __syncthreads();
+    resolve5_window(pix, zbits, packed, n, win[j], win[j + 1], q0, q1, band, vec, tile);
+    __syncthreads();
+    tile_store<PACKED, true>(tile, q0, q1, out0, out_cnt, out_depth);
+    __syncthreads();  // the next tile's defaults overwrite this one
+  }
+}
+
 template <bool PACKED>
 __global__ void __launch_bounds__(TILE_THREADS)
 expand_tile(const int* __restrict__ wimg, int cap, const int* __restrict__ total_p, int hw,
@@ -719,6 +867,24 @@ extern "C" int rtnr_resolve4(const void* pix, const void* zbits, const void* pac
         (int*)out_cnt, (int*)out_depth);
   } else {
     resolve4_tile<false><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
+        (int*)out_cnt, (int*)out_depth);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnr_resolve5(const void* pix, const void* zbits, const void* packed, int n,
+                             int hw, float band, int vec, int packed_out, void* out0,
+                             void* out_cnt, void* out_depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = tile_blocks(hw);
+  if (blocks == 0) return 0;
+  if (packed_out) {
+    resolve5_tile<true><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
+        (int*)out_cnt, (int*)out_depth);
+  } else {
+    resolve5_tile<false><<<blocks, TILE_THREADS, 0, s>>>(
         (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
         (int*)out_cnt, (int*)out_depth);
   }

@@ -70,9 +70,6 @@ __device__ __forceinline__ void named_bar(int id) {
   asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 
-// both consumer warpgroups (256 threads)
-__device__ __forceinline__ void consumers_bar() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
-
 // wgmma shared-memory descriptor of a K-major tile with 128-byte rows and
 // the 128B swizzle: start address >> 4, LBO 1 (unused for this layout), SBO
 // 1024 bytes (8 rows), layout type 1 (SWIZZLE_128B). Advancing K by 32 bytes

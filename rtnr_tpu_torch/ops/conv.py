@@ -48,8 +48,9 @@ shapes (narrow nets, toy widths) stay on ``conv.cu``'s GEMM.
   ``[skip, convt2x2(deep)]``, the up values rounded to bf16 once and the
   up pixels past the image the conv's zero padding. bf16 only, no pool, no
   head. On the card ``takes_up`` shapes (C_up == F in {64, 128}) run
-  ``conv_sm90.cu``'s fused kernel; any other shape runs the card's K4 then
-  K3. ``fuse_up_ok`` is the JAX package's rule of which decoder levels fuse.
+  ``conv_sm90.cu``'s fused kernel, whose output equals the card's K4 then
+  K3 bit for bit; any other shape runs that pair. ``fuse_up_ok`` is the JAX
+  package's rule of which decoder levels fuse.
 
 Modes, as ``conv3x3_phase(quant=, in_scales=, out_scale=)`` and
 ``convt2x2_phase`` (numerics of ``conv_phase.py:846-943, 1259-1290``):

@@ -11,7 +11,8 @@ it to XLA. ``rasterize`` / ``rasterize_packed`` pick the resolve after it
 from ``RTNR_RESOLVE``, read at each call, with the JAX package's values:
 ``v4`` (default) the carrier-free (pixel, depth) stream into the v4
 resolve, K1 and K2 as one kernel (``ops/raster_resolve4.py``); ``v5`` the
-pixel-only stream into K6 + K2 (``ops/raster_resolve5.py``); ``v3`` and any
+pixel-only stream into the v5 resolve, K6 and K2 as one kernel
+(``ops/raster_resolve5.py``); ``v3`` and any
 other value the carrier stream into the carrier kernel
 (``ops/raster_resolve_carriers.py``, JAX's v3 and v2). Every branch gives
 the same bits, so the port applies the choice at every size (JAX only on a
@@ -382,8 +383,7 @@ def rasterize_packed(
     depth_band: float = 0.02,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """As ``rasterize`` with rgb packed r|g<<8|b<<16 as (H, W) int32: the
-    integer-average resolve runs inside the resolve kernel on v4 and inside
-    the expansion kernel (K2) on v5."""
+    integer-average resolve runs inside the resolve kernel on v4 and v5."""
     packed, depth = _raster_sums(points, colors, cam_proj, width=width, height=height,
                                  valid=valid, depth_band=depth_band, packed_out=True)
     return packed.reshape(height, width), depth.reshape(height, width)

@@ -54,17 +54,18 @@ _I = ctypes.c_int
 
 def _bind(lib: ctypes.CDLL) -> None:
     """Argument types of every entry of ``csrc/raster_resolve.cu`` (the v4
-    resolve, K6 and the carrier kernel included: ``_build.load`` binds a
-    library once)."""
+    and v5 resolves, K6 and the carrier kernel included: ``_build.load``
+    binds a library once)."""
     for fn in (lib.rtnr_winners, lib.rtnr_winners_f32, lib.rtnr_winners5):
         fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P, _P]
         fn.restype = _I
     for fn in (lib.rtnr_expand, lib.rtnr_expand_search):
         fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.rtnr_resolve_carriers.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
-    lib.rtnr_resolve4.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
+    for fn in (lib.rtnr_resolve4, lib.rtnr_resolve5):
+        fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
     for fn in (lib.rtnr_expand, lib.rtnr_expand_search, lib.rtnr_resolve_carriers,
-               lib.rtnr_resolve4):
+               lib.rtnr_resolve4, lib.rtnr_resolve5):
         fn.restype = _I
 
 
@@ -325,18 +326,26 @@ def raster_images_v4(sp: SortedPoints, hw: int, depth_band: float,
         return raster_images_v4_plain(sp, hw, depth_band, packed_out)
     if sp.pix.device.type != "cuda":
         raise ValueError(f"unsupported device {sp.pix.device}")
+    out = _launch_tile_resolve("rtnr_resolve4", sp, hw, depth_band, packed_out)
+    raster_images_v4.launches += 1
+    return out
+
+
+def _launch_tile_resolve(fn: str, sp: SortedPoints, hw: int, depth_band: float,
+                         packed_out: bool):
+    """Run a tile resolve's C entry ``fn`` (``rtnr_resolve4`` or
+    ``rtnr_resolve5``) on a CUDA stream -> the dense images."""
     dev = sp.pix.device
     out0, count, depth = _dense_outputs(dev, hw, packed_out)
     # 16-byte stream loads where every pointer allows them
     vec = int(all(t.data_ptr() % 16 == 0 for t in sp))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().rtnr_resolve4(
+    rc = getattr(_lib(), fn)(
         sp.pix.data_ptr(), sp.zbits.data_ptr(), sp.packed.data_ptr(), sp.pix.numel(), hw,
         float(depth_band), vec, int(packed_out), out0.data_ptr(),
         None if count is None else count.data_ptr(), depth.data_ptr(), stream,
     )
-    _build.check(rc, "rtnr_resolve4")
-    raster_images_v4.launches += 1
+    _build.check(rc, fn)
     return _expand_images(out0, count, depth, packed_out, False)
 
 

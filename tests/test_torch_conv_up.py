@@ -216,3 +216,120 @@ def test_static_and_calibration_never_fuse(monkeypatch, recorder):
     recorder.clear()
     net(x, act_scales=scales)
     assert recorder and not any(up for _, up in recorder)
+
+
+# ---- a numpy mirror of conv_sm90.cu's fused tile (conv3x3_up_wgmma) ----
+
+def _src_define(name):
+    from rtnr_tpu_torch import _build
+
+    src = (_build.SRC_DIR / "conv_sm90.cu").read_text()
+    return int(src.split(f"#define {name} ")[1].split()[0])
+
+
+def _grid_values(shape, seed, scale):
+    """Small integers times a power of two: every f32 sum below is exact,
+    so the mirror's and the twin's different orders give the same bits."""
+    return (np.random.default_rng(seed).integers(-2, 3, shape) * scale).astype(np.float32)
+
+
+def mirror_up_tile(deep, uw, H, W, x0, y0, cw):
+    """Consumer ``cw``'s up tile of the tile at (x0, y0): the up GEMM of the
+    6 x 10 deep pixels at box rows 4cw .. 4cw+5 (60 of the m64) against the
+    256 columns of ``uw.wmat_t`` a 64-channel chunk u (subpixel, channel),
+    then bias, bf16, zeros outside the image, each value placed at (ur, uc)
+    as the kernel's epilogue places it. Returns the (UT_H, UT_W, F) tile and
+    how often each pixel of it was written."""
+    ty, tx, dx_, uh, uw_ = (_src_define(k) for k in ("UT_Y", "TILE_X", "DEEP_X", "UT_H", "UT_W"))
+    assert (ty, tx, dx_, uh, uw_) == (16, 16, 10, 10, 18)
+    hh, wh, cd = deep.shape
+    F = uw.f
+    wt = uw.wmat_t.float().numpy()
+    ut = np.full((uh, uw_, F), np.nan, np.float32)
+    writes = np.zeros((uh, uw_), np.int64)
+    for m in range(64):
+        dr, dc = m // dx_, m % dx_
+        gy, gx = y0 // 2 - 1 + 4 * cw + dr, x0 // 2 - 1 + dc  # the TMA box's deep pixel
+        row = deep[gy, gx] if 0 <= gy < hh and 0 <= gx < wh else np.zeros(cd, np.float32)
+        if m >= 6 * dx_:
+            continue
+        n = np.arange(256)  # the accumulator's columns: subpixel (sy, sx), channel j
+        sy, sx, j = n // 128, (n // 64) & 1, n % 64
+        ur, uc = 2 * dr + sy - 1, 2 * dc + sx - 1
+        keep = (ur >= 0) & (ur < uh) & (uc >= 0) & (uc < uw_)
+        uy, ux = y0 + 8 * cw - 1 + ur, x0 - 1 + uc
+        inside = (uy >= 0) & (uy < H) & (ux >= 0) & (ux < W)
+        for u in range(F // 64):
+            acc = wt[256 * u:256 * u + 256] @ row  # the m64n256 row m, f32 (exact here)
+            v = np.where(inside, acc + uw.bias.numpy()[64 * u + j], 0.0).astype(np.float32)
+            v = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+            ut[ur[keep], uc[keep], 64 * u + j[keep]] = v[keep]
+            np.add.at(writes, (ur[keep & (j == 0)], uc[keep & (j == 0)]), 1)
+    return ut, writes // (F // 64)
+
+
+def a_rows(start, sbo_rows):
+    """The 64 rows an m64 wgmma operand reads from a descriptor that starts
+    at row ``start`` (of 128 bytes) with 8-row groups ``sbo_rows`` apart:
+    row i is start + (i // 8) * sbo_rows + i % 8."""
+    i = np.arange(64)
+    return start + (i // 8) * sbo_rows + i % 8
+
+
+@pytest.mark.parametrize("hw,cs,cd,f", [((14, 18), 64, 128, 64), ((14, 18), 128, 256, 128),
+                                        ((34, 50), 64, 128, 64), ((34, 50), 128, 256, 128)])
+def test_mirror_of_the_fused_tile(hw, cs, cd, f):
+    """At both fused levels' channel counts on ragged images: every up pixel
+    of each consumer's tile is written once and holds the twin's up value
+    (the conv's zero padding outside the image); each stage's A operand,
+    addressed as the kernel's descriptors address it (m64 block mb = the
+    8 x 8 pixels at rows 8cw.., columns 8mb..; the halo box at 16 pixels a
+    row, the up tile at 18, started at the tap's shift), reads the pixel the
+    conv needs; the tile's conv walked in the kernel's order, stored as its
+    8 x 8 TMA boxes, equals the fused twin."""
+    H, W = hw
+    skip = _grid_values((H, W, cs), 60, 0.25)
+    deep = _grid_values((H // 2, W // 2, cd), 61, 0.25)
+    kt, bt = _grid_values((2, 2, cd, f), 62, 0.125), _grid_values((f,), 63, 0.5)
+    kernel, b = _grid_values((3, 3, cs + f, f), 64, 0.125), _grid_values((f,), 65, 0.5)
+    uw, w = cv.prepare_convt2x2(kt, bt), cv.prepare_conv3x3(kernel, b)
+    up = cv.convt2x2_prepared_plain(_bf16(deep)[None], uw)[0].float().numpy()
+    up_pad = np.pad(up, ((1, 17), (1, 17), (0, 0)))  # zeros past the image
+    skip_pad = np.pad(skip, ((1, 17), (1, 17), (0, 0)))  # the TMA box's zeros
+    (want,) = cv.conv3x3_prepared_plain([_bf16(skip)[None], _bf16(deep)[None]], w, relu=True,
+                                        up=uw)
+    wt = w.wmat_t.float().numpy()  # (F, 9 (cs + F)): tap (dy, dx) at (3dy + dx) * ct
+    ct = cs + f
+    tx, ut_w = _src_define("TILE_X"), _src_define("UT_W")
+    got = np.zeros((H, W, f), np.float32)
+    for y0 in range(0, H, 16):
+        for x0 in range(0, W, 16):
+            for cw in range(2):
+                ut, writes = mirror_up_tile(deep, uw, H, W, x0, y0, cw)
+                assert (writes == 1).all()
+                # the up tile against the twin's up tensor around the band
+                np.testing.assert_array_equal(ut, up_pad[y0 + 8 * cw:y0 + 8 * cw + 10,
+                                                         x0:x0 + 18])
+                ut_rows = ut.reshape(-1, f)
+                acc = np.zeros((2, 64, f), np.float32)
+                for dx in range(3):
+                    # the halo box of this dx: image rows y0-1 .., columns x0+dx-1 ..
+                    box = skip_pad[y0:y0 + 18, x0 + dx:x0 + dx + tx].reshape(-1, cs)
+                    for dy in range(3):
+                        k = (3 * dy + dx) * ct
+                        for mb in range(2):
+                            rows = a_rows((8 * cw + dy) * tx + 8 * mb, tx)
+                            acc[mb] += box[rows] @ wt[:, k:k + cs].T
+                    for dy in range(3):
+                        k = (3 * dy + dx) * ct + cs
+                        for mb in range(2):
+                            rows = a_rows(dy * ut_w + 8 * mb + dx, ut_w)
+                            acc[mb] += ut_rows[rows] @ wt[:, k:k + f].T
+                for mb in range(2):
+                    # the TMA store of block mb: rows y0 + 8cw .., columns x0 + 8mb ..
+                    out = np.maximum(acc[mb] + w.bias.numpy(), 0).reshape(8, 8, f)
+                    ya, xa = y0 + 8 * cw, x0 + 8 * mb
+                    yb, xb = min(ya + 8, H), min(xa + 8, W)
+                    if ya < H and xa < W:
+                        got[ya:yb, xa:xb] = out[:yb - ya, :xb - xa]
+    assert torch.equal(torch.from_numpy(got).to(torch.bfloat16), want[0])

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (the v4 resolve, K1-K6, the carrier kernel for K7-K9, K10 on K3,
+"""The port's CUDA kernels (the v4 and v5 resolves, K1-K6, the carrier kernel for K7-K9, K10 on K3,
 K3's fused-ConvTranspose mode, the input conv on conv_in_sm90.cu, and the int8
 modes of K3/K4 on conv.cu and on
 the s8 wgmma kernels of conv_i8_sm90.cu) against their
@@ -400,6 +400,11 @@ def test_winners5_and_carrier_kernels_match_twins(cuda, n, one_pixel):
     k = int(total_p[0])
     assert int(total[0]) == k and torch.equal(wimg[:, :k], wimg_p[:, :k])
     assert _same_bits(rr.expand_winners(wimg, total, hw), ref)
+    counts = lambda: (r5.raster_images_v5.launches, r5.winners5.launches,
+                      rr.expand_winners.launches, rr.raster_images_v4.launches)
+    before = counts()
+    assert _same_bits(r5.raster_images_v5(sp5, hw, 0.02), ref)
+    assert counts() == (before[0] + 1,) + before[1:]
     if one_pixel:
         assert int(ref[1].max()) >= 1000
     spc = tr.project_and_sort(pts, cols, M, carriers=True, **kw)
@@ -411,6 +416,57 @@ def test_winners5_and_carrier_kernels_match_twins(cuda, n, one_pixel):
     rgb_s, d_s = tr.rasterize_scatter(pts, cols, M, **kw)
     rgb, d = tr.rasterize(pts, cols, M, **kw)
     assert torch.equal(rgb_s, rgb) and _same_bits((d_s,), (d,))
+
+
+def _stream5(cuda, pix, z, cols, hw):
+    """A pixel-only-sorted stream on the card (culled points: sentinel hw,
+    +inf depth), the given order kept inside a pixel."""
+    pix = np.asarray(pix, np.int64)
+    ok = pix < hw
+    zb = np.where(ok, np.asarray(z, np.float32), np.float32(np.inf)).astype(np.float32)
+    cols = np.asarray(cols, np.int64)
+    packed = cols[:, 0] | (cols[:, 1] << 8) | (cols[:, 2] << 16)
+    order = np.argsort(np.where(ok, pix, hw), kind="stable")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a[order]).astype(np.int32)).to(cuda)
+    return tr.SortedPoints(pix=t(np.where(ok, pix, hw)), zbits=t(zb.view(np.int32)),
+                           packed=t(packed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_pixel_5000", "min_last", "empty", "all_culled",
+                                  "ragged"])
+def test_resolve5_matches_twin_and_v4_on_edge_streams(cuda, case):
+    """rtnr_resolve5 bit for bit against its twin and against rtnr_resolve4
+    on the same points in (pixel, depth) order, both forms: a 5,000-point
+    pixel crossing many chunks, a 5,000-point segment whose minimum is its
+    last element, an empty frame, every point culled, a ragged last tile;
+    also from a stream offset by one element (no 16-byte loads)."""
+    rng = np.random.default_rng(7)
+    hw, n = 1200, 5000
+    if case == "one_pixel_5000":
+        pix, z = np.r_[np.full(n, 513), rng.integers(0, hw, 700)], rng.uniform(2.0, 2.3, n + 700)
+    elif case == "min_last":
+        pix, z = np.full(n, 100), np.r_[rng.uniform(2.015, 2.3, n - 1), 2.0]
+    elif case == "empty":
+        pix, z = np.zeros(0), np.zeros(0)
+    elif case == "all_culled":
+        pix, z = np.full(700, hw), rng.uniform(2.0, 3.0, 700)
+    else:
+        hw = 3 * 512 + 517
+        pix, z = rng.integers(0, hw + 40, 9000), rng.uniform(2.0, 2.05, 9000)
+    sp = _stream5(cuda, pix, z, rng.integers(0, 256, (len(pix), 3)), hw)
+    zb = sp.zbits.cpu().numpy()
+    order = torch.from_numpy(np.lexsort((zb, sp.pix.cpu().numpy()))).to(cuda)
+    sp4 = tr.SortedPoints(*(t[order].contiguous() for t in sp))
+    for packed_out in (False, True):
+        before = r5.raster_images_v5.launches
+        got = r5.raster_images_v5(sp, hw, 0.02, packed_out=packed_out)
+        assert r5.raster_images_v5.launches == before + 1
+        assert _same_bits(got, r5.raster_images_v5_plain(sp, hw, 0.02, packed_out))
+        assert _same_bits(got, rr.raster_images_v4(sp4, hw, 0.02, packed_out=packed_out))
+        if len(pix) > 1:
+            off = tr.SortedPoints(*(torch.cat([t[:1], t])[1:] for t in sp))
+            assert _same_bits(r5.raster_images_v5(off, hw, 0.02, packed_out=packed_out), got)
 
 
 @pytest.mark.cuda
@@ -436,8 +492,8 @@ def test_conv3x3_direct_matches_twin(cuda, n, cs, bias):
 def test_renderer_frames_equal_under_each_resolve(cuda, monkeypatch):
     """A Renderer frame under RTNR_RESOLVE = v5, v3 and v2 equals the v4
     frame bit for bit, through each resolver's own kernel (v4 launches
-    rtnr_resolve4 once and neither K1 nor K2; v5 launches K6 and never K1
-    or rtnr_resolve4)."""
+    rtnr_resolve4 once and neither K1 nor K2; v5 launches rtnr_resolve5
+    once and no K1, K6, K2 or rtnr_resolve4)."""
     from rtnr_tpu_torch.config import RenderConfig
     from rtnr_tpu_torch.models.convert import init_unet_numpy
     from rtnr_tpu_torch.pipeline import Renderer
@@ -454,13 +510,15 @@ def test_renderer_frames_equal_under_each_resolve(cuda, monkeypatch):
     k12, v4 = pair(), rr.raster_images_v4.launches
     ref = r.compute_full(cam, E)
     assert pair() == k12 and rr.raster_images_v4.launches == v4 + 1
-    for mode, own in (("v5", r5.winners5), ("v3", rc.resolve_carriers),
+    for mode, own in (("v5", r5.raster_images_v5), ("v3", rc.resolve_carriers),
                       ("v2", rc.resolve_carriers)):
         monkeypatch.setenv("RTNR_RESOLVE", mode)
         k1, v4, mine = rr.winners.launches, rr.raster_images_v4.launches, own.launches
+        k6, k2 = r5.winners5.launches, rr.expand_winners.launches
         out = r.compute_full(cam, E)
         assert rr.winners.launches == k1 and own.launches == mine + 1
         assert rr.raster_images_v4.launches == v4
+        assert (r5.winners5.launches, rr.expand_winners.launches) == (k6, k2)
         for key in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
             assert np.array_equal(out[key], ref[key]), (mode, key)
 
@@ -566,7 +624,8 @@ def _up_inputs(cuda, h, w, cs, cd, f, seed=40):
 def test_conv3x3_up_matches_f32_twin(cuda, hw, cs, cd, f):
     """The fused-ConvTranspose kernel at ragged H and W (2*7 x 2*9, 2*17 x
     2*25): within 2 bf16 ulp of the f32 twin (the up values rounded to bf16
-    once, as the contract has it), two runs equal bit for bit, one launch
+    once, as the contract has it), bit-equal to the card's K4 + K3 pair (its
+    summation order is the pair's), two runs equal bit for bit, one launch
     counted on its own counter and none on K3's or K4's."""
     h, w = hw
     skip, deep, wts, up = _up_inputs(cuda, h, w, cs, cd, f)
@@ -583,6 +642,8 @@ def test_conv3x3_up_matches_f32_twin(cuda, hw, cs, cd, f):
     assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
     (y2,) = cv.conv3x3_prepared([skip, deep], wts, relu=True, up=up)
     assert torch.equal(y2, y)
+    (pair,) = cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], wts, relu=True)
+    assert torch.equal(y, pair)
 
 
 @pytest.mark.cuda
