@@ -29,10 +29,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (one launch of its counter, two runs equal), timed in turns against
    ``conv.cu``'s gemm<1,0> and ``F.conv_transpose2d``;
 4. the differentiable raster at the same shape: K5 (``winners_f32``) and
-   the K2 ``float_sums`` expansion bit-exact against their twins; its count,
-   depth and sums equal to the serving raster's v4 integer images; K5's
-   time beside ``torch.segment_reduce`` over the same segments; forward and
-   backward ms;
+   the K2 ``float_sums`` expansion bit-exact against their twins; the
+   differentiable forward's resolve as one kernel (``rtnr_resolve_diff``, K5
+   and K2 ``float_sums`` in one tile kernel, one launch a call and no K5 or
+   K2) bit-exact against that old pair on the scene's integer colours and
+   on colours with seeded f32 noise (logging how many sums are not
+   integers), against its twin on integer colours, between two launches,
+   and on a 20,000-point one-pixel stream and an all-culled stream; its
+   count, depth and sums equal to the serving raster's v4 integer images;
+   its time through its C entry in turns against the pair's C entries (and
+   required to be faster), K5 and K2 ``float_sums`` each through its C
+   entry, beside ``torch.segment_reduce`` (+ ``index_copy_``) over the same
+   segments; forward and backward ms;
 5. the alternative resolvers at the same shape: the v5 resolve as one
    kernel (``rtnr_resolve5``, K6 and K2 in one tile kernel) in both forms
    bit-exact against its twin and the v4 resolve's images, two runs equal,
@@ -101,10 +109,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
 8. the training paths at full width (bf16 U-Net, batch 1, targets the
    scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
    ``make_train_step`` (``rtnr_resolve4`` must launch, K1 and K2 must not) and
-   of ``make_scene_train_step``
-   (K5, K2 must launch), with ms/step, peak device memory per step, finite
-   losses, moved batch statistics, colours and camera matrices, non-zero
-   pose and colour gradients, and a profiler trace of one scene step; then a
+   of ``make_scene_train_step`` (``rtnr_resolve_diff`` must launch, K5 and K2
+   must not), with ms/step, peak device memory per step, finite losses,
+   moved batch statistics, colours and camera matrices, non-zero pose and
+   colour gradients, and a profiler trace of one scene step; then a
    small scene step on the card against the CPU;
 9. the host layer, the render CLI and the bench line: the 5M-point scene
    written with ``data.ply.write_ply``, a 3-pose TUM trajectory around the
@@ -119,11 +127,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
    ``Renderer.compute_full`` at the pose) and its fps; then
    ``bench.run`` at 1920x1080 (5 frames, 1 trial, static int8 with bf16
    beside it; every ``bench.py`` field) and at 960x720 (falls back to bf16);
+   then the training CLI, the JAX package's ``scripts/train_demo_r5.py``: its
+   400,000-point four-wall scene (seed 7) as PLY, a 16-pose TUM trajectory
+   and a 640x352 calibration; ``python -m rtnr_tpu_torch.apps.train_unet
+   --self-supervised --steps 150 --lr 2e-4`` in a subprocess (the loss must
+   fall), the checkpoint reloaded and pose 8 rendered trained and untrained
+   (the trained L1 to the target must be the lower), ms/step and steps/s;
 10. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times (the input conv
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
    previous gemm<0,0> time; ``resolve4`` with the old pair's time,
-   ``resolve5`` with K6 + K2's, ``expand`` with the search kernel's,
+   ``resolve5`` with K6 + K2's, ``resolve_diff`` with K5 + K2 ``float_sums``'s,
+   ``expand`` also with its ``float_sums`` time on K5's rows, ``expand`` with the search kernel's,
    ``conv3x3_up`` with the pair's);
 11. the last line ``{"ok": true, "device": {...}}``.
 
@@ -996,11 +1011,53 @@ def projection_split(renderer, M, band):
     return out
 
 
+def diff_entries(sd, hw, band):
+    """rtnr_resolve_diff and the pair it replaced (rtnr_winners_f32's three
+    launches into its own rows, then rtnr_expand in the sums form, the
+    float_sums expansion) through their C entries, arguments and outputs
+    bound once: name -> a call (``resolve_diff``, ``winners_f32``,
+    ``expand_f32``, ``pair``)."""
+    import torch
+    from rtnr_tpu_torch import _build
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+
+    lib = rr._lib()
+    dev = sd.pix.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    sums, cnt, depth = i32(hw, 3), i32(hw), i32(hw)
+    n = sd.pix.numel()
+    stream_args = (sd.pix.data_ptr(), sd.zbits.data_ptr(), sd.rgb.data_ptr(), n, hw, band)
+    scratch, wimg, total = i32(2 * max(-(-n // 1024), 1)), i32(6, max(min(n, hw), 1)), i32(1)
+    outs = (sums.data_ptr(), cnt.data_ptr(), depth.data_ptr(), stream)
+    calls = {
+        "resolve_diff": (lib.rtnr_resolve_diff, stream_args + (1,) + outs),
+        "winners_f32": (lib.rtnr_winners_f32, stream_args + (scratch.data_ptr(), wimg.data_ptr(),
+                                                             wimg.shape[1], total.data_ptr(),
+                                                             stream)),
+        "expand_f32": (lib.rtnr_expand, (wimg.data_ptr(), wimg.shape[1], total.data_ptr(), hw, 0)
+                       + outs),
+    }
+    if sd.pix.data_ptr() % 16:
+        fail("the diff stream's pixel ids are not 16-byte aligned")
+    for name, (fn, args) in calls.items():
+        _build.check(fn(*args), name)
+    k = {name: (lambda fn=fn, args=args: fn(*args)) for name, (fn, args) in calls.items()}
+    k["pair"] = lambda: (k["winners_f32"](), k["expand_f32"]())
+    return k
+
+
 def check_diff_raster(points, colors, valid, M, band, rows):
     """The differentiable forward at the frame's shape: K5 + K2 float_sums
-    against their twins bit for bit; its count, depth and sums against the
-    serving raster's K1/K2 integer images exactly (the colours are integers,
-    so every sum is exact in f32); forward and backward ms."""
+    against their twins bit for bit; rtnr_resolve_diff (one launch, no K5 or
+    K2) bit for bit against that old pair on the scene's integer colours and
+    on colours with seeded f32 noise, against its twin on integer colours,
+    between two launches, and on a 20,000-point one-pixel stream and an
+    all-culled stream against its twin; its count, depth and sums against
+    the serving raster's v4 integer images exactly (the colours are
+    integers, so every sum is exact in f32); its time through its C entry in
+    turns against the pair's C entries (it must be faster); forward and
+    backward ms."""
     import torch
     from rtnr_tpu_torch.ops import raster_diff as rd
     from rtnr_tpu_torch.ops import raster_resolve4 as rr
@@ -1013,25 +1070,79 @@ def check_diff_raster(points, colors, valid, M, band, rows):
     t = int(total[0])
     if t != int(total_p[0]) or not torch.equal(wimg[:, :t], wimg_p[:, :t]):
         fail("K5 winners_f32 differs from its twin")
-    sums_f, cnt_f, depth_f = rr.expand_winners(wimg, total, hw, float_sums=True)
-    for g, r in zip((sums_f, cnt_f, depth_f),
-                    rr.expand_plain(wimg, total, hw, False, float_sums=True)):
-        if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
-            fail("K2 float_sums differs from its twin")
+    pair = rr.expand_winners(wimg, total, hw, float_sums=True)
+    if not same_bits(pair, rr.expand_plain(wimg, total, hw, False, float_sums=True)):
+        fail("K2 float_sums differs from its twin")
+    del wimg_p, total_p
+
+    counts = lambda: (rr.raster_images_diff.launches, rr.winners_f32.launches,
+                      rr.expand_winners.launches)
+    before = counts()
+    got = rr.raster_images_diff(sd, hw, band)
+    torch.cuda.synchronize()
+    if counts() != (before[0] + 1,) + before[1:]:
+        fail("raster_images_diff did not launch rtnr_resolve_diff alone, once")
+    if not same_bits(got, pair):
+        fail("rtnr_resolve_diff differs from K5 + K2 float_sums (integer colours)")
+    if not same_bits(got, rr.raster_images_diff_plain(sd, hw, band)):
+        fail("rtnr_resolve_diff differs from its twin (integer colours)")
+    if not same_bits(got, rr.raster_images_diff(sd, hw, band)):
+        fail("rtnr_resolve_diff differs between two launches")
+    sums_f, cnt_f, depth_f = got
     sp = project_and_sort(points, colors, M, width=WIDTH, height=HEIGHT, valid=valid)
     sums_i, cnt_i, depth_i = rr.raster_images_v4(sp, hw, band)
     if not (torch.equal(cnt_f, cnt_i.float()) and torch.equal(sums_f, sums_i.float())
             and torch.equal(depth_f.view(torch.int32), depth_i.view(torch.int32))):
         fail("diff raster count/depth/sums differ from the serving raster's")
     n = sd.pix.numel()
-    log(f"K5+K2 float_sums bit-exact vs twins; diff raster count, depth and sums equal the "
-        f"serving K1/K2 images exactly: {n} points, {t} winners, max count "
-        f"{int(cnt_i.max())}, max sum {int(sums_i.max())}")
-    del sp, sums_i, cnt_i, depth_i, wimg_p
+    n_in = int((sd.pix < hw).sum())
+    log(f"K5 + K2 float_sums bit-exact vs twins; rtnr_resolve_diff (one launch, no K5 or K2) "
+        f"bit-exact vs K5 + K2, vs its twin and between two launches; its count, depth and sums "
+        f"equal the serving v4 images exactly: {n} points ({n_in} in frame), {t} winners, max "
+        f"count {int(cnt_i.max())}, max sum {int(sums_i.max())}")
+    del sp, sums_i, cnt_i, depth_i
 
-    k5_ms = time_ms(lambda: rr.winners_f32(sd, hw, band))
+    # colours off the integers, as Adam leaves them: seeded noise added in f32
+    g = torch.Generator(device=M.device).manual_seed(SEED)
+    sdf = sd._replace(rgb=(sd.rgb + (torch.rand(sd.rgb.shape, generator=g, device=M.device)
+                                     - 0.5)).contiguous())
+    pair_f = rr.expand_winners(*rr.winners_f32(sdf, hw, band), hw, float_sums=True)
+    got_f = rr.raster_images_diff(sdf, hw, band)
+    non_int = int((pair_f[0] != torch.round(pair_f[0])).sum())
+    if not same_bits(got_f, pair_f) or not same_bits(got_f, rr.raster_images_diff(sdf, hw, band)):
+        fail("rtnr_resolve_diff differs from K5 + K2 float_sums or between two launches "
+             "(non-integer colours)")
+    if non_int == 0:
+        fail("the noisy colours gave no non-integer sum")
+    log(f"rtnr_resolve_diff bit-exact vs K5 + K2 float_sums on noisy f32 colours, two launches "
+        f"equal: {non_int} of {3 * hw} sums are not integers")
+    del pair_f, got_f, sdf
+
+    pts1, cols1, M1 = one_pixel_cloud(M.device)
+    one, _ = project_and_sort_diff(pts1, cols1, M1, width=WIDTH, height=HEIGHT)
+    inf_bits = torch.full_like(sd.zbits, 0x7F800000)
+    edge = {"one_pixel": one, "all_culled": sd._replace(pix=torch.full_like(sd.pix, hw),
+                                                        zbits=inf_bits)}
+    for name, s2 in edge.items():
+        got2 = rr.raster_images_diff(s2, hw, band)
+        if not (same_bits(got2, rr.raster_images_diff_plain(s2, hw, band)) and same_bits(
+                got2, rr.expand_winners(*rr.winners_f32(s2, hw, band), hw, float_sums=True))):
+            fail(f"rtnr_resolve_diff on the {name} stream differs from its twin or K5 + K2")
+        log(f"rtnr_resolve_diff on the {name} stream ({s2.pix.numel()} elements, max count "
+            f"{int(got2[1].max())}): bit-exact vs its twin and K5 + K2")
+    del edge, one, got2
+
+    # times through the C entries, the new kernel in turns against the pair
+    k = diff_entries(sd, hw, band)
+    diff_ms, pair_ms = turns_ms({"resolve_diff": k["resolve_diff"], "pair": k["pair"]})
+    k5_ms, k2f_ms = time_ms(k["winners_f32"]), time_ms(k["expand_f32"])
+    wrapped = {"resolve_diff": time_ms(lambda: rr.raster_images_diff(sd, hw, band)),
+               "winners_f32": time_ms(lambda: rr.winners_f32(sd, hw, band))}
+    diff_plain = time_ms(lambda: rr.raster_images_diff_plain(sd, hw, band), reps=2)
     k5_plain = time_ms(lambda: rr.winners_f32_plain(sd, hw, band), reps=2)
-    # yardstick for the reduction only: segment_reduce over the in-band runs
+    # yardsticks: segment_reduce over the in-band runs (the reduction only,
+    # without the head search, the band test and the ranks), and with
+    # index_copy_ of the per-pixel rows into a dense (H*W, 5) image
     z = sd.zbits.view(torch.float32)
     head_z = depth_f[sd.pix.clamp(max=hw - 1).long()]
     in_band = (sd.pix < hw) & ~(z > head_z + band)
@@ -1040,12 +1151,38 @@ def check_diff_raster(points, colors, valid, M, band, rows):
     if int(lengths.sum()) != data.shape[0]:
         fail("segment_reduce yardstick: in-band runs do not match the counts")
     lib = time_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+    occupied = (cnt_f > 0).nonzero()[:, 0]
+    dense = torch.zeros((hw, 5), dtype=torch.float32, device=M.device)
+
+    def library():
+        red = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+        dense.index_copy_(0, occupied, torch.cat([red, cnt_f[occupied, None],
+                                                  depth_f[occupied, None]], 1))
+
+    lib_diff = time_ms(library)
+    # bytes: rtnr_resolve_diff reads each in-frame element once (pix, z bits,
+    # 12 B of colour) and writes sums, count and depth (20 B) a pixel; K5
+    # reads 20 B a point and writes 6 x int32 a winner
+    bd, byd = bound_ms(20.0 * n_in + 20.0 * hw, 0.0)
     b5, by5 = bound_ms(20.0 * n + 24.0 * t, 0.0)
+    rows["resolve_diff"] = dict(ms=diff_ms, plain_ms=diff_plain, bound_ms=bd, bound_by=byd,
+                                library_ms=lib_diff, max_abs_err=0.0, previous_ms=pair_ms,
+                                wrapper_ms=wrapped["resolve_diff"])
     rows["winners_f32"] = dict(ms=k5_ms, plain_ms=k5_plain, bound_ms=b5, bound_by=by5,
-                               library_ms=lib, max_abs_err=0.0)
-    log(f"K5 winners_f32: {k5_ms:.4f} ms (plain {k5_plain:.4f}, bound {b5:.4f} {by5}, "
-        f"segment_reduce {lib:.4f})")
-    del data, lengths, in_band, head_z, sd, wimg
+                               library_ms=lib, max_abs_err=0.0,
+                               wrapper_ms=wrapped["winners_f32"])
+    rows["expand"]["float_sums_ms"] = k2f_ms
+    log(f"rtnr_resolve_diff (C entry): {diff_ms:.4f} ms against K5 + K2 float_sums "
+        f"(rtnr_winners_f32's three launches + rtnr_expand) {pair_ms:.4f} in turns "
+        f"({pair_ms / diff_ms:.2f}x); bound {bd:.4f} {byd} ({bd / diff_ms:.3f} of it); plain "
+        f"{diff_plain:.4f}; segment_reduce + index_copy_ {lib_diff:.4f}; through its wrapper "
+        f"{wrapped['resolve_diff']:.4f}")
+    log(f"K5 winners_f32 (C entry): {k5_ms:.4f} ms (plain {k5_plain:.4f}, bound {b5:.4f} {by5}, "
+        f"segment_reduce {lib:.4f}, through its wrapper {wrapped['winners_f32']:.4f}); K2 "
+        f"float_sums (C entry, on K5's rows) {k2f_ms:.4f} ms")
+    if not diff_ms < pair_ms:
+        fail("rtnr_resolve_diff is not faster than the K5 + K2 pair it replaced")
+    del data, lengths, in_band, head_z, sd, wimg, k, dense, occupied, pair, got
 
     # the differentiable raster's forward and backward, as the scene step runs them
     cols = colors.detach().clone().requires_grad_(True)
@@ -1137,7 +1274,8 @@ def train_phase(renderer, cam, E, variables, counted):
     cols0, cams0 = sstate.colors.detach().clone(), sstate.cam_projs.detach().clone()
     sstep = tt.make_scene_train_step(width=WIDTH, height=HEIGHT)
     sargs = (renderer.points, renderer.valid, targets)
-    sstate, m = run("scene_step", sstate, sstep, sargs, ("winners_f32", "expand"))
+    sstate, m = run("scene_step", sstate, sstep, sargs, ("resolve_diff",),
+                    absent=("winners_f32", "expand"))
     if not (float(m["pose_grad_norm"]) > 0 and float(m["color_grad_norm"]) > 0):
         fail(f"scene_step: zero pose or colour gradient {m}")
     if torch.equal(cols0, sstate.colors.detach()) or torch.equal(cams0, sstate.cam_projs.detach()):
@@ -1279,6 +1417,131 @@ def host_cli_bench_phase(scene, variables, counted, card, static_ms):
     if rec["unet_int8"] != "off" or "fps_bf16_exact" in rec:
         fail(f"bench line at 960x720 did not fall back to bf16: {rec}")
     res["bench_960x720"] = rec
+    return res
+
+
+TRAIN_CLI_STEPS = 150  # scripts/train_demo_r5.py of the JAX package
+TRAIN_CLI_W, TRAIN_CLI_H = 640, 352
+
+
+def train_demo_scene():
+    """scripts/train_demo_r5.py's scene: 400,000 points on a back wall, a
+    floor and two side walls, coloured per wall with seeded noise (seed 7):
+    (points f32, colours u8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    n = 400_000
+    walls, cols = [], []
+    for k in range(4):
+        m = n // 4
+        p = rng.uniform(-4, 4, (m, 3))
+        if k == 0:
+            p[:, 2] = 6.0 + 0.05 * rng.standard_normal(m)  # back wall
+            c = np.stack([200 + 0 * p[:, 0], 60 + 20 * p[:, 0], 60 + 10 * p[:, 1]], 1)
+        elif k == 1:
+            p[:, 1] = 3.0 + 0.05 * rng.standard_normal(m)  # floor
+            c = np.stack([60 + 10 * p[:, 0], 180 + 0 * p[:, 0], 60 + 10 * p[:, 2]], 1)
+        elif k == 2:
+            p[:, 0] = -4.0 + 0.05 * rng.standard_normal(m)
+            p[:, 2] = rng.uniform(0, 6, m)
+            c = np.stack([60 + 0 * p[:, 1], 60 + 10 * p[:, 1], 200 + 5 * p[:, 2]], 1)
+        else:
+            p[:, 0] = 4.0 + 0.05 * rng.standard_normal(m)
+            p[:, 2] = rng.uniform(0, 6, m)
+            c = np.stack([200 + 0 * p[:, 1], 180 + 5 * p[:, 1], 60 + 0 * p[:, 2]], 1)
+        walls.append(p)
+        cols.append(np.clip(c + 10 * rng.standard_normal(c.shape), 0, 255))
+    return np.concatenate(walls).astype(np.float32), np.concatenate(cols).astype(np.uint8)
+
+
+def train_cli_phase(card):
+    """The port's counterpart of the JAX package's scripts/train_demo_r5.py:
+    the demo scene as PLY, a 16-pose TUM trajectory and a 640x352
+    calibration (fx 420) under a temporary directory; ``python -m
+    rtnr_tpu_torch.apps.train_unet ... --self-supervised --steps 150 --lr
+    2e-4`` in a subprocess (full-width bf16 U-Net from ``init_unet_numpy(0)``,
+    one frame a step); the last logged loss must be below the first; then
+    the checkpoint reloaded with the port's ``load_unet_variables`` and pose 8
+    rendered by ``compute_full`` (exact bf16) with the trained and the
+    untrained net: the trained net's L1 to the self-supervised target must
+    be the lower."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rtnr_tpu_torch.camera import Camera, Trajectory
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.data.ply import write_ply
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils.checkpoint import load_unet_variables
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        ply, traj, calib = (os.path.join(d, f) for f in ("scene.ply", "traj.txt", "calib.txt"))
+        ckpt = os.path.join(d, "unet.msgpack")
+        write_ply(ply, *train_demo_scene())
+        with open(traj, "w") as f:
+            for i in range(16):
+                t = i / 15.0
+                f.write(f"{i:.1f} {-1.0 + 2.0 * t:.4f} {0.2:.4f} {-2.0 - 1.0 * t:.4f} 0 0 0 1\n")
+        fx = 420.0
+        with open(calib, "w") as f:
+            f.write(f"{TRAIN_CLI_W} {TRAIN_CLI_H}\n{fx} 0 {TRAIN_CLI_W / 2}\n0 {fx} "
+                    f"{TRAIN_CLI_H / 2}\n0 0 1\n0 0 0 0 0\n0\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        cmd = [sys.executable, "-m", "rtnr_tpu_torch.apps.train_unet", ply, traj, calib,
+               "--self-supervised", "--steps", str(TRAIN_CLI_STEPS), "--lr", "2e-4", "-o", ckpt,
+               "--log-every", "10"]
+        log("train CLI: " + " ".join(os.path.basename(c) if c.startswith(d) else c
+                                     for c in cmd[1:]))
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        for line in r.stdout.strip().splitlines():
+            log(f"  train| {line}")
+        if r.returncode != 0:
+            fail(f"train CLI exited {r.returncode}: {r.stderr[-4000:]}")
+        logs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+        if not logs or logs[-1]["step"] != TRAIN_CLI_STEPS - 1:
+            fail(f"train CLI logged {len(logs)} lines, not through step {TRAIN_CLI_STEPS - 1}")
+        if not logs[-1]["loss"] < logs[0]["loss"]:
+            fail(f"train CLI: the loss did not fall ({logs[0]['loss']} -> {logs[-1]['loss']})")
+        # steps after the first logged one, over the CLI's own clock (0.1 s resolution)
+        span = logs[-1]["sec"] - logs[0]["sec"]
+        ms_step = span / (logs[-1]["step"] - logs[0]["step"]) * 1e3
+
+        cam = Camera.load_calibration(calib)
+        E = Trajectory.load(traj).world_to_cam(8)
+        scene = Scene.from_file(ply)
+        target, outs = None, {}
+        for tag, variables in (("untrained", init_unet_numpy(0, (64, 128, 256, 512))),
+                               ("trained", load_unet_variables(ckpt))):
+            rdr = Renderer(scene, RenderConfig(unet_int8="off"), variables, device="cuda")
+            if target is None:
+                target = rdr.compute_rgbd(cam, E)["rgb"].astype(np.float32) / 255.0
+            outs[tag] = rdr.compute_full(cam, E)["rgb_f"]
+            del rdr
+        torch.cuda.empty_cache()
+    l1 = {k: float(np.abs(v - target).mean()) for k, v in outs.items()}
+    if not l1["trained"] < l1["untrained"]:
+        fail(f"train CLI: the trained net's L1 {l1['trained']} is not below the untrained "
+             f"net's {l1['untrained']}")
+    res = {"steps": TRAIN_CLI_STEPS, "resolution": f"{TRAIN_CLI_W}x{TRAIN_CLI_H}",
+           "loss_first": logs[0]["loss"], "loss_last": logs[-1]["loss"], "wall_s": wall_s,
+           "steps_per_s_incl_startup": TRAIN_CLI_STEPS / wall_s, "ms_per_step": ms_step,
+           "steps_per_s": 1e3 / ms_step, "render_l1_untrained": l1["untrained"],
+           "render_l1_trained": l1["trained"], "card": card}
+    log(f"train CLI at {TRAIN_CLI_W}x{TRAIN_CLI_H}, 400,000 points, {TRAIN_CLI_STEPS} steps on "
+        f"{card}: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f}; {ms_step:.2f} ms/step "
+        f"({1e3 / ms_step:.2f} steps/s, CLI clock, steps {logs[0]['step']}-{logs[-1]['step']}); "
+        f"{wall_s:.2f} s wall with start-up ({TRAIN_CLI_STEPS / wall_s:.2f} steps/s); pose 8 "
+        f"compute_full L1 to the target: untrained {l1['untrained']:.5f}, trained "
+        f"{l1['trained']:.5f} ({l1['untrained'] / l1['trained']:.2f}x lower)")
     return res
 
 
@@ -2120,6 +2383,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     counted = {"resolve4": rr.raster_images_v4, "resolve5": r5.raster_images_v5,
+               "resolve_diff": rr.raster_images_diff,
                "winners": rr.winners,
                "expand": rr.expand_winners,
                "conv3x3": cv.conv3x3, "convt2x2": cv.convt2x2, "winners_f32": rr.winners_f32,
@@ -2261,6 +2525,11 @@ def main() -> int:
     del renderer
     torch.cuda.empty_cache()
     host = host_cli_bench_phase(scene, variables, counted, card, serve_static["ms_per_frame"])
+    del scene
+    torch.cuda.empty_cache()
+
+    # ---- the training CLI, the JAX package's scripts/train_demo_r5.py ----
+    train_cli = train_cli_phase(card)
 
     sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
     i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
@@ -2281,6 +2550,10 @@ def main() -> int:
         "conv3x3": ("cuda", f"{sm90_src}, {in_src}", "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_wgmma": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "convt2x2": ("cuda", sm90_src, "rtnr_tpu/ops/conv_phase.py:1310"),
+        # K5 and K2's float_sums mode of the differentiable forward in one kernel
+        "resolve_diff": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
+                         "rtnr_tpu/ops/raster_pallas4.py:872, rtnr_tpu/ops/raster_pallas4.py:920"),
+        # K5 alone: no path launches it since rtnr_resolve_diff (its tests, the previous pair)
         "winners_f32": ("cuda", "rtnr_tpu_torch/csrc/raster_resolve.cu",
                         "rtnr_tpu/ops/raster_pallas4.py:872"),
         # every int8-output K3 call of a frame: the input conv
@@ -2304,6 +2577,7 @@ def main() -> int:
     }
     labels = {"resolve4": "K1 + K2, the v4 resolve (packed form)",
               "resolve5": "K6 + K2, the v5 resolve (packed form)",
+              "resolve_diff": "K5 + K2 float_sums, the differentiable forward's resolve",
               "conv3x3_in": "K3 input conv, bf16 out",
               "conv3x3_in_i8out": "K3 input conv, int8 out"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
@@ -2313,7 +2587,8 @@ def main() -> int:
              "conv_direct": conv_direct_path, "serve_fuse_up": fuse_up["serve"],
              "serve_fuse_up_dyn": {"launches": fuse_up["dyn_launches"]},
              **{f"resolve_{m}": r for m, r in resolvers.items()}}
-    own = {"resolve5": "resolve_v5", "expand": "scene_step", "winners_f32": "scene_step",
+    own = {"resolve5": "resolve_v5", "resolve_diff": "scene_step", "expand": "scene_step",
+           "winners_f32": "scene_step",
            "conv3x3_i8out": "serve_static",
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
            "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
@@ -2333,7 +2608,8 @@ def main() -> int:
             **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
             **({"pair_ms": r["pair_ms"]} if "pair_ms" in r else {}),
             **({"bf16_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
-            **({k: r[k] for k in ("sums_ms", "sums_bound_ms", "wrapper_ms") if k in r}),
+            **({k: r[k] for k in ("sums_ms", "sums_bound_ms", "wrapper_ms", "float_sums_ms")
+                if k in r}),
         })
     summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
                "host_out_ms_per_frame": serve["host_out_ms_per_frame"],
@@ -2356,7 +2632,8 @@ def main() -> int:
                "host": {k: host[k] for k in ("write_s", "from_file_s", "cli", "split", "bench",
                                              "bench_960x720")}}
     log(json.dumps({"summary": summary}))
-    log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "card": card}}))
+    log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "train_cli": train_cli,
+                              "card": card}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

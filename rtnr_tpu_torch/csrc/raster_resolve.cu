@@ -1,7 +1,7 @@
 // Raster resolve for Hopper: the v4 resolve (K1 + K2 as one kernel), the v5
-// resolve (K6 + K2 as one kernel), winners (K1), expansion (K2), float
-// winners (K5), pixel-only winners (K6) and the carrier-stream resolve
-// (K7-K9).
+// resolve (K6 + K2 as one kernel), the differentiable forward's resolve (K5 +
+// K2 float_sums as one kernel), winners (K1), expansion (K2), float winners
+// (K5), pixel-only winners (K6) and the carrier-stream resolve (K7-K9).
 //
 // Replaces rtnr_tpu/ops/raster_pallas4.py::_winners_kernel4 (K1, wrapper
 // raster_images_pallas4) and ::_expand_kernel4 (K2, wrapper expand_winners).
@@ -60,6 +60,27 @@
 // in-frame element once from device memory, 8 B or 20 B written a pixel:
 // ~22 us packed at 5M points / 1080p); the second pass reads from L2.
 //
+// rtnr_resolve_diff (the differentiable forward: K5 and K2 float_sums in one
+// kernel, no winner image): replaces rtnr_tpu/ops/raster_pallas4.py::
+// _compact_kernel and the float_sums expansion after it, with the XLA work
+// before them (raster_diff.py:246-276: head-depth broadcast, band mask, f32
+// prefix sums, ranks). Input: the (pixel, depth)-sorted stream with f32
+// colour lanes (n, 3) in any range (Adam moves them), z bits that may be +inf.
+// rtnr_resolve4's tile skeleton (windows from the 33-ary searches, 16-byte
+// loads of the pixel ids one chunk ahead, the tile stored once with 16-byte
+// stores); the work of a pixel goes to its segment head found in a chunk,
+// which walks its band prefix from L1/L2 in stream order in f64 and rounds
+// each sum once to f32, exactly as K5's head does, and writes the pixel's
+// sums, count and head depth bits into the tile row. f64 addition of
+// non-integer colours depends on the order, so rtnr_resolve4's atomic merge
+// of per-thread runs could not give K5's bits; one head a pixel needs no
+// atomics, and the result is K5 + K2's bit for bit and the same on every
+// launch. A segment of any length is exact (one thread walks it, slow past a
+// few thousand points). Outputs: sums (HW, 3) f32, count f32, depth (the
+// head's bits, FLT_MAX where empty, with 0 sums and count), each stored once.
+// Bound: bytes, 20 B read per in-frame element (pix, z bits, 12 B of colour)
+// and 20 B written a pixel: ~136 MB at 5M points / 1080p, ~41 us at 3.35 TB/s.
+//
 // K1 (rtnr_winners, standalone: its tests and the "previous" pair; K5 and K6
 // share its head-count scan): a segment head is an element with pix < hw whose
 // predecessor has another pixel. Each head walks its own segment while
@@ -76,8 +97,8 @@
 // streams, no atomics; a very long segment (e.g. 5,000 points on one pixel)
 // is walked by ONE thread, which is slow but exact.
 //
-// K2 (rtnr_expand, for the paths that keep the winner image: v5 and the
-// differentiable forward): rtnr_resolve4's tile skeleton with the winner rows
+// K2 (rtnr_expand, standalone since the tile resolves: its tests and the
+// "previous" pairs): rtnr_resolve4's tile skeleton with the winner rows
 // as its source. Each tile of TILE_P pixels finds its window in the winner
 // pixel row wimg[5, :total] with the same searches (the TPU kernel's
 // searchsorted `starts`, found in the kernel), scatters the
@@ -88,14 +109,16 @@
 // pixel binary-searching the winner row, ~21 dependent loads a pixel: bound
 // by latency), kept only to be timed against it.
 //
-// K2 float_sums (the differentiable forward's mode, raster_pallas4.py:503-511)
-// needs no device code of its own: the winner rows of rtnr_winners_f32 hold
+// K2 float_sums (raster_pallas4.py:503-511; inside rtnr_resolve_diff since
+// it, kept standalone with K5 as the "previous" pair) needs no device code of
+// its own: the winner rows of rtnr_winners_f32 hold
 // per-pixel totals as f32 bit patterns, nothing is subtracted, and
 // rtnr_expand copies 32-bit rows as they are. Empty pixels get 0 bits (0.0f)
 // in the sum and count rows and FLT_MAX depth, which is what float_sums
 // produces; the wrapper views rows 0-3 as f32.
 //
-// K5 (rtnr_winners_f32): replaces rtnr_tpu/ops/raster_pallas4.py::
+// K5 (rtnr_winners_f32; standalone since rtnr_resolve_diff: its tests and the
+// "previous" pair): replaces rtnr_tpu/ops/raster_pallas4.py::
 // _compact_kernel (wrapper compact_rows_by_rank) together with the XLA work
 // before it in the differentiable forward (raster_diff.py:246-276: head-depth
 // broadcast, band mask, inclusive f32 prefix sums, winner ranks). One kernel
@@ -104,8 +127,10 @@
 // prefix, accumulates r, g, b and count in f64 and rounds each ONCE to f32,
 // then writes them (as bit patterns), the head depth bits and the pixel id at
 // column = winner rank (the same three-launch head-count scan; the total
-// stays on the device). f64 makes a pixel's sum independent of summation
-// order, so the kernel equals its plain twin bit for bit, and equals the JAX
+// stays on the device). The sums run in stream order, as the plain twin's
+// index_add_ does on the CPU, so the kernel equals it bit for bit on any
+// colours (f64 sums of integer colours are exact in any order, so also the
+// twin on the card, whose atomics add in any order), and equals the JAX
 // package wherever JAX's f32 prefixes are exact (integer colours, prefix
 // < 2^24); at 5M points JAX's global prefixes reach ~6e8, where f32 steps
 // are 64 apart. Bound on this card: bytes. ~20 B read per point (pix, z bits,
@@ -506,35 +531,35 @@ __device__ __forceinline__ void tile_store(const int* tile, int q0, int q1, int*
   }
 }
 
-// TILE_ELEMS consecutive stream elements from index base (a multiple of 4):
-// 16-byte loads where a group of 4 lies in the stream and the pointers are
-// 16-byte aligned (vec), else one by one; past the end an element gets pixel
-// INT_MAX, which no tile owns.
+// TILE_ELEMS consecutive elements of one int32 lane from index base (a
+// multiple of 4): 16-byte loads where a group of 4 lies in the stream and the
+// pointers are 16-byte aligned (vec), else one by one; past the end an element
+// gets fill.
+__device__ __forceinline__ void load_lane(const int* __restrict__ a, int n, int base, int vec,
+                                          int fill, int v[TILE_ELEMS]) {
+#pragma unroll
+  for (int g = 0; g < TILE_ELEMS; g += 4) {
+    const int b = base + g;
+    if (vec && b + 4 <= n) {
+      const int4 a4 = __ldg(reinterpret_cast<const int4*>(a + b));
+      v[g] = a4.x; v[g + 1] = a4.y; v[g + 2] = a4.z; v[g + 3] = a4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[g + j] = b + j < n ? a[b + j] : fill;
+    }
+  }
+}
+
+// The stream's three lanes from index base; past the end an element gets
+// pixel INT_MAX, which no tile owns.
 __device__ __forceinline__ void load_group(const int* __restrict__ pix,
                                            const int* __restrict__ zbits,
                                            const int* __restrict__ packed, int n, int base,
                                            int vec, int p[TILE_ELEMS], int z[TILE_ELEMS],
                                            int k[TILE_ELEMS]) {
-#pragma unroll
-  for (int g = 0; g < TILE_ELEMS; g += 4) {
-    const int b = base + g;
-    if (vec && b + 4 <= n) {
-      const int4 p4 = __ldg(reinterpret_cast<const int4*>(pix + b));
-      const int4 z4 = __ldg(reinterpret_cast<const int4*>(zbits + b));
-      const int4 k4 = __ldg(reinterpret_cast<const int4*>(packed + b));
-      p[g] = p4.x; p[g + 1] = p4.y; p[g + 2] = p4.z; p[g + 3] = p4.w;
-      z[g] = z4.x; z[g + 1] = z4.y; z[g + 2] = z4.z; z[g + 3] = z4.w;
-      k[g] = k4.x; k[g + 1] = k4.y; k[g + 2] = k4.z; k[g + 3] = k4.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool in = b + j < n;
-        p[g + j] = in ? pix[b + j] : 0x7FFFFFFF;
-        z[g + j] = in ? zbits[b + j] : 0;
-        k[g + j] = in ? packed[b + j] : 0;
-      }
-    }
-  }
+  load_lane(pix, n, base, vec, 0x7FFFFFFF, p);
+  load_lane(zbits, n, base, vec, 0, z);
+  load_lane(packed, n, base, vec, 0, k);
 }
 
 // One tile of rtnr_resolve4: the stream window [s, e) into the tile (at its
@@ -751,6 +776,99 @@ resolve5_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
   }
 }
 
+// ---- rtnr_resolve_diff: K5 and K2 float_sums in one tile kernel ----
+
+// The walk of winners_write_f32: adds elements k, k+1, ... of pixel ph's
+// segment while they lie in its band (z <= lim), r, g, b and count in f64 with
+// __dadd_rn, in stream order.
+__device__ __forceinline__ void walk_band(const int* __restrict__ pix,
+                                          const int* __restrict__ zbits,
+                                          const float* __restrict__ rgb, int n, int k, int ph,
+                                          float lim, double acc[4]) {
+  for (; k < n; ++k) {
+    if (__ldg(pix + k) != ph || __int_as_float(__ldg(zbits + k)) > lim) break;
+    const float* q = rgb + 3 * (size_t)k;
+    acc[0] = __dadd_rn(acc[0], (double)__ldg(q));
+    acc[1] = __dadd_rn(acc[1], (double)__ldg(q + 1));
+    acc[2] = __dadd_rn(acc[2], (double)__ldg(q + 2));
+    acc[3] = __dadd_rn(acc[3], 1.0);
+  }
+}
+
+// A pixel's tile column: each sum rounded once to f32, and the head's depth bits.
+__device__ __forceinline__ void write_column(int* tile, int col, const double acc[4], int zh) {
+#pragma unroll
+  for (int row = 0; row < 4; ++row)
+    tile[row * TILE_P + col] = __float_as_int(__double2float_rn(acc[row]));
+  tile[4 * TILE_P + col] = zh;
+}
+
+// One tile of rtnr_resolve_diff: the window [s, e) of the (pixel, depth)-sorted
+// stream, pixels [q0, q1). Per chunk, each thread marks the heads among its
+// elements (pix[i] != pix[i-1], as rtnr_resolve4's pass A) and walks them one
+// after another: each walks its band prefix from L1/L2 in stream order
+// (walk_band: the same additions in the same order as K5, so the same bits on
+// any colours) and writes its pixel's column of the tile. One head a pixel,
+// so no atomics and no barrier between chunks.
+__device__ __forceinline__ void resolve_diff_window(const int* __restrict__ pix,
+                                                    const int* __restrict__ zbits,
+                                                    const float* __restrict__ rgb, int n, int s,
+                                                    int e, int q0, int q1, float band, int vec,
+                                                    int* tile) {
+  const int lane = threadIdx.x & 31;
+  int c = s & ~3;  // aligned down: the elements before the window have pix < q0
+  int p[TILE_ELEMS];
+  if (c < e) load_lane(pix, n, c + TILE_ELEMS * threadIdx.x, vec, 0x7FFFFFFF, p);
+  for (; c < e; c += TILE_CHUNK) {
+    const int base = c + TILE_ELEMS * threadIdx.x;
+    const bool more = c + TILE_CHUNK < e;
+    int np[TILE_ELEMS];
+    if (more) load_lane(pix, n, base + TILE_CHUNK, vec, 0x7FFFFFFF, np);
+    int prev = __shfl_up_sync(FULL_MASK, p[TILE_ELEMS - 1], 1);
+    if (lane == 0) prev = (base > 0 && base <= n) ? pix[base - 1] : -1;
+    unsigned heads = 0u;
+#pragma unroll
+    for (int j = 0; j < TILE_ELEMS; ++j) {
+      if (p[j] >= q0 && p[j] < q1 && p[j] != prev) heads |= 1u << j;
+      prev = p[j];
+    }
+    while (heads) {  // the thread's heads one after another
+      const int i = base + __ffs(heads) - 1;
+      heads &= heads - 1u;
+      const int ph = __ldg(pix + i), zh = __ldg(zbits + i);
+      double acc[4] = {0.0, 0.0, 0.0, 0.0};
+      walk_band(pix, zbits, rgb, n, i, ph, __fadd_rn(__int_as_float(zh), band), acc);
+      write_column(tile, ph - q0, acc, zh);
+    }
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < TILE_ELEMS; ++j) p[j] = np[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TILE_THREADS)
+resolve_diff_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
+                  const float* __restrict__ rgb, int n, int hw, float band, int vec,
+                  int* __restrict__ sums, int* __restrict__ count, int* __restrict__ depth) {
+  __shared__ int4 tile4[TILE_SMEM / 16];
+  int* tile = reinterpret_cast<int*>(tile4);
+  __shared__ int win[TILES_PER_BLOCK + 1];
+  const int tile0 = blockIdx.x * TILES_PER_BLOCK;
+  tile_windows(pix, n, tile0, hw, win);
+  for (int j = 0; j < TILES_PER_BLOCK; ++j) {
+    const int q0 = (tile0 + j) * TILE_P;
+    if (q0 >= hw) break;
+    const int q1 = min(q0 + TILE_P, hw);
+    tile_init(tile);
+    __syncthreads();
+    resolve_diff_window(pix, zbits, rgb, n, win[j], win[j + 1], q0, q1, band, vec, tile);
+    __syncthreads();
+    tile_store<false>(tile, q0, q1, sums, count, depth);
+    __syncthreads();  // the next tile's defaults overwrite this one
+  }
+}
+
 template <bool PACKED>
 __global__ void __launch_bounds__(TILE_THREADS)
 expand_tile(const int* __restrict__ wimg, int cap, const int* __restrict__ total_p, int hw,
@@ -888,6 +1006,18 @@ extern "C" int rtnr_resolve5(const void* pix, const void* zbits, const void* pac
         (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
         (int*)out_cnt, (int*)out_depth);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtnr_resolve_diff(const void* pix, const void* zbits, const void* rgb, int n,
+                                 int hw, float band, int vec, void* sums, void* count,
+                                 void* depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = tile_blocks(hw);
+  if (blocks == 0) return 0;
+  resolve_diff_tile<<<blocks, TILE_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
+                                                     (const float*)rgb, n, hw, band, vec,
+                                                     (int*)sums, (int*)count, (int*)depth);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,10 @@
 Counterpart of ``rtnr_tpu/ops/raster_diff.py``. Forward and backward follow
 its scalable custom-VJP form (``rasterize_diff_sorted``, ``:388-449``):
 
-- forward: ``project_and_sort_diff`` (one ``torch.sort``), ``winners_f32``
-  (K5: each pixel's in-band colour sums and count as f32 totals, head depth,
-  pixel id) and ``expand_winners(float_sums=True)`` (K2) to dense images;
+- forward: ``project_and_sort_diff`` (one ``torch.sort``), then
+  ``raster_images_diff`` (K5 + K2 ``float_sums`` as one tile kernel,
+  ``rtnr_resolve_diff``: each pixel's in-band colour sums and count as f32
+  totals and its head depth, written straight into dense images);
 - backward: ``bwd_from_images``, one row gather of the cotangent images and
   the depth image at each point's own pixel (no sort), then the chain
   through ``z = p . M[2, :3] + M[2, 3]`` to the points and ``cam_proj`` row 2.
@@ -17,7 +18,7 @@ is plain XLA there (it has no Pallas kernel).
 
 Unlike the JAX package's prefix-sum forward, whose f32 prefixes over the
 whole stream lose exactness past 2^24 (at 5M points they reach ~6e8, f32
-steps of 64), K5 sums each pixel on its own in f64: the port equals the JAX
+steps of 64), the port sums each pixel on its own in f64: it equals the JAX
 package wherever that is exact, and stays exact where it is not.
 """
 
@@ -28,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from rtnr_tpu_torch.ops.raster import project_and_sort_diff
-from rtnr_tpu_torch.ops.raster_resolve4 import expand_winners, winners_f32
+from rtnr_tpu_torch.ops.raster_resolve4 import raster_images_diff
 
 
 class DiffRaster(NamedTuple):
@@ -82,8 +83,7 @@ class _DiffCore(torch.autograd.Function):
         M = cam_proj.to(torch.float32)
         sd, (pix, zs) = project_and_sort_diff(points, colors, M, width=width, height=height,
                                               valid=valid)
-        wimg, total = winners_f32(sd, hw, depth_band)
-        sums, cnt, depth = expand_winners(wimg, total, hw, float_sums=True)
+        sums, cnt, depth = raster_images_diff(sd, hw, depth_band)
         ctx.save_for_backward(pix, zs, depth, points, M)
         ctx.hw, ctx.depth_band = hw, depth_band
         ctx.mark_non_differentiable(cnt)

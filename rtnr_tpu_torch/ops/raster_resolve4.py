@@ -1,19 +1,24 @@
-"""Carrier-free raster resolve: the v4 resolve (K1 + K2 in one kernel),
+"""Carrier-free raster resolve: the v4 resolve (K1 + K2 in one kernel), the
+differentiable forward's resolve (K5 + K2 ``float_sums`` in one kernel),
 winners (K1), float winners (K5) and expansion (K2).
 
 Counterpart of ``rtnr_tpu/ops/raster_pallas4.py``: ``raster_images_pallas4``
 becomes ``raster_images_v4``, which on the card is ONE kernel
 (``rtnr_resolve4``: each block owns a tile of output pixels, finds its
 window of the sorted stream with two searches and resolves it in shared
-memory; no winner image, no ranks); ``expand_winners`` keeps its name;
-``winners_f32`` takes the place of ``compact_rows_by_rank`` (K5) and of the
-prefix sums and ranks the differentiable forward computes before it. The
-CUDA kernels are in ``csrc/raster_resolve.cu`` (its header notes what each
-replaces, its bound and its design); ``_lib`` loads and binds that library
-for this module, ``raster_resolve5`` and ``raster_resolve_carriers``.
+memory; no winner image, no ranks); the differentiable forward's
+``compact_rows_by_rank`` (K5), the prefix sums and ranks before it and the
+``float_sums`` expansion after it become ``raster_images_diff``, also ONE
+kernel on the card (``rtnr_resolve_diff``: the same tiles, each pixel's
+segment head walking its band in f64 into the tile, bit for bit what K5 +
+K2 give); ``expand_winners`` keeps its name; ``winners_f32`` is K5 alone.
+The CUDA kernels are in ``csrc/raster_resolve.cu`` (its header notes what
+each replaces, its bound and its design); ``_lib`` loads and binds that
+library for this module, ``raster_resolve5`` and ``raster_resolve_carriers``.
 
-Intermediate contract of the paths that keep it (v5, the differentiable
-forward, and the standalone ``winners``): a winner image ``wimg`` (6, cap)
+Intermediate contract of the standalone kernels (``winners``, ``winners_f32``
+and ``raster_resolve5.winners5``, kept for their tests and as the "previous"
+pairs the tile kernels are timed against): a winner image ``wimg`` (6, cap)
 int32, rows (r sum, g sum, b sum, count, head depth bits, pixel id), one
 column per winner (= pixel with at least one point) in pixel order, and the
 winner total as a (1,) int32 tensor that stays on the device. ``winners``
@@ -25,8 +30,9 @@ it.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 twin only for CPU tensors. ``raster_images_v4.launches`` /
-``winners.launches`` / ``winners_f32.launches`` / ``expand_winners.launches``
-/ ``expand_search.launches`` count kernel launches.
+``raster_images_diff.launches`` / ``winners.launches`` /
+``winners_f32.launches`` / ``expand_winners.launches`` /
+``expand_search.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -64,8 +70,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rtnr_resolve_carriers.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
     for fn in (lib.rtnr_resolve4, lib.rtnr_resolve5):
         fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
+    lib.rtnr_resolve_diff.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P]
     for fn in (lib.rtnr_expand, lib.rtnr_expand_search, lib.rtnr_resolve_carriers,
-               lib.rtnr_resolve4, lib.rtnr_resolve5):
+               lib.rtnr_resolve4, lib.rtnr_resolve5, lib.rtnr_resolve_diff):
         fn.restype = _I
 
 
@@ -200,6 +207,41 @@ def winners_f32(sd: SortedDiff, hw: int, depth_band: float):
 
 
 winners_f32.launches = 0
+
+
+def raster_images_diff_plain(sd: SortedDiff, hw: int, depth_band: float):
+    """Plain torch twin of ``rtnr_resolve_diff``: K5's twin, then K2's
+    ``float_sums`` twin."""
+    wimg, total = winners_f32_plain(sd, hw, depth_band)
+    return expand_plain(wimg, total, hw, False, float_sums=True)
+
+
+def raster_images_diff(sd: SortedDiff, hw: int, depth_band: float):
+    """The differentiable forward's dense images from its (pixel,
+    depth)-sorted stream: (sums (HW,3) f32, count (HW,) f32, depth (HW,)
+    f32), what ``expand_winners(*winners_f32(sd, hw, band), hw,
+    float_sums=True)`` returns. On the card: one launch of
+    ``rtnr_resolve_diff`` (no winner image); for CPU tensors the plain
+    twin."""
+    _check_diff_stream(sd)
+    if sd.pix.device.type == "cpu":
+        return raster_images_diff_plain(sd, hw, depth_band)
+    if sd.pix.device.type != "cuda":
+        raise ValueError(f"unsupported device {sd.pix.device}")
+    dev = sd.pix.device
+    out0, count, depth = _dense_outputs(dev, hw, False)
+    vec = int(sd.pix.data_ptr() % 16 == 0)  # 16-byte loads of the pixel ids where aligned
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().rtnr_resolve_diff(
+        sd.pix.data_ptr(), sd.zbits.data_ptr(), sd.rgb.data_ptr(), sd.pix.numel(), hw,
+        float(depth_band), vec, out0.data_ptr(), count.data_ptr(), depth.data_ptr(), stream,
+    )
+    _build.check(rc, "rtnr_resolve_diff")
+    raster_images_diff.launches += 1
+    return _expand_images(out0, count, depth, False, True)
+
+
+raster_images_diff.launches = 0
 
 
 def expand_plain(wimg: torch.Tensor, total: torch.Tensor, hw: int, packed_out: bool,

@@ -13,9 +13,9 @@ which stay 0-dim tensors on the state's device.
   prefilter (``pipeline.render_filtered``: K1, K2), without gradients; the
   U-Net trains on the stacked ``unet_input``s in BatchNorm training mode.
 - ``make_scene_train_step``: frames go through the differentiable raster
-  (``ops.raster_diff``: K5, K2 float sums) and the prefilter, so one Adam
-  step moves the U-Net's parameters, the point colours and the camera
-  matrices together (BASELINE config 4).
+  (``ops.raster_diff``: K5 + K2 float sums as one kernel) and the
+  prefilter, so one Adam step moves the U-Net's parameters, the point
+  colours and the camera matrices together (BASELINE config 4).
 
 Everything runs where the state lives: ``device="cuda"`` (the default)
 raises without a card, ``device="cpu"`` runs the kernels' plain twins.

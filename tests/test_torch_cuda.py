@@ -1,12 +1,11 @@
-"""The port's CUDA kernels (the v4 and v5 resolves, K1-K6, the carrier kernel for K7-K9, K10 on K3,
-K3's fused-ConvTranspose mode, the input conv on conv_in_sm90.cu, and the int8
-modes of K3/K4 on conv.cu and on
-the s8 wgmma kernels of conv_i8_sm90.cu) against their
-plain torch twins on the card, the differentiable raster and the int8
-Renderer on the card against the CPU, and Renderer frames under every
-RTNR_RESOLVE value. Marked ``cuda``; each test skips without a CUDA
-device. This file imports neither JAX nor the JAX package, so on a machine
-with the card and no JAX it runs as
+"""The port's CUDA kernels (the v4, v5 and differentiable resolves, K1-K6,
+the carrier kernel for K7-K9, K10 on K3, K3's fused-ConvTranspose mode, the
+input conv on conv_in_sm90.cu, and the int8 modes of K3/K4 on conv.cu and on
+the s8 wgmma kernels of conv_i8_sm90.cu) against their plain torch twins on
+the card, the differentiable raster and the int8 Renderer on the card
+against the CPU, and Renderer frames under every RTNR_RESOLVE value. Marked
+``cuda``; each test skips without a CUDA device. This file imports neither
+JAX nor the JAX package, so on a machine with the card and no JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -351,12 +350,75 @@ def test_diff_raster_on_card_matches_cpu(cuda):
         loss.backward()
         return [x.detach().cpu() for x in o] + [P.grad.cpu(), C.grad.cpu(), MM.grad.cpu()]
 
-    before = rr.winners_f32.launches
+    counts = lambda: (rr.raster_images_diff.launches, rr.winners_f32.launches,
+                      rr.expand_winners.launches)
+    before = counts()
     card, cpu = run(cuda), run("cpu")
-    assert rr.winners_f32.launches == before + 1
+    assert counts() == (before[0] + 1,) + before[1:]
     for a, b in zip(card[:6], cpu[:6]):
         assert torch.equal(a, b)
     torch.testing.assert_close(card[6], cpu[6], rtol=1e-5, atol=1e-5 * float(cpu[6].abs().max()))
+
+
+def _diff_stream(pix, z, cols, hw):
+    """The differentiable forward's stream (culled points: sentinel hw, +inf
+    depth), sorted by (pixel, depth bits), on the CPU."""
+    pix = np.asarray(pix, np.int64)
+    ok = pix < hw
+    pix = np.where(ok, pix, hw).astype(np.int32)
+    zb = np.where(ok, np.asarray(z, np.float32), np.float32(np.inf)).view(np.int32)
+    order = np.lexsort((zb, pix))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a[order]))
+    return tr.SortedDiff(t(pix), t(zb), t(np.asarray(cols, np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "one_pixel_20000", "inf_depths", "all_culled",
+                                  "empty", "ragged"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_resolve_diff_matches_twin_and_old_pair(cuda, case, integer):
+    """rtnr_resolve_diff bit for bit against the old pair (K5 + K2
+    float_sums) on the card, against its twin on the CPU (stream order, any
+    colours) and on the card (integer colours, where the twin's atomics are
+    exact), two launches equal, one launch a call and no K5 or K2; also from
+    a stream offset by one element (no 16-byte loads)."""
+    rng = np.random.default_rng(90)
+    hw, n = 96 * 64, 50_000
+    z = np.where(rng.random(n) < 0.5, rng.uniform(4.0, 4.04, n), rng.uniform(2.0, 8.0, n))
+    pix = rng.integers(0, hw + 500, n)
+    if case == "one_pixel_20000":
+        pix, z = np.r_[np.full(20_000, 1000), pix[:3000]], np.r_[rng.uniform(2.0, 2.3, 20_000),
+                                                                 z[:3000]]
+    elif case == "inf_depths":
+        z[rng.random(n) < 0.3] = np.inf
+    elif case == "all_culled":
+        pix = np.full(n, hw)
+    elif case == "empty":
+        pix, z = pix[:0], z[:0]
+    elif case == "ragged":
+        hw = 3 * 512 + 517
+        pix = rng.integers(0, hw + 40, n)
+    m = len(pix)
+    cols = rng.integers(0, 256, (m, 3)) if integer else rng.uniform(-40.0, 300.0, (m, 3))
+    sd_cpu = _diff_stream(pix, z, cols, hw)
+    sd = tr.SortedDiff(*(x.to(cuda) for x in sd_cpu))
+    counts = lambda: (rr.raster_images_diff.launches, rr.winners_f32.launches,
+                      rr.expand_winners.launches)
+    before = counts()
+    got = rr.raster_images_diff(sd, hw, 0.02)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1,) + before[1:]
+    assert all(g.dtype == torch.float32 for g in got)
+    assert _same_bits(got, rr.expand_winners(*rr.winners_f32(sd, hw, 0.02), hw, float_sums=True))
+    assert _same_bits([g.cpu() for g in got], rr.raster_images_diff_plain(sd_cpu, hw, 0.02))
+    if integer:
+        assert _same_bits(got, rr.raster_images_diff_plain(sd, hw, 0.02))
+    assert _same_bits(rr.raster_images_diff(sd, hw, 0.02), got)
+    if m > 1:
+        off = tr.SortedDiff(*(torch.cat([x[:1], x])[1:] for x in sd))
+        assert _same_bits(rr.raster_images_diff(off, hw, 0.02), got)
+    if case == "one_pixel_20000":
+        assert float(got[1][1000]) > 1000
 
 
 def _same_bits(a, b):
