@@ -133,20 +133,45 @@ Phases (any failure exits non-zero, and the result line is not printed):
    --self-supervised --steps 150 --lr 2e-4`` in a subprocess (the loss must
    fall), the checkpoint reloaded and pose 8 rendered trained and untrained
    (the trained L1 to the target must be the lower), ms/step and steps/s;
-10. one JSON ``kernels`` line: every kernel and int8 mode with its launches
+10. the E57 chain on the port's host library (``csrc/host``, built with g++):
+   the 5M-point scene written as one scanner file by ``data.e57_write``
+   (ScaledInteger coordinates at 0.1 mm, colours with their limits, the
+   scan pose at identity) with six 1920x1080 photos embedded (the port's
+   ``encode_jpeg``, quality 95, 4:2:0, of ``compute_rgbd`` at poses along
+   bench.py's trajectory); ``Scene.from_file`` timed cold, building the
+   cache and from it (5,000,000 points, colours equal, points on the 0.1 mm
+   grid); the port's JPEG decoder timed per photo and within the JPEG's loss
+   of its source (8x8 block means); ``python -m
+   rtnr_tpu_torch.apps.generate_pairs`` in a subprocess (6 frames, 6 depth
+   files, traj.txt, calib.txt), then ``generate_pairs.main`` in process
+   (the same files); each pair's depth and projection equal bit for bit to
+   a direct ``compute_rgbd`` of the scene read back at its pose, the pose
+   within 1e-9 of the written one and K equal, the PNG equal to the decoded
+   photo; a ``utils.trace.capture`` of one render holding the
+   ``e57.pairs.render`` span and a ``resolve4_tile`` kernel event;
+   ``train_unet.main([scan.e57, ..., "--targets", pairs, "--steps", "20"])``
+   in process (full-width bf16 at 1920x1080, finite losses, each step timed
+   by the host clock between its log lines); the checkpoint reloaded and
+   rendered by ``compute_full``; the launch counts set to 0 just before the
+   pairs CLI in process, the training CLI and the trained frame, and read
+   just after each (``rtnr_resolve4`` 6, 20 and 1; the frame's
+   ``conv_sm90.cu`` conv 17, K4 4 and input conv 1; nothing else); the
+   ``StageTimer`` line of the phase;
+11. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times (the input conv
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
    previous gemm<0,0> time; ``resolve4`` with the old pair's time,
    ``resolve5`` with K6 + K2's, ``resolve_diff`` with K5 + K2 ``float_sums``'s,
    ``expand`` also with its ``float_sums`` time on K5's rows, ``expand`` with the search kernel's,
    ``conv3x3_up`` with the pair's);
-11. the last line ``{"ok": true, "device": {...}}``.
+12. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import re
@@ -1545,6 +1570,324 @@ def train_cli_phase(card):
     return res
 
 
+E57_PHOTOS = 6  # embedded 1920x1080 photos, poses along bench.py's trajectory
+E57_TRAIN_STEPS = 20  # steps of the training CLI on the pairs (cut these first for time)
+E57_JPEG_QUALITY = 95
+
+
+class StampedLines:
+    """A stand-in for stdout that keeps each complete line with the host
+    clock (``time.perf_counter``) at which its end arrived."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text):
+        now = time.perf_counter()
+        *done, self._part = (self._part + text).split("\n")
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def e57_poses():
+    """bench.py's trajectory: the camera 12 m from the cloud, moved sideways
+    (its ``M0[0, 3] += dx * k``), one pose a photo."""
+    import numpy as np
+
+    poses = []
+    for k in range(E57_PHOTOS):
+        E = np.eye(4)
+        E[0, 3], E[2, 3] = -0.5 + 0.2 * k, 12.0
+        poses.append(E)
+    return poses
+
+
+def e57_phase(card, counted):
+    """The E57 chain on the card: the 5M-point scene as one scanner file
+    (ScaledInteger coordinates at 0.1 mm, colours with their limits, the scan
+    pose at identity) with six embedded 1920x1080 photos (``encode_jpeg``,
+    quality 95, 4:2:0, of ``compute_rgbd`` at poses along bench.py's
+    trajectory); ``Scene.from_file`` timed cold, building the cache and from
+    it; the JPEG decode timed per photo; ``python -m
+    rtnr_tpu_torch.apps.generate_pairs`` in a subprocess (exit 0, 6 frames, 6
+    depth files, traj.txt, calib.txt); each pair's depth and projection equal
+    bit for bit to a direct ``compute_rgbd`` at the written pose of the scene
+    read back, its pose within 1e-9 and its K equal, its photo within the
+    JPEG's loss of the rendered source (8x8 block means); a
+    ``trace.capture`` of one render holding the ``e57.pairs.render`` span and
+    the ``resolve4_tile`` kernel. The launch counts are set to 0 just before
+    each of three paths and read just after: the pairs CLI run again in
+    process (``generate_pairs.main``; its files must equal the subprocess's),
+    the training CLI in process (``train_unet.main scan.e57 traj.txt
+    calib.txt --targets pairs``, full-width bf16 at 1920x1080, finite losses,
+    each step timed by the host clock between its log lines; its ``python
+    -m`` entry runs in ``train_cli_phase``) and the trained checkpoint
+    reloaded and rendered by ``compute_full``. The direct reference renders
+    are not counted."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rtnr_tpu_torch.apps import generate_pairs, train_unet
+    from rtnr_tpu_torch.camera import Camera
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.data.e57_write import E57Image, scan_from_arrays, write_e57
+    from rtnr_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from rtnr_tpu_torch.data.native import NativeE57
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils import trace
+    from rtnr_tpu_torch.utils.checkpoint import load_unet_variables
+    from rtnr_tpu_torch.utils.image import read_png
+
+    res = {"card": card}
+    timer = trace.StageTimer()
+    scene = Scene.synthetic(POINTS, seed=SEED, extent=10.0)
+    cam = Camera.from_params(1100.0, 1100.0, WIDTH / 2, HEIGHT / 2, WIDTH, HEIGHT)
+    poses = e57_poses()
+    src = Renderer(scene, device="cuda")
+    photos = [src.compute_rgbd(cam, E)["rgb"] for E in poses]
+    del src
+    t0 = time.perf_counter()
+    blobs = [encode_jpeg(p, E57_JPEG_QUALITY, "4:2:0") for p in photos]
+    res["encode_ms_per_photo"] = (time.perf_counter() - t0) * 1e3 / len(blobs)
+
+    D = np.diag([1.0, -1.0, -1.0, 1.0])
+    flen = 0.0055  # m; pixel pitch flen / 1100 gives fx = fy = 1100
+
+    def image_pose(E):  # the E57 pose whose getImage gives world_to_cam == E
+        from rtnr_tpu_torch.apps.generate_pairs import rotmat_to_quat
+
+        P = np.linalg.inv(E) @ D
+        return (*rotmat_to_quat(P[:3, :3]), P[0, 3], P[1, 3], P[2, 3])
+
+    images = [E57Image(jpeg_bytes=b, name=f"photo{k}", pose=image_pose(E), image_width=WIDTH,
+                       image_height=HEIGHT, focal_length=flen, pixel_width=flen / 1100.0,
+                       pixel_height=flen / 1100.0, principal_point_x=WIDTH / 2,
+                       principal_point_y=HEIGHT / 2)
+              for k, (b, E) in enumerate(zip(blobs, poses))]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "scan.e57")
+        with timer.stage("write"):
+            write_e57(path, [scan_from_arrays(scene.points, scene.colors,
+                                              pose=(1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0))], images)
+        res["write_s"] = timer.stages["write"] / 1e3
+        res["file_mb"] = os.path.getsize(path) / 1e6
+        log(f"e57: wrote {POINTS} points (ScaledInteger 0.1 mm) + {len(images)} photos "
+            f"({WIDTH}x{HEIGHT}, JPEG q{E57_JPEG_QUALITY} 4:2:0, encode "
+            f"{res['encode_ms_per_photo']:.1f} ms a photo): {res['write_s']:.3f} s, "
+            f"{res['file_mb']:.3f} MB ({card})")
+
+        cache = os.path.join(d, "cache")
+        with timer.stage("read_cold"):
+            cold = Scene.from_file(path)
+        with timer.stage("read_cache_build"):
+            Scene.from_file(path, cache_dir=cache)
+        with timer.stage("read_cached"):
+            read = Scene.from_file(path, cache_dir=cache)
+        res["from_file_s"] = {k: timer.stages[k] / 1e3
+                              for k in ("read_cold", "read_cache_build", "read_cached")}
+        if read.n_points != POINTS or cold.n_points != POINTS:
+            fail(f"e57: Scene.from_file read {read.n_points} points, not {POINTS}")
+        for k in ("points", "colors", "block_keys"):
+            if not np.array_equal(getattr(cold, k), getattr(read, k)):
+                fail(f"e57: the cached scene's {k} differs from the cold read")
+        if not np.array_equal(read.colors, scene.colors):
+            fail("e57: colours read back differ from the written ones")
+        dq = float(np.abs(read.points.astype(np.float64) - scene.points).max())
+        if dq > 6e-5:
+            fail(f"e57: points read back {dq} m from the written ones (0.1 mm grid)")
+        del cold
+        log(f"e57: Scene.from_file {POINTS} points: cold {res['from_file_s']['read_cold']:.3f} s, "
+            f"building the cache {res['from_file_s']['read_cache_build']:.3f} s, cached "
+            f"{res['from_file_s']['read_cached']:.3f} s; max |read - written| {dq:.3g} m ({card})")
+
+        dec_ms, block_err = [], []
+        with NativeE57(path) as r:
+            if r.image_count != E57_PHOTOS:
+                fail(f"e57: {r.image_count} embedded photos, not {E57_PHOTOS}")
+            for k in range(r.image_count):
+                blob = r.read_blob(k)
+                t0 = time.perf_counter()
+                img = decode_jpeg(blob)
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+                got = img.astype(np.float64).reshape(HEIGHT // 8, 8, WIDTH // 8, 8, 3)
+                want = photos[k].astype(np.float64).reshape(HEIGHT // 8, 8, WIDTH // 8, 8, 3)
+                block_err.append(float(np.abs(got.mean(axis=(1, 3))
+                                              - want.mean(axis=(1, 3))).mean()))
+        res["decode_ms_per_photo"] = dec_ms
+        res["photo_block_mean_err"] = block_err
+        log(f"e57: JPEG decode {[round(v, 3) for v in dec_ms]} ms a {WIDTH}x{HEIGHT} photo "
+            f"(host); 8x8 block-mean error to the rendered source {[round(v, 4) for v in block_err]} "
+            f"({card})")
+        if max(block_err) >= 10.0:  # tests/test_pairs.py:94-99 of the JAX package
+            fail(f"e57: a decoded photo is {max(block_err)} from its source in 8x8 block means")
+
+        out = os.path.join(d, "pairs")
+        cmd = [sys.executable, "-m", "rtnr_tpu_torch.apps.generate_pairs", path, "-o", out,
+               "--cache-dir", os.path.join(d, "cli_cache")]
+        with timer.stage("pairs"):
+            r = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True,
+                               timeout=600)
+        for line in r.stdout.strip().splitlines():
+            log(f"  pairs| {line}")
+        if r.returncode != 0:
+            fail(f"generate_pairs CLI exited {r.returncode}: {r.stderr[-4000:]}")
+        res["pairs_cli_s"] = timer.stages["pairs"] / 1e3
+        names = sorted(os.listdir(out))
+        want = sorted([f"frame_{i + 1}.png" for i in range(E57_PHOTOS)]
+                      + [f"depth_{i + 1}.npz" for i in range(E57_PHOTOS)]
+                      + ["traj.txt", "calib.txt"])
+        if names != want:
+            fail(f"generate_pairs CLI wrote {names}, not {want}")
+        log(f"e57: generate_pairs CLI {res['pairs_cli_s']:.3f} s for {E57_PHOTOS} pairs "
+            f"(a subprocess: start-up, decode, cache, renders, PNG and npz writes; {card})")
+
+        # the same CLI in process, every count set to 0 just before it and read just after
+        out_in = os.path.join(d, "pairs_in_process")
+        for fn in counted.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with timer.stage("pairs_in_process"), contextlib.redirect_stdout(buf):
+            rc = generate_pairs.main([path, "-o", out_in, "--cache-dir",
+                                      os.path.join(d, "cli_cache_in_process")], device="cuda")
+        launches = {"pairs_cli": {k: fn.launches for k, fn in counted.items()}}
+        for line in buf.getvalue().strip().splitlines():
+            log(f"  pairs (in process)| {line}")
+        if rc != 0:
+            fail(f"generate_pairs CLI in process exited {rc}")
+        if sorted(os.listdir(out_in)) != want:
+            fail(f"generate_pairs CLI in process wrote {sorted(os.listdir(out_in))}, not {want}")
+        for name in want:
+            a, b = os.path.join(out, name), os.path.join(out_in, name)
+            if name.endswith(".npz"):
+                za, zb = np.load(a), np.load(b)
+                same = sorted(za.files) == sorted(zb.files) and all(
+                    np.array_equal(za[k], zb[k]) for k in za.files)
+            else:
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    same = fa.read() == fb.read()
+            if not same:
+                fail(f"e57: {name} of the CLI in process differs from the subprocess's")
+        log(f"e57: generate_pairs CLI in process {timer.stages['pairs_in_process'] / 1e3:.3f} s, "
+            f"its files equal to the subprocess's; launches {launches['pairs_cli']}")
+
+        # each pair against a direct render of the scene read back, at the written pose
+        # (these renders are the reference side: their launches are not counted)
+        rr = Renderer(read, device="cuda")
+        npz = [np.load(os.path.join(out, f"depth_{i + 1}.npz")) for i in range(E57_PHOTOS)]
+        direct = [rr.compute_rgbd(Camera(K=z["K"], width=WIDTH, height=HEIGHT,
+                                         dists=(0.0,) * 5), z["world_to_cam"]) for z in npz]
+        torch.cuda.synchronize()
+        for i, (z, ref, E) in enumerate(zip(npz, direct, poses)):
+            if not np.allclose(z["world_to_cam"], E, rtol=0, atol=1e-9):
+                fail(f"e57 pair {i + 1}: world_to_cam {z['world_to_cam']} is not the written pose")
+            if not np.allclose(z["K"], cam.K, rtol=1e-12, atol=0):
+                fail(f"e57 pair {i + 1}: K {z['K']} differs from the written intrinsics")
+            if not (same_bits([torch.from_numpy(z["depth"])], [torch.from_numpy(ref["depth"])])
+                    and np.array_equal(z["proj_rgb"], ref["rgb"])):
+                fail(f"e57 pair {i + 1}: depth / projection differ from a direct compute_rgbd")
+            if not np.array_equal(read_png(os.path.join(out, f"frame_{i + 1}.png")),
+                                  decode_jpeg(blobs[i])):
+                fail(f"e57 pair {i + 1}: the photo PNG is not the decoded JPEG")
+        occ = [float((z["depth"] < 3e38).mean()) for z in npz]
+        log(f"e57: {E57_PHOTOS} pairs equal to direct compute_rgbd renders at their poses (depth "
+            f"bits, projection), poses within 1e-9, K equal; occupancy "
+            f"{[round(v, 4) for v in occ]}")
+        if min(occ) < 0.05:
+            fail(f"e57: a pair sees too little of the cloud (occupancy {min(occ)})")
+
+        trace_dir = os.path.join(d, "trace")
+        with trace.capture(trace_dir):
+            with trace.annotate("e57.pairs.render"):
+                rr.compute_rgbd(cam, poses[0])
+            torch.cuda.synchronize()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        span = [e for e in events if e.get("name") == "e57.pairs.render"]
+        kern = [e for e in events if "resolve4_tile" in str(e.get("name", ""))
+                and e.get("cat") == "kernel"]
+        log(f"e57 trace: {len(span)} e57.pairs.render span(s), {len(kern)} resolve4_tile kernel "
+            f"event(s), {len(events)} events")
+        if not span or not kern:
+            fail("e57 trace lacks the e57.pairs.render span or the resolve4_tile kernel")
+        res["trace"] = {"spans": len(span), "resolve4_tile": len(kern),
+                        "resolve4_tile_us": [e.get("dur") for e in kern]}
+        del rr, direct
+        torch.cuda.empty_cache()
+
+        # the training CLI in process on the pairs, counted as the pairs CLI is; each step
+        # logs after reading its loss back (a device sync), and every log line is stamped
+        # with the host clock as it arrives, so a step is the interval between two lines
+        ckpt = os.path.join(d, "unet.msgpack")
+        for fn in counted.values():
+            fn.launches = 0
+        stamped = StampedLines()
+        with timer.stage("train"), contextlib.redirect_stdout(stamped):
+            rc = train_unet.main([path, os.path.join(out, "traj.txt"),
+                                  os.path.join(out, "calib.txt"), "--targets", out, "--steps",
+                                  str(E57_TRAIN_STEPS), "-o", ckpt, "--log-every", "1"],
+                                 device="cuda")
+        launches["train_cli"] = {k: fn.launches for k, fn in counted.items()}
+        for _, line in stamped.lines[-4:]:
+            log(f"  train| {line}")
+        if rc != 0:
+            fail(f"train CLI on the E57 pairs exited {rc}")
+        steps = [(t, json.loads(line)) for t, line in stamped.lines if line.startswith("{")]
+        logs = [v for _, v in steps]
+        if len(logs) != E57_TRAIN_STEPS or not all(math.isfinite(v["loss"]) for v in logs):
+            fail(f"train CLI on the E57 pairs: {len(logs)} log lines, losses "
+                 f"{[v['loss'] for v in logs]}")
+        step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(steps, steps[1:])]
+        res["train"] = {"steps": E57_TRAIN_STEPS, "cli_s": timer.stages["train"] / 1e3,
+                        "loss_first": logs[0]["loss"], "loss_last": logs[-1]["loss"],
+                        "ms_per_step": statistics.fmean(step_ms),
+                        "ms_per_step_median": statistics.median(step_ms),
+                        "ms_per_step_min": min(step_ms), "ms_per_step_max": max(step_ms)}
+        log(f"e57: train CLI on the pairs at {WIDTH}x{HEIGHT}, {E57_TRAIN_STEPS} steps, bf16 "
+            f"(64, 128, 256, 512): loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f}; "
+            f"{res['train']['ms_per_step']:.3f} ms a step (mean of steps 1-"
+            f"{E57_TRAIN_STEPS - 1}, median {res['train']['ms_per_step_median']:.3f}, min "
+            f"{min(step_ms):.3f}, max {max(step_ms):.3f}; host perf_counter between the "
+            f"steps' log lines), {res['train']['cli_s']:.3f} s with start-up; launches "
+            f"{launches['train_cli']} ({card})")
+
+        rt = Renderer(read, RenderConfig(unet_int8="off"), load_unet_variables(ckpt),
+                      device="cuda")
+        for fn in counted.values():
+            fn.launches = 0
+        with timer.stage("render"):
+            frame = rt.compute_full(cam, poses[0])
+        launches["render"] = {k: fn.launches for k, fn in counted.items()}
+        if frame["rgb"].shape != (HEIGHT, WIDTH, 3) or not np.isfinite(frame["rgb_f"]).all():
+            fail("e57: the trained checkpoint's compute_full is not a finite 1080p frame")
+        del rt, read
+    torch.cuda.empty_cache()
+    # the pairs and the training CLIs run the v4 resolve and nothing else of the port's
+    # kernels (the training net is plain torch); the trained frame runs the bf16 U-Net
+    need = {"pairs_cli": {"resolve4": E57_PHOTOS}, "train_cli": {"resolve4": E57_TRAIN_STEPS},
+            "render": {"resolve4": 1, "conv3x3": 18, "conv3x3_wgmma": 17, "convt2x2": 4,
+                       "convt2x2_wgmma": 4, "conv3x3_in": 1, "conv3x3_in_i8out": 1}}
+    for part, counts in need.items():
+        for k in counted:
+            if launches[part][k] != counts.get(k, 0):
+                fail(f"e57 path, {part}: {k} launched {launches[part][k]} times, not "
+                     f"{counts.get(k, 0)}")
+    res["launches"] = launches
+    res["stage_line"] = timer.line()
+    log(f"e57: {timer.line()} (ms; {card})")
+    return res
+
+
 def trace_step(run, step_ms: float):
     """torch.profiler over one step: device busy time (device-side events)
     against the unprofiled step, and the top device kernels."""
@@ -2341,8 +2684,12 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    # the host library (g++: PLY, .oct, E57, JPEG) builds beside the nvcc builds
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.build_host)
+        built = _build.build_all()
+        built["host (g++)"] = host.result()
     log(f"build: {time.perf_counter() - t0:.2f} s wall "
         f"({', '.join(f'{k} {secs:.2f} s' for k, (secs, _) in built.items())})")
     for k, (_, nvcc_out) in built.items():
@@ -2531,6 +2878,9 @@ def main() -> int:
     # ---- the training CLI, the JAX package's scripts/train_demo_r5.py ----
     train_cli = train_cli_phase(card)
 
+    # ---- the E57 chain: pairs from a 5M-point scanner file, training on them ----
+    e57 = e57_phase(card, counted)
+
     sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
     i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
     in_src = "rtnr_tpu_torch/csrc/conv_in_sm90.cu"
@@ -2583,6 +2933,7 @@ def main() -> int:
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
              "render_cli": host,
+             **{f"e57_{part}": {"launches": n} for part, n in e57["launches"].items()},
              "train_step": train["train_step"], "scene_step": train["scene_step"],
              "conv_direct": conv_direct_path, "serve_fuse_up": fuse_up["serve"],
              "serve_fuse_up_dyn": {"launches": fuse_up["dyn_launches"]},
@@ -2630,7 +2981,8 @@ def main() -> int:
                            "dyn_launches": fuse_up["dyn_launches"]},
                "int8_gate": int8_gate, "int8_kernels": int8_kernels,
                "host": {k: host[k] for k in ("write_s", "from_file_s", "cli", "split", "bench",
-                                             "bench_960x720")}}
+                                             "bench_960x720")},
+               "e57": {k: v for k, v in e57.items() if k != "launches"}}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "train_cli": train_cli,
                               "card": card}}))

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``) and the
+host library (``csrc/host/*.cpp``).
 
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
@@ -12,6 +13,13 @@ Nothing here runs at import time: the first launch on a CUDA tensor calls
 ``load``. Every build passes ``-Xptxas -v``; ``build_all`` returns the
 compiler's per-kernel register / shared-memory / spill report
 (``ptxas_report``).
+
+The host library (the E57 container decoder and the JPEG codec) is one
+``g++`` build of every ``csrc/host/*.cpp`` into the same
+directory, named by a hash of those sources and the flags; ``load_host``
+builds it at first use and raises with the compiler's output if it fails.
+Several processes may build it at once: each compiles to a file of its own
+and moves it in place with ``os.replace``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
+HOST_DIR = SRC_DIR / "host"
 OUT_DIR = Path(__file__).resolve().parent / "_build"
 
 # library name -> (source file, extra nvcc flags)
@@ -47,6 +56,9 @@ _BASE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# the host library's g++ flags (one shared object, C ABI)
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -138,3 +150,50 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``)."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {rc}")
+
+
+def _host_sources() -> List[Path]:
+    return sorted(HOST_DIR.glob("*.cpp"))
+
+
+def host_target() -> Path:
+    h = hashlib.sha256()
+    for src in _host_sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return OUT_DIR / f"librtnr_host_{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> Tuple[float, str]:
+    """Compile the host library if it is missing; returns (seconds, g++'s
+    output) ((0.0, "") if already built). Raises with the output on failure."""
+    out = host_target()
+    if out.exists():
+        return 0.0, ""
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host library (csrc/host) needs a C++ compiler")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [gxx] + HOST_FLAGS + ["-o", str(tmp)] + [str(s) for s in _host_sources()]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed for the host library (rc {r.returncode}):\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0, r.stdout + r.stderr
+
+
+def load_host(bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded host library (built first if needed); ``bind`` sets its
+    functions' argtypes once."""
+    lib = _LIBS.get("host")
+    if lib is None:
+        build_host()
+        lib = ctypes.CDLL(str(host_target()))
+        bind(lib)
+        _LIBS["host"] = lib
+    return lib

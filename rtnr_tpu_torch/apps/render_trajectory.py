@@ -1,12 +1,12 @@
 """CLI: render a camera trajectory through a point cloud on the card.
 
-    python -m rtnr_tpu_torch.apps.render_trajectory <cloud.ply> <traj.txt> <calib.txt> \
+    python -m rtnr_tpu_torch.apps.render_trajectory <cloud.ply|.e57> <traj.txt> <calib.txt> \
         -o renders --stage full --ckpt model.pth.tar --depth --timings
 
 The port's counterpart of ``rtnr_tpu/apps/render_trajectory.py`` (the
 reference example executable, example/render_trajectory/main.cpp:67-102),
-with the same parser: it loads the cloud (``.ply``, or a directory holding a
-``pcd.npz`` cache; ``--cache-dir`` load-or-rebuilds the cache), the
+with the same parser: it loads the cloud (``.ply``, ``.e57``, or a directory
+holding a ``pcd.npz`` cache; ``--cache-dir`` load-or-rebuilds the cache), the
 calibration (COLMAP ``cameras.txt`` or the matrix file) and the trajectory
 (TUM or COLMAP order), renders every frame with ``Renderer`` on the card and
 writes one PNG per frame (``--depth``: a normalised 8-bit depth PNG beside
@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="render_trajectory",
         description="Real-time neural rendering of LiDAR point clouds on an NVIDIA GPU",
     )
-    p.add_argument("cloud", help=".ply point cloud (or a dir holding a pcd.npz cache)")
+    p.add_argument("cloud", help=".ply/.e57 point cloud (or a dir holding a pcd.npz cache)")
     p.add_argument("trajectory", help="trajectory file (TUM or COLMAP images.txt)")
     p.add_argument("calibration", help="COLMAP cameras.txt or matrix-format calibration file")
     p.add_argument("-o", "--output", default="renders", help="output directory for PNGs")

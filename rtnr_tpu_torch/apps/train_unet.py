@@ -1,6 +1,6 @@
 """CLI: fine-tune the refinement U-Net with the rasterizer in the loop.
 
-    python -m rtnr_tpu_torch.apps.train_unet <cloud.ply> <traj.txt> <calib.txt> \
+    python -m rtnr_tpu_torch.apps.train_unet <cloud.ply|.e57> <traj.txt> <calib.txt> \
         --self-supervised --steps 150 --lr 2e-4 -o unet.msgpack
 
 The port's counterpart of ``rtnr_tpu/apps/train_unet.py``, with the same
@@ -35,7 +35,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="train_unet")
-    p.add_argument("cloud", help=".ply cloud or cache dir")
+    p.add_argument("cloud", help=".ply/.e57 cloud or cache dir")
     p.add_argument("trajectory")
     p.add_argument("calibration")
     p.add_argument("--targets", default=None, help="directory of target PNGs (frame_<i>.png)")

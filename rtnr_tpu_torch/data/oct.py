@@ -1,7 +1,7 @@
 """The reference renderer's ``.oct`` scene cache, read and written in numpy.
 
-Byte layout (reference Octreegrid.h:53-114; ``cpp/rtnr_ingest.cpp:198-300``
-reads and writes the same bytes for the JAX package), little-endian:
+Byte layout (reference Octreegrid.h:53-114; the JAX package's C++ ingest
+library reads and writes the same bytes), little-endian:
 
 - header: 4 x int32 ``nx, ny, nz, n_blocks``;
 - per block, in ascending key order: int32 ``key``, uint64 ``n``,

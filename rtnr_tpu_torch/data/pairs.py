@@ -1,14 +1,14 @@
 """Training-pair generation: ground-truth photos aligned with renders.
 
-Counterpart of ``rtnr_tpu/data/pairs.py`` (the reference's
+Counterpart of the JAX package's ``data/pairs.py`` (the reference's
 ``CloudReader::loadCubemaps``, cloudreader.cpp:219-254): for every (photo,
 pose, intrinsics) triple, render the point cloud's depth and projected RGB
 from the same pose with the port's ``Renderer`` on ``device`` (the card by
 default; ``device="cpu"`` runs the kernels' plain twins), so the U-Net can
 be trained against imperfectly aligned ground truth.
 
-``generate_pairs_from_e57`` needs the E57 container decoder, which the port
-does not have yet (ROADMAP A3): it raises ``NotImplementedError``.
+``generate_pairs_from_e57`` takes the photos embedded in a scanner ``.e57``
+(container decoded by the port's host library, JPEG by its own decoder).
 """
 
 from __future__ import annotations
@@ -54,11 +54,28 @@ def generate_pairs(
 
 def generate_pairs_from_e57(path, cache_dir=None, limit: Optional[int] = None,
                             device: str = "cuda") -> List[TrainingPair]:
-    """Training pairs straight from a scanner ``.e57``: not yet ported."""
-    raise NotImplementedError(
-        f"cannot read {path}: training pairs from an .e57 scan need the E57 container "
-        "decoder (the JAX package's cpp/rtnr_e57.cpp and data/e57.py), which the port does "
-        "not have yet (ROADMAP A3)")
+    """Training pairs straight from a scanner ``.e57``: embedded posed
+    photos + depth/projection renders from the same poses -- the full
+    ``loadCubemaps`` pipeline (reference cloudreader.cpp:219-254) with the
+    container decoded natively (``csrc/host/rtnr_e57.cpp``) and ``getImage``'s
+    intrinsics/pose conventions (reference PointCloudReader.cpp:18-51)."""
+    from rtnr_tpu_torch.data.e57 import E57Reader
+
+    scene = Scene.from_file(path, cache_dir=cache_dir)
+    images: List[np.ndarray] = []
+    w2cs: List[np.ndarray] = []
+    cameras: List[Camera] = []
+    with E57Reader(path) as r:
+        n = r.image_count if limit is None else min(limit, r.image_count)
+        for i in range(n):
+            img, w2c, K = r.get_image(i)
+            h, w = img.shape[:2]
+            images.append(img)
+            w2cs.append(w2c)
+            # E57 pinhole images carry no distortion model; 5 explicit zeros
+            # keep the calibration-file round trip valid (camera.py parser)
+            cameras.append(Camera(K=K, width=w, height=h, dists=(0.0,) * 5))
+    return generate_pairs(scene, images, w2cs, cameras, device=device)
 
 
 def batches_for_training(

@@ -208,12 +208,11 @@ class Scene:
         cache_dir: Optional[Union[str, Path]] = None,
         block_size_m: float = RenderConfig.block_size_m,
     ) -> "Scene":
-        """Load a cloud from .ply, with load-or-rebuild caching.
+        """Load a cloud from .ply or .e57, with load-or-rebuild caching.
 
         Same dispatch-and-cache semantics as reference
         ``CloudReader::loadCloud`` (cloudreader.cpp:180-216); a cache hit
-        never reads ``path``. ``.e57`` raises a ``ValueError`` until the
-        port has its own decoder.
+        never reads ``path``.
         """
         if cache_dir is not None:
             cached = cls.load_cache(cache_dir)
@@ -226,8 +225,9 @@ class Scene:
 
             pts, cols = read_ply(path)
         elif ext == ".e57":
-            raise ValueError(f"{path}: .e57 is not read by the port yet (its E57 decoder is "
-                             "ROADMAP A3); convert the cloud to .ply")
+            from rtnr_tpu_torch.data.e57 import read_e57
+
+            pts, cols = read_e57(path)
         else:
             raise ValueError(f"File extension {ext} not supported. Only .e57 and .ply are supported.")
         scene = cls.from_arrays(pts, cols, block_size_m)

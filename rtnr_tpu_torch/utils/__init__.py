@@ -1,2 +1,2 @@
-"""Host utilities of the port: PNG I/O (``image``) and U-Net checkpoints
-(``checkpoint``)."""
+"""Host utilities of the port: PNG I/O (``image``), U-Net checkpoints
+(``checkpoint``) and tracing (``trace``)."""

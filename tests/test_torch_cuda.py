@@ -1001,3 +1001,106 @@ def test_render_cli_full_stage_on_card(cuda, tmp_path, capsys):
         write_png(tmp_path / "want.png", r.compute_full(cam, traj.world_to_cam(i))["rgb"])
         assert (tmp_path / "out" / f"frame_{i + 1}.png").read_bytes() == \
             (tmp_path / "want.png").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the host library on the card's machine: E57 chain and JPEG decoder
+# ---------------------------------------------------------------------------
+
+# a 38x22 4:2:0 quality-90 JPEG with restart markers, made by Pillow 12.1 on
+# libjpeg-turbo 3.1.3, and the SHA-256 of Pillow's decoded RGB pixels
+_JPEG_B64 = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAMCAgMCAgMDAwMEAwMEBQgFBQQEBQoHBwYIDAoMDAsKCwsNDhIQ"
+    "DQ4RDgsLEBYQERMUFRUVDA8XGBYUGBIUFRT/2wBDAQMEBAUEBQkFBQkUDQsNFBQUFBQUFBQUFBQUFBQUFBQU"
+    "FBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBT/wAARCAAWACYDASIAAhEBAxEB/8QAHwAAAQUBAQEB"
+    "AQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKB"
+    "kaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1"
+    "dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl"
+    "5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcF"
+    "BAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5"
+    "OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0"
+    "tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/90ABAAC/9oADAMBAAIRAxEAPwDs"
+    "Lf4pwi0dPtTol0rKswuPKL/L+83MRksTGP3eVHA4yoA4bx78Q7m9guUDNLM7M4DFdhiypXPzfxB9pPfZjjhT"
+    "574J0nWLuGa2nDyMs/zbAP3Q2blPlDOCRngrtHQYyAe7h+E93e203lwttlAfz1wgBIAGB2OMnB9DnPAr864e"
+    "yPAYCvGVW1v6/T0P3+jl2XZNk96ju0vLWy3+X+fy+ftXTUNbuLuSWSSVTMqrG7AZjbIXkAlmCr0Bxgg/w5rs"
+    "PAvw5v8AWLtJ7KKaK3VjJLvcSgA/LnORjBUgAj+EHg5K+yt8DI5DbCeISIGQ/uuQTmNgeOFAwp6jPpjmvTvA"
+    "Xhu00WCKZ3t8IV2RRF9xwwJG1skYB+UcYIwc8g/1bgc7o4XAydJJKK19LX6eSv6H8TZjxdRp5zKjho3blr5d"
+    "P6W6+Vj/0O00/wCE9npNq2nzQywLEV89YnJJkxkAbmGFy0pALn7+QOoBXoOgeJbC0WXMNyxlVX+zR243rgsM"
+    "7MHAGNpwcDABxxkr+VeK+Icz4lzrEZlO9pS93yitI6N9rX7u76n6HluZ5i8JTcaben91fnFsxPhR4AhtrlGe"
+    "3t2jmk+xPCWLKXKGTd8yngAseQeeMAFifRdW0+ysbWa5h0+3jNvbM5SMkbgGILFiDlt6O3I5yNxOTRRX6blf"
+    "7zFR53fW33u35Hw+OxmIllq5pt3VtddOVO33n//R7fxh4vtNL86a3juoLDdvAgcRsX3H5tuTjDbz97sOmSB5"
+    "D4r+Ml5aCV4rSC3kTb5zqgfe0YSUZBPIxnpt3HgjBwCivvMypxpcFY2tBWk401fynOEZL5qTT9T8OyLCUJ8Q"
+    "Rco/af5mTovji51aF7hyZUbaQWGxz2ySpz2zjJ5JOc0UUV+CQwGFUIr2a+4/0by6hTeEpaW91badF2P/2Q==")
+_JPEG_PIXELS_SHA256 = "74240828bdfc4f5bcb509c67330922657c029b57162d374319246cc6760673ef"
+
+
+def test_host_library_decodes_as_libjpeg_here():
+    """The host library built by this machine's g++ decodes a libjpeg-turbo
+    file to the pixels Pillow decoded (a machine without Pillow can run it)."""
+    import base64
+    import hashlib
+
+    from rtnr_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    px = decode_jpeg(base64.b64decode("".join(_JPEG_B64)))
+    assert px.shape == (22, 38, 3)
+    assert hashlib.sha256(px.tobytes()).hexdigest() == _JPEG_PIXELS_SHA256
+    img = np.random.default_rng(5).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    for sub in ("4:4:4", "4:2:0"):
+        again = decode_jpeg(encode_jpeg(img, 95, sub))
+        assert again.shape == img.shape
+
+
+def test_host_library_e57_roundtrip_here(tmp_path):
+    """The E57 container decoder built by this machine's g++ reads back the
+    port's writer: float coordinates bit for bit, 0.1 mm ScaledInteger ones
+    within half a step."""
+    from rtnr_tpu_torch.data.e57 import read_e57
+    from rtnr_tpu_torch.data.e57_write import scan_from_arrays, write_e57
+    from rtnr_tpu_torch.scene import Scene
+
+    s = Scene.synthetic(30_000, seed=9, extent=5.0)
+    write_e57(tmp_path / "s.e57", [scan_from_arrays(s.points, s.colors, cartesian_scale=0.0)])
+    pts, cols = read_e57(tmp_path / "s.e57")
+    np.testing.assert_array_equal(pts, s.points)
+    np.testing.assert_array_equal(cols, s.colors)
+    write_e57(tmp_path / "q.e57", [scan_from_arrays(s.points, s.colors)])
+    pts, cols = read_e57(tmp_path / "q.e57")
+    assert np.abs(pts - s.points).max() <= 0.5e-4 + 1e-6
+    np.testing.assert_array_equal(cols, s.colors)
+
+
+@pytest.mark.cuda
+def test_generate_pairs_from_e57_card_equals_cpu(cuda, tmp_path):
+    """Pairs from a scanner file (two embedded photos, ScaledInteger
+    coordinates) on the card equal the CPU's bit for bit."""
+    from rtnr_tpu_torch.apps.generate_pairs import rotmat_to_quat
+    from rtnr_tpu_torch.data.e57_write import E57Image, scan_from_arrays, write_e57
+    from rtnr_tpu_torch.data.jpeg import encode_jpeg
+    from rtnr_tpu_torch.data.pairs import generate_pairs_from_e57
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+
+    scene = Scene.synthetic(20_000, seed=7, extent=4.0)
+    W, H = 128, 96
+    cam = Camera.from_params(120.0, 120.0, W / 2, H / 2, W, H)
+    r = Renderer(scene, device="cpu")
+    images = []
+    for k in range(2):
+        E = np.eye(4)
+        E[0, 3], E[2, 3] = 0.3 * k, 6.0
+        P = np.linalg.inv(E) @ np.diag([1.0, -1.0, -1.0, 1.0])
+        images.append(E57Image(
+            jpeg_bytes=encode_jpeg(r.compute_rgbd(cam, E)["rgb"], 95), image_width=W,
+            image_height=H, focal_length=0.05, pixel_width=0.05 / 120.0,
+            pixel_height=0.05 / 120.0, principal_point_x=W / 2, principal_point_y=H / 2,
+            pose=(*rotmat_to_quat(P[:3, :3]), P[0, 3], P[1, 3], P[2, 3])))
+    f = tmp_path / "scan.e57"
+    write_e57(f, [scan_from_arrays(scene.points, scene.colors)], images)
+    got = generate_pairs_from_e57(f, cache_dir=tmp_path / "c", device="cuda")
+    want = generate_pairs_from_e57(f, cache_dir=tmp_path / "c", device="cpu")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("image", "depth", "proj_rgb", "world_to_cam"):
+            np.testing.assert_array_equal(getattr(g, k), getattr(w, k), err_msg=k)
+        assert (g.depth < 3e38).mean() > 0.05

@@ -316,7 +316,7 @@ def test_scene_from_ply_with_cache(tmp_path):
     s2 = Scene.from_file(tmp_path / "nonexistent.ply", cache_dir=cache)  # cache hit
     _same_scene(s1, s2)
     (tmp_path / "c.e57").write_bytes(b"")
-    with pytest.raises(ValueError, match="A3"):
+    with pytest.raises(ValueError, match="not an ASTM-E57 file"):
         Scene.from_file(tmp_path / "c.e57")
     with pytest.raises(ValueError, match="not supported"):
         Scene.from_file(tmp_path / "c.xyz")

@@ -1,6 +1,7 @@
 """The port (rtnr_tpu_torch) and chip_smoke.py stand alone: they import with
-JAX, the JAX package and msgpack blocked, and no source of theirs imports
-any of them."""
+JAX, the JAX package, msgpack and Pillow blocked, no source of theirs
+imports any of them, and no source under rtnr_tpu_torch/ names the JAX
+package's C++ (cpp/) or data modules."""
 
 import pathlib
 import re
@@ -12,7 +13,7 @@ PORT = ROOT / "rtnr_tpu_torch"
 
 _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "rtnr_tpu", "msgpack"):
+for name in ("jax", "jaxlib", "flax", "rtnr_tpu", "msgpack", "PIL"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import rtnr_tpu_torch
 mods = ["rtnr_tpu_torch"] + [
@@ -23,7 +24,7 @@ for m in mods:
 import chip_smoke
 assert callable(chip_smoke.main)
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m == "rtnr_tpu" or m.startswith("rtnr_tpu.") or m == "msgpack"]
+       or m == "rtnr_tpu" or m.startswith("rtnr_tpu.") or m == "msgpack" or m == "PIL"]
 assert all(sys.modules[m] is None for m in bad), bad
 print("imported", len(mods))
 """
@@ -36,13 +37,13 @@ def test_port_imports_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split()[-1])
-    assert n >= 33  # every module of the port was imported
+    assert n >= 41  # every module of the port was imported
     # importing chip_smoke must not run it
     assert "card:" not in res.stdout
 
 
 _IMPORT_RE = re.compile(
-    r"^\s*(import\s+(jax|flax|msgpack)\b|from\s+(jax|flax|msgpack)\b"
+    r"^\s*(import\s+(jax|flax|msgpack|PIL)\b|from\s+(jax|flax|msgpack|PIL)\b"
     r"|import\s+rtnr_tpu(\.|\s|$)|from\s+rtnr_tpu(\.|\s))",
     re.MULTILINE,
 )
@@ -50,9 +51,21 @@ _IMPORT_RE = re.compile(
 
 def test_port_sources_never_import_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 34
+    assert len(files) >= 42
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files for m in _IMPORT_RE.finditer(f.read_text())
     ]
+    assert not offenders, offenders
+
+
+def test_port_sources_never_name_the_jax_package_native_code():
+    """The port builds its host library from its own csrc/host sources: no
+    source under rtnr_tpu_torch/ names the JAX package's cpp/ directory or
+    its data modules."""
+    files = [f for f in sorted(PORT.rglob("*"))
+             if f.suffix in (".py", ".cpp", ".cu", ".cuh") and "_build" not in f.parts]
+    assert len(files) >= 49
+    offenders = [f"{f.relative_to(ROOT)}: {word}" for f in files
+                 for word in ("cpp/", "rtnr_tpu/data") if word in f.read_text()]
     assert not offenders, offenders

@@ -1,8 +1,8 @@
 """The port's training-pair module (``rtnr_tpu_torch.data.pairs``) on the
 CPU against the JAX package's ``rtnr_tpu.data.pairs``: ``generate_pairs``
 and ``synthetic_pairs`` render the same depth and projected RGB bit for bit,
-and ``batches_for_training`` yields the same arrays; the E57 route waits for
-the port's E57 decoder."""
+and ``batches_for_training`` yields the same arrays; the E57 route is
+tested in ``test_torch_generate_pairs.py``."""
 
 import numpy as np
 import pytest
@@ -96,5 +96,7 @@ def test_pairs_default_to_the_card(scenes):
 
 
 def test_e57_pairs_name_the_missing_decoder(tmp_path):
-    with pytest.raises(NotImplementedError, match="E57 container decoder"):
+    """A scan the E57 container decoder cannot open names the file and the
+    decoder's reason (the decoder itself is no longer missing)."""
+    with pytest.raises(ValueError, match="cannot open E57 file .*scan.e57: cannot open file"):
         pairs.generate_pairs_from_e57(tmp_path / "scan.e57")
