@@ -157,14 +157,41 @@ Phases (any failure exits non-zero, and the result line is not printed):
    just after each (``rtnr_resolve4`` 6, 20 and 1; the frame's
    ``conv_sm90.cu`` conv 17, K4 4 and input conv 1; nothing else); the
    ``StageTimer`` line of the phase;
-11. one JSON ``kernels`` line: every kernel and int8 mode with its launches
+11. the multi-rank slice (``rtnr_tpu_torch/parallel``; ranks are fresh
+   processes from ``parallel.launch``, sharing the one card): the
+   band-reference forms of ``rtnr_resolve4`` (sums) and
+   ``rtnr_resolve_diff`` at the bench shape (the cloud in four blocks)
+   bit for bit against their twins, the blocks' sums adding up to the whole
+   cloud's, timed in turns against the entries without the reference (with
+   the kernel checks of phase 4); four gloo ranks at the bench cell
+   (``parallel_rank_cases``): ``rasterize_point_sharded`` on (1, 4),
+   ``render_filtered_sharded`` on (2, 2), ``render_full_batch`` on (4, 1)
+   over 8 poses in bf16 and static int8, ``rasterize_tile_sharded`` on (4,)
+   with the per-strip block culling, ``render_full_tile_sharded`` on (4,) at
+   1088 rows and the sharded differentiable forward on (1, 4), each with
+   the launch counts set to 0 just before and read just after, each bit for
+   bit against the one-device frames of the same poses (the strip U-Net's
+   ``rgb_f`` within JAX's seam bounds, mean 2e-3 and max 0.15, away from the
+   image's outer 64 rows, and its uint8 frame within 1 level on average);
+   two ranks run two
+   scene-train steps on (2, 1) at 1080p against one rank stepping both
+   frames (parameters equal on both ranks, the loss within 1e-2); one rank
+   runs the cases on NCCL plus NCCL's collectives; the render CLI through
+   ``torch.distributed.run`` on four ranks (``--batch 4 --stage full`` and
+   ``--tiles 4 --stage project`` byte-equal to the serial CLI's PNGs,
+   ``--tiles 4 --stage full`` against them; with the host phase) and the
+   training CLI on two (the loss falls, the checkpoint renders; with the
+   training-CLI phase);
+12. one JSON ``kernels`` line: every kernel and int8 mode with its launches
    on its path, time, bound, plain twin and library times (the input conv
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
    previous gemm<0,0> time; ``resolve4`` with the old pair's time,
    ``resolve5`` with K6 + K2's, ``resolve_diff`` with K5 + K2 ``float_sums``'s,
    ``expand`` also with its ``float_sums`` time on K5's rows, ``expand`` with the search kernel's,
-   ``conv3x3_up`` with the pair's);
-12. the last line ``{"ok": true, "device": {...}}``.
+   ``conv3x3_up`` with the pair's; the band-reference forms, ``resolve4_ref``
+   and ``resolve_diff_ref``, with their launches on the point-sharded paths
+   of rank 0 and the entries' times without the reference);
+13. the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``rtnr_tpu``.
 """
@@ -869,10 +896,10 @@ def resolve_entries(sp, hw, band, wimg, total):
                                   total2.data_ptr(), stream)
     calls = {
         "resolve4": (lib.rtnr_resolve4, stream_args + (1, 1, packed.data_ptr(), None,
-                                                       depth.data_ptr(), stream)),
+                                                       depth.data_ptr(), None, stream)),
         "resolve4_sums": (lib.rtnr_resolve4, stream_args + (1, 0, sums.data_ptr(),
                                                             cnt.data_ptr(), depth.data_ptr(),
-                                                            stream)),
+                                                            None, stream)),
         "winners": (lib.rtnr_winners, winners_args),
         "expand": (lib.rtnr_expand, (wimg.data_ptr(), cap, total.data_ptr(), hw, 1,
                                      packed.data_ptr(), None, depth.data_ptr(), stream)),
@@ -1056,7 +1083,8 @@ def diff_entries(sd, hw, band):
     scratch, wimg, total = i32(2 * max(-(-n // 1024), 1)), i32(6, max(min(n, hw), 1)), i32(1)
     outs = (sums.data_ptr(), cnt.data_ptr(), depth.data_ptr(), stream)
     calls = {
-        "resolve_diff": (lib.rtnr_resolve_diff, stream_args + (1,) + outs),
+        "resolve_diff": (lib.rtnr_resolve_diff,
+                         stream_args + (1,) + outs[:3] + (None, stream)),
         "winners_f32": (lib.rtnr_winners_f32, stream_args + (scratch.data_ptr(), wimg.data_ptr(),
                                                              wimg.shape[1], total.data_ptr(),
                                                              stream)),
@@ -1418,6 +1446,9 @@ def host_cli_bench_phase(scene, variables, counted, card, static_ms):
                 fail("render CLI depth PNG has the wrong shape")
         del r, frame
         res["split"] = split
+        torch.cuda.empty_cache()
+        res["parallel_cli"] = parallel_cli_runs([cloud, traj_f, calib], ckpt, cache, outdir, tmp,
+                                                card)
         log(f"render CLI --stage full at {WIDTH}x{HEIGHT}, {POINTS} points: {n} PNGs equal to "
             f"compute_full's, {n} depth PNGs; {rec['fps']} fps over {rec['frames']} frames "
             f"({rec['seconds']} s, PNG writes included) on {card}; in process, compute_full "
@@ -1552,6 +1583,7 @@ def train_cli_phase(card):
             outs[tag] = rdr.compute_full(cam, E)["rgb_f"]
             del rdr
         torch.cuda.empty_cache()
+        par_cli = parallel_train_cli(ply, traj, calib, d, card)
     l1 = {k: float(np.abs(v - target).mean()) for k, v in outs.items()}
     if not l1["trained"] < l1["untrained"]:
         fail(f"train CLI: the trained net's L1 {l1['trained']} is not below the untrained "
@@ -1560,7 +1592,7 @@ def train_cli_phase(card):
            "loss_first": logs[0]["loss"], "loss_last": logs[-1]["loss"], "wall_s": wall_s,
            "steps_per_s_incl_startup": TRAIN_CLI_STEPS / wall_s, "ms_per_step": ms_step,
            "steps_per_s": 1e3 / ms_step, "render_l1_untrained": l1["untrained"],
-           "render_l1_trained": l1["trained"], "card": card}
+           "render_l1_trained": l1["trained"], "card": card, "two_ranks": par_cli}
     log(f"train CLI at {TRAIN_CLI_W}x{TRAIN_CLI_H}, 400,000 points, {TRAIN_CLI_STEPS} steps on "
         f"{card}: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f}; {ms_step:.2f} ms/step "
         f"({1e3 / ms_step:.2f} steps/s, CLI clock, steps {logs[0]['step']}-{logs[-1]['step']}); "
@@ -2647,6 +2679,685 @@ def check_culled(renderer, culled, cam, Ec):
     return res
 
 
+# ---- the multi-rank slice (rtnr_tpu_torch/parallel), ranks sharing the card ----
+
+PAR_RANKS = 4  # gloo ranks on the one card
+PAR_POSES = 8  # frames of render_full_batch (two a rank)
+PAR_TRAIN_STEPS = 2  # scene-train steps on (2, 1) against one rank
+# step 0's gradient norms on (2, 1) against one rank, relative, each four to
+# eight times its reading on an NVIDIA H100 80GB HBM3 at 700 W (at most the
+# CPU test's 1e-4, tests/test_torch_parallel_diff.py). One rank convolves
+# both frames at once, each of the two ranks one; the pose norm is a sum
+# over 5M points that cancels to 1e-3 of its terms. f32 (TF32 off) read
+# 3.9e-6, 1.4e-6, 2.1e-4; bf16 2.3e-3, 6.0e-5, 9.3e-3. A merge that drops
+# or doubles a rank's part moves a norm by tens of percent.
+PAR_GRAD_RTOL = {"float32": {"grad_norm": 1e-4, "color_grad_norm": 1e-4,
+                             "pose_grad_norm": 1e-3},
+                 "bfloat16": {"grad_norm": 1e-2, "color_grad_norm": 5e-4,
+                              "pose_grad_norm": 5e-2}}
+TILE_HALO, TILE_UNET_HALO = 96, 32  # the render CLI's arithmetic at 1088 rows, 4 strips
+STRIP_EDGE = 64  # the image's outer rows left out of the strip U-Net's seam bounds
+
+
+def par_counters():
+    """The launch counters of the parallel paths: name -> (wrapper, attribute)."""
+    from rtnr_tpu_torch.ops import conv as cv
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+
+    return {"resolve4": (rr.raster_images_v4, "launches"),
+            "resolve4_ref": (rr.raster_images_v4, "band_ref_launches"),
+            "resolve_diff": (rr.raster_images_diff, "launches"),
+            "resolve_diff_ref": (rr.raster_images_diff, "band_ref_launches"),
+            "winners": (rr.winners, "launches"), "expand": (rr.expand_winners, "launches"),
+            "conv3x3_wgmma": (cv.conv3x3_wgmma, "launches"),
+            "convt2x2_wgmma": (cv.convt2x2_wgmma, "launches"),
+            "conv3x3_in": (cv.conv3x3_in, "launches"),
+            "conv3x3_static_wgmma": (cv.conv3x3_static_wgmma, "launches"),
+            "convt2x2_static_wgmma": (cv.convt2x2_static_wgmma, "launches")}
+
+
+def par_reset():
+    for fn, attr in par_counters().values():
+        setattr(fn, attr, 0)
+
+
+def par_read():
+    return {k: getattr(fn, attr) for k, (fn, attr) in par_counters().items()}
+
+
+def par_poses():
+    """PAR_POSES camera poses around the bench pose (12 m out, moved sideways)."""
+    import numpy as np
+
+    out = []
+    for k in range(PAR_POSES):
+        E = np.eye(4)
+        E[0, 3], E[1, 3], E[2, 3] = 0.25 * k - 1.0, 0.1 * (k % 3), 12.0 - 0.2 * k
+        out.append(E)
+    return out
+
+
+def par_timed(fn):
+    """(fn(), ms on the card's clock, ms on the host clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def _par_eq(got, want) -> bool:
+    import torch
+
+    g = got.view(torch.int32) if got.dtype == torch.float32 else got
+    w = want.view(torch.int32) if want.dtype == torch.float32 else want
+    return g.shape == w.shape and bool(torch.equal(g, w))
+
+
+def parallel_rank_cases(nccl: bool = False):
+    """One rank of the parallel phase (every rank runs it; ``nccl``: the
+    world is one rank on NCCL and every mesh has axes of size 1). Each case:
+    the single-device reference, then the launch counts set to 0, the
+    sharded call (timed), the counts read, its outputs held against the
+    reference bit for bit (``rgb_f`` of the strips within the stated
+    tolerance). Returns the rank's results; raises on a mismatch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rtnr_tpu_torch.camera import Camera
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.ops.culling import build_block_index
+    from rtnr_tpu_torch.ops.raster import rasterize
+    from rtnr_tpu_torch.ops.raster_diff import rasterize_diff_sorted
+    from rtnr_tpu_torch.parallel import collectives as C
+    from rtnr_tpu_torch.parallel.diff import rasterize_diff_point_sharded
+    from rtnr_tpu_torch.parallel.mesh import make_mesh
+    from rtnr_tpu_torch.parallel.render import (
+        rasterize_point_sharded,
+        render_filtered_sharded,
+        render_full_batch,
+    )
+    from rtnr_tpu_torch.parallel.tiles import rasterize_tile_sharded, render_full_tile_sharded
+    from rtnr_tpu_torch.pipeline import Renderer, render_filtered, render_full
+    from rtnr_tpu_torch.scene import Scene
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = world  # every mesh below spans the world
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(), "cases": {}}
+    scene = Scene.synthetic(POINTS, seed=SEED, extent=10.0)
+    cam = Camera.from_params(1100.0, 1100.0, WIDTH / 2, HEIGHT / 2, WIDTH, HEIGHT)
+    variables = init_unet_numpy(SEED, (64, 128, 256, 512))
+    bf16 = Renderer(scene, RenderConfig(), variables, device="cuda")
+    static = Renderer(scene, RenderConfig(unet_int8="static"), variables, device="cuda")
+    poses = par_poses()
+    Ms = torch.stack([bf16._cam_proj(cam, E) for E in poses])
+    static.calibrate(cam, poses[0])
+    pts, cols, valid = bf16.points, bf16.colors, bf16.valid
+    hw = WIDTH * HEIGHT
+
+    def case(name, run, check, frames=1):
+        """One untimed warm-up run (first calls load kernels), then: reset the
+        counts, run (timed), read the counts, check."""
+        run()
+        torch.cuda.synchronize()
+        dist.barrier()
+        par_reset()
+        out, dev_ms, host_ms = par_timed(run)
+        launches = par_read()
+        detail = check(out, launches)
+        res["cases"][name] = {"ms_per_frame": dev_ms / frames, "host_ms_per_frame":
+                              host_ms / frames, "frames": frames, "launches": launches,
+                              **(detail or {})}
+
+    def need(launches, **want):
+        for k, v in want.items():
+            if launches[k] != v:
+                raise AssertionError(f"{k} launched {launches[k]} times, not {v}")
+
+    # 1. one frame, the scene over the points axis: (1, n)
+    mesh = make_mesh((1, n))
+    blk = lambda a: C.shard_rows(a, mesh, "points")
+    ref_rgb, ref_depth = rasterize(pts, cols, Ms[0], width=WIDTH, height=HEIGHT, valid=valid)
+
+    def check_point(out, launches):
+        if not (_par_eq(out[0], ref_rgb) and _par_eq(out[1], ref_depth)):
+            raise AssertionError("rasterize_point_sharded differs from rasterize")
+        two = n > 1  # pass 1, then the band-reference pass
+        need(launches, resolve4=1 + two, resolve4_ref=int(two), winners=0, expand=0)
+
+    case("point_sharded", lambda: rasterize_point_sharded(
+        blk(pts), blk(cols), blk(valid), Ms[0], mesh, width=WIDTH, height=HEIGHT), check_point)
+
+    # 2. render_filtered_sharded on (2, 2) (n == 1: (1, 1)), two frames
+    mesh = make_mesh((2, 2) if n == 4 else (1, n))
+    blk = lambda a: C.shard_rows(a, mesh, "points")
+    nb = mesh.shape["batch"]
+    mine = list(range(2))[mesh.axis_index("batch") * (2 // nb):][:2 // nb]
+    refs = [render_filtered(pts, cols, valid, Ms[f], width=WIDTH, height=HEIGHT) for f in mine]
+
+    def check_filtered(out, launches):
+        for j, r in enumerate(refs):
+            for k in ("raw_rgb", "raw_depth", "rgb", "depth", "mask", "unet_input"):
+                if not _par_eq(out[k][j], r[k]):
+                    raise AssertionError(f"render_filtered_sharded {k} differs (frame {mine[j]})")
+        two = mesh.shape["points"] > 1
+        need(launches, resolve4=len(mine) * (1 + two), resolve4_ref=len(mine) * two)
+
+    case("filtered_sharded", lambda: render_filtered_sharded(
+        blk(pts), blk(cols), blk(valid), Ms[:2], mesh, width=WIDTH, height=HEIGHT),
+        check_filtered, frames=len(mine))
+    del refs
+
+    # 3. render_full_batch on (n, 1): PAR_POSES frames, bf16 and static int8
+    mesh = make_mesh((n, 1))
+    fl = PAR_POSES // n
+    mine = list(range(mesh.axis_index("batch") * fl, (mesh.axis_index("batch") + 1) * fl))
+    for label, r in (("bf16", bf16), ("static", static)):
+        refs = [render_full(pts, cols, valid, Ms[f], r.unet, width=WIDTH, height=HEIGHT,
+                            act_scales=r.act_scales)["rgb_f"] for f in mine]
+
+        def check_full(out, launches, refs=refs, label=label):
+            for j, y in enumerate(refs):
+                if not _par_eq(out["rgb_f"][j], y):
+                    raise AssertionError(f"render_full_batch ({label}) rgb_f differs "
+                                         f"(frame {mine[j]})")
+            if label == "bf16":
+                need(launches, resolve4=fl, resolve4_ref=0, conv3x3_wgmma=17 * fl,
+                     convt2x2_wgmma=4 * fl, conv3x3_in=fl, conv3x3_static_wgmma=0)
+            else:
+                need(launches, resolve4=fl, conv3x3_static_wgmma=17 * fl,
+                     convt2x2_static_wgmma=4 * fl, conv3x3_in=fl, conv3x3_wgmma=0)
+            g = C.gather_frames(out["rgb_unet"], mesh)
+            if tuple(g.shape) != (PAR_POSES, HEIGHT, WIDTH, 3):
+                raise AssertionError(f"gather_frames gave {tuple(g.shape)}")
+
+        case(f"full_batch_{label}", lambda r=r: render_full_batch(
+            pts, cols, valid, Ms, mesh, r.unet, width=WIDTH, height=HEIGHT,
+            act_scales=r.act_scales), check_full, frames=fl)
+        del refs
+    torch.cuda.empty_cache()
+
+    # 4. row strips with the per-strip block culling: (n,) tiles
+    mesh = make_mesh((n,), ("tiles",))
+    index = build_block_index(scene, pad_to_multiple=1024, device=pts.device)
+
+    def check_tiles(out, launches):
+        if not (_par_eq(out[0], ref_rgb) and _par_eq(out[1], ref_depth)):
+            raise AssertionError("rasterize_tile_sharded differs from rasterize")
+        need(launches, resolve4=1, resolve4_ref=0)
+        return {"candidates": out[2].tolist()}
+
+    case("tiles_culled", lambda: rasterize_tile_sharded(
+        pts, cols, valid, Ms[0], mesh, width=WIDTH, height=HEIGHT, block_index=index),
+        check_tiles)
+    del index
+
+    # 5. the whole pipeline on strips at the pyramid height (1088 rows)
+    hp = 1088
+    one = render_full(pts, cols, valid, Ms[0], bf16.unet, width=WIDTH, height=hp)
+    mid = render_filtered(pts, cols, valid, Ms[0], width=WIDTH, height=hp)["unet_input"]
+
+    def check_strips(out, launches):
+        for k in ("raw_rgb", "raw_depth"):
+            if not _par_eq(out[k], one[k]):
+                raise AssertionError(f"render_full_tile_sharded {k} differs")
+        if not _par_eq(out["unet_input"], mid):
+            raise AssertionError("render_full_tile_sharded core unet_input differs")
+        d = (out["rgb_f"] - one["rgb_f"]).abs()
+        rows = d.amax(dim=(1, 2))
+        need(launches, resolve4=1, conv3x3_in=1, conv3x3_wgmma=17, convt2x2_wgmma=4)
+        # away from the image's outer rows, JAX's seam bounds
+        # (tests/test_tiles.py: mean 2e-3, max 0.15). At those rows the zeroed
+        # overlap rows of the first and last strips are not the one-card
+        # net's padding: JAX's strips leave the bounds there too, and the
+        # port's equal JAX's on the border strips
+        # (tests/test_torch_tiles.py, random-BatchNorm weights)
+        inner = d[STRIP_EDGE:hp - STRIP_EDGE]
+        rgb8 = (out["rgb_unet"].float() - one["rgb"].float()).abs()
+        res = {"rgb_f_max": float(d.max()), "rgb_f_mean": float(d.mean()),
+               "rgb_f_inner_max": float(inner.max()), "rgb_f_inner_mean": float(inner.mean()),
+               "rgb_f_scale": float(one["rgb_f"].abs().max()), "rgb8_max": int(rgb8.max()),
+               "rgb8_mean": float(rgb8.mean()), "worst_rows": rows.topk(4).indices.tolist()}
+        if not (res["rgb_f_inner_mean"] < 2e-3 and res["rgb_f_inner_max"] < 0.15
+                and res["rgb8_mean"] <= 1.0):
+            raise AssertionError(f"the strip U-Net's frame is outside the tolerance: {res}")
+        return res
+
+    case("strips_full", lambda: render_full_tile_sharded(
+        pts, cols, valid, Ms[0], mesh, bf16.unet, width=WIDTH, height=hp, halo=TILE_HALO,
+        unet_halo=TILE_UNET_HALO), check_strips)
+    del one, mid
+    torch.cuda.empty_cache()
+
+    # 6. the differentiable forward on (1, n), integer colours: bit for bit
+    mesh = make_mesh((1, n))
+    blk = lambda a: C.shard_rows(a, mesh, "points")
+    colsf = cols.float()
+    ref = rasterize_diff_sorted(pts, colsf, Ms[0], width=WIDTH, height=HEIGHT, valid=valid)
+    c_blk = blk(colsf).clone().requires_grad_(True)
+
+    def check_diff(out, launches):
+        for k in ("rgb", "depth", "count", "mask"):
+            if not _par_eq(getattr(out, k).detach(), getattr(ref, k).detach()):
+                raise AssertionError(f"rasterize_diff_point_sharded {k} differs")
+        two = n > 1
+        need(launches, resolve_diff=1 + two, resolve_diff_ref=int(two))
+        loss = torch.sum(out.rgb * 1e-3) + 1e-6 * torch.sum(torch.where(out.mask, out.depth,
+                                                                          0.0))
+        loss.backward()
+        if not bool(torch.isfinite(c_blk.grad).all()) or float(c_blk.grad.abs().sum()) == 0:
+            raise AssertionError("rasterize_diff_point_sharded colour gradients")
+
+    case("diff_point_sharded", lambda: rasterize_diff_point_sharded(
+        blk(pts), c_blk, Ms[0], mesh, width=WIDTH, height=HEIGHT, valid=blk(valid)),
+        check_diff)
+
+    if nccl:  # NCCL's collectives on CUDA tensors at world size 1
+        x = torch.arange(8, device=pts.device, dtype=torch.float32)
+        y = x.clone()
+        for op in (dist.ReduceOp.MIN, dist.ReduceOp.MAX, dist.ReduceOp.SUM):
+            dist.all_reduce(y, op=op)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        dist.broadcast(y, 0)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, x) and torch.equal(parts[0], x)):
+            raise AssertionError("NCCL collectives at world size 1")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def parallel_train_ranks(steps: int):
+    """Scene-train steps on a (2, 1) mesh, one 1080p frame a rank: ``steps``
+    with the bf16 U-Net, then one with the f32 U-Net (TF32 off); rank 0
+    first runs the same steps on one rank with both frames. Returns the
+    metrics and a digest of the parameters after each step."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rtnr_tpu_torch.camera import Camera
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.ops.raster import rasterize
+    from rtnr_tpu_torch.parallel.mesh import make_mesh
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.train import trainer as tt
+
+    rank = dist.get_rank()
+    scene = Scene.synthetic(POINTS, seed=SEED, extent=10.0)
+    cam = Camera.from_params(1100.0, 1100.0, WIDTH / 2, HEIGHT / 2, WIDTH, HEIGHT)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pts, cols, valid = (torch.from_numpy(a).to(dev)
+                        for a in scene.sorted_by_block().device_arrays(1024))
+    Ms = torch.stack([torch.from_numpy(cam.cam_proj(E).astype(np.float32)).to(dev)
+                      for E in par_poses()[:2]])
+    targets = torch.stack([rasterize(pts, cols, M, width=WIDTH, height=HEIGHT,
+                                     valid=valid)[0].float() / 255.0 for M in Ms])
+    variables = init_unet_numpy(SEED, (64, 128, 256, 512))
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(mesh, dtype=torch.bfloat16, n_steps=steps):
+        state = tt.create_scene_train_state(variables, cols.float().cpu().numpy(),
+                                            Ms.cpu().numpy(), dtype=dtype, learning_rate=1e-4)
+        step = tt.make_scene_train_step(width=WIDTH, height=HEIGHT, mesh=mesh)
+        out = []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, pts, valid, targets)
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for p in state.model.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+            out.append({"ms": (time.perf_counter() - t0) * 1e3, "params": h.hexdigest(),
+                        **{k: float(v) for k, v in m.items()}})
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    res = {"rank": rank}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        res["one_rank"] = run(None)
+        res["one_rank_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    par_reset()
+    res["two_ranks"] = run(make_mesh((2, 1)))
+    res["launches"] = par_read()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        res["one_rank_f32"] = run(None, torch.float32, 1)
+    dist.barrier()
+    res["two_ranks_f32"] = run(make_mesh((2, 1)), torch.float32, 1)
+    return res
+
+
+def parallel_phase(card, rows):
+    """The multi-rank slice on the one card: PAR_RANKS gloo ranks (the
+    backend rule's choice when ranks share a card) run ``parallel_rank_cases``
+    at the bench cell (1920x1080, 5M points, U-Net [64,128,256,512]); two
+    ranks run ``parallel_train_ranks`` (scene-train steps on (2, 1) against
+    one rank); one rank on NCCL runs ``parallel_rank_cases`` on meshes of
+    size 1 plus NCCL's collectives. Every rank's checks must pass; the
+    ranks' launch counts fill the band-reference rows' launches."""
+    import os
+
+    import torch
+    from rtnr_tpu_torch.parallel.launch import run_ranks
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for label, world, target, kw in (
+            ("gloo4", PAR_RANKS, "chip_smoke:parallel_rank_cases", {}),
+            ("train2", 2, "chip_smoke:parallel_train_ranks", {"steps": PAR_TRAIN_STEPS}),
+            ("nccl1", 1, "chip_smoke:parallel_rank_cases", {"nccl": True})):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            res = run_ranks(target, world, kw, device="cuda", threads=2, extra_path=[root],
+                            timeout=600)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"parallel phase {label}: {str(e)[-6000:]}")
+        wall = time.perf_counter() - t0
+        out[label] = {"wall_s": wall, "ranks": res}
+        if label == "train2":
+            one, two = res[0]["one_rank"], [r["two_ranks"] for r in res]
+            # step 0 is where the merge of the U-Net's, the colours' and the
+            # poses' gradients shows before any update moves the two runs apart
+            for dt, a, b in (("bfloat16", two[0][0], one[0]),
+                             ("float32", res[0]["two_ranks_f32"][0], res[0]["one_rank_f32"][0])):
+                grad_rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in PAR_GRAD_RTOL[dt]}
+                log(f"parallel train2 {dt} step 0 gradient norms on (2, 1) vs one rank: "
+                    + ", ".join(f"{k} {a[k]!r} vs {b[k]!r} (rel {v:.3e})"
+                                for k, v in grad_rel.items()))
+                for k, v in grad_rel.items():
+                    if not v <= PAR_GRAD_RTOL[dt][k]:
+                        fail(f"scene-train step 0 ({dt}): {k} {a[k]} on (2, 1) vs {b[k]} on "
+                             f"one rank (rel {v:.3e} > {PAR_GRAD_RTOL[dt][k]})")
+            if res[0]["two_ranks_f32"][0]["params"] != res[1]["two_ranks_f32"][0]["params"]:
+                fail("scene-train f32 step: the two ranks' parameters differ")
+            for s in range(PAR_TRAIN_STEPS):
+                if two[0][s]["params"] != two[1][s]["params"]:
+                    fail(f"scene-train step {s}: the two ranks' parameters differ")
+                rel = abs(two[0][s]["loss"] - one[s]["loss"]) / abs(one[s]["loss"])
+                if not rel <= 1e-2:
+                    fail(f"scene-train step {s}: loss {two[0][s]['loss']} on (2, 1) vs "
+                         f"{one[s]['loss']} on one rank")
+            log(f"parallel train2 ({wall:.1f} s): scene-train steps on (2, 1) at "
+                f"{WIDTH}x{HEIGHT}, one frame a rank: losses {[t['loss'] for t in two[0]]} vs one "
+                f"rank with both frames {[t['loss'] for t in one]}; parameters equal on both "
+                f"ranks after every step; ms/step {[round(t['ms'], 1) for t in two[0]]} (one rank "
+                f"{[round(t['ms'], 1) for t in one]}); peak {res[0]['peak_gib']:.2f} / "
+                f"{res[1]['peak_gib']:.2f} GiB a rank (one rank, two frames "
+                f"{res[0]['one_rank_peak_gib']:.2f}); launches {res[0]['launches']} ({card})")
+            continue
+        for r in res:
+            for name, c in r["cases"].items():
+                log(f"parallel {label} rank {r['rank']}/{r['world']} ({r['backend']}) {name}: "
+                    f"{c['ms_per_frame']:.3f} ms/frame (card), {c['host_ms_per_frame']:.3f} "
+                    f"(host), launches {c['launches']}"
+                    + "".join(f", {k} {v}" for k, v in c.items()
+                              if k not in ("ms_per_frame", "host_ms_per_frame", "launches")))
+        log(f"parallel {label}: {world} rank(s), every case bit for bit against one device "
+            f"({wall:.1f} s wall, peak {max(r['peak_gib'] for r in res):.2f} GiB a rank)")
+    strips = out["gloo4"]["ranks"][0]["cases"]["strips_full"]
+    log(f"strip U-Net (4 strips of 272 rows + 2 x {TILE_UNET_HALO} overlap, bf16) vs one "
+        f"device at 1088 rows: rgb_f max {strips['rgb_f_max']:.4f}, mean "
+        f"{strips['rgb_f_mean']:.5f}; rows {STRIP_EDGE}-{1088 - STRIP_EDGE - 1} max "
+        f"{strips['rgb_f_inner_max']:.4f}, mean {strips['rgb_f_inner_mean']:.5f} (bounds 0.15, "
+        f"2e-3; |rgb_f| max {strips['rgb_f_scale']:.3f}); uint8 frame max {strips['rgb8_max']}, "
+        f"mean {strips['rgb8_mean']:.4f} levels (bound 1); worst rows {strips['worst_rows']}")
+    return out
+
+
+def check_band_ref(points, colors, valid, M, band, rows):
+    """The band-reference forms at the bench shape: the cloud in PAR_RANKS
+    contiguous blocks (the point shards of the parallel paths), each block's
+    local z-buffer from ``rtnr_resolve4``, their minimum as the reference;
+    for each block ``rtnr_resolve4``'s sums form with ``band_ref`` bit for
+    bit against its twin, the blocks' sums adding up to the whole cloud's
+    and the depth output equal to the local z-buffer; ``rtnr_resolve_diff``
+    with ``band_ref`` the same on the integer colours (twin on the card),
+    and on noisy f32 colours against the CPU twin (first block); each form
+    timed through its C entry in turns against the same entry without the
+    reference, beside its twin, its bound and ``segment_reduce`` +
+    ``index_copy_`` over the same in-band runs."""
+    import torch
+    from rtnr_tpu_torch import _build
+    from rtnr_tpu_torch.ops import raster_resolve4 as rr
+    from rtnr_tpu_torch.ops.raster import SortedDiff, project_and_sort, project_and_sort_diff
+
+    hw = WIDTH * HEIGHT
+    n = points.shape[0]
+    b = n // PAR_RANKS
+    blocks = [slice(i * b, (i + 1) * b) for i in range(PAR_RANKS)]
+    sps = [project_and_sort(points[s], colors[s], M, width=WIDTH, height=HEIGHT,
+                            valid=valid[s]) for s in blocks]
+    mins = [rr.raster_images_v4(sp, hw, band)[2] for sp in sps]
+    gmin = torch.stack(mins).amin(0)
+    whole = rr.raster_images_v4(project_and_sort(points, colors, M, width=WIDTH, height=HEIGHT,
+                                                 valid=valid), hw, band)
+    tot = [torch.zeros_like(whole[0]), torch.zeros_like(whole[1])]
+    for sp, lm in zip(sps, mins):
+        got = rr.raster_images_v4(sp, hw, band, band_ref=gmin)
+        if not same_bits(got, rr.raster_images_v4_plain(sp, hw, band, band_ref=gmin)):
+            fail("rtnr_resolve4 (band_ref) differs from its twin")
+        if not same_bits(got[2:], (lm,)):
+            fail("rtnr_resolve4 (band_ref): the depth output is not the local z-buffer")
+        tot[0] += got[0]
+        tot[1] += got[1]
+    if not (same_bits(tot, whole[:2]) and same_bits((gmin,), whole[2:])):
+        fail("the blocks' band_ref sums do not add up to the whole cloud's raster")
+
+    sds = [project_and_sort_diff(points[s], colors[s].float(), M, width=WIDTH, height=HEIGHT,
+                                 valid=valid[s])[0] for s in blocks]
+    dmins = [rr.raster_images_diff(sd, hw, band)[2] for sd in sds]
+    dref = torch.stack(dmins).amin(0)
+    tsum = torch.zeros((hw, 3), device=M.device)
+    for sd in sds:
+        got = rr.raster_images_diff(sd, hw, band, band_ref=dref)
+        if not same_bits(got, rr.raster_images_diff_plain(sd, hw, band, band_ref=dref)):
+            fail("rtnr_resolve_diff (band_ref) differs from its twin (integer colours)")
+        tsum += got[0]
+    if not torch.equal(tsum, whole[0].float()):
+        fail("the blocks' band_ref diff sums do not add up to the whole cloud's")
+    g = torch.Generator(device=M.device).manual_seed(SEED)
+    sd0 = sds[0]._replace(rgb=(sds[0].rgb + torch.rand(sds[0].rgb.shape, generator=g,
+                                                       device=M.device)).contiguous())
+    got = rr.raster_images_diff(sd0, hw, band, band_ref=dref)
+    cpu = rr.raster_images_diff_plain(SortedDiff(*(t.cpu() for t in sd0)), hw, band,
+                                      band_ref=dref.cpu())
+    if not same_bits([t.cpu() for t in got], cpu):
+        fail("rtnr_resolve_diff (band_ref) differs from its CPU twin on noisy colours")
+    log(f"band_ref forms at {WIDTH}x{HEIGHT}, {n} points in {PAR_RANKS} blocks: rtnr_resolve4 "
+        "(sums) and rtnr_resolve_diff bit for bit against their twins (noisy f32 colours: the "
+        "CPU twin), depth output = the local z-buffer, the blocks' sums = the whole cloud's")
+
+    # times through the C entries, with and without the reference, in turns
+    lib = rr._lib()
+    sp, sd = sps[0], sds[0]
+    stream = torch.cuda.current_stream(M.device).cuda_stream
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=M.device)
+    sums, cnt, depth = i32(hw, 3), i32(hw), i32(hw)
+    outs = (sums.data_ptr(), cnt.data_ptr(), depth.data_ptr())
+    a4 = (sp.pix.data_ptr(), sp.zbits.data_ptr(), sp.packed.data_ptr(), sp.pix.numel(), hw,
+          band, 1, 0) + outs
+    ad = (sd.pix.data_ptr(), sd.zbits.data_ptr(), sd.rgb.data_ptr(), sd.pix.numel(), hw,
+          band, 1) + outs
+    calls = {"r4": (lib.rtnr_resolve4, a4 + (None, stream)),
+             "r4_ref": (lib.rtnr_resolve4, a4 + (gmin.data_ptr(), stream)),
+             "diff": (lib.rtnr_resolve_diff, ad + (None, stream)),
+             "diff_ref": (lib.rtnr_resolve_diff, ad + (dref.data_ptr(), stream))}
+    for name, (fn, args) in calls.items():
+        _build.check(fn(*args), name)
+    k = {name: (lambda fn=fn, args=args: fn(*args)) for name, (fn, args) in calls.items()}
+    r4_ms, r4_ref_ms = turns_ms({"r4": k["r4"], "r4_ref": k["r4_ref"]})
+    d_ms, d_ref_ms = turns_ms({"diff": k["diff"], "diff_ref": k["diff_ref"]})
+    p4 = time_ms(lambda: rr.raster_images_v4_plain(sp, hw, band, band_ref=gmin), reps=2)
+    pd = time_ms(lambda: rr.raster_images_diff_plain(sd, hw, band, band_ref=dref), reps=2)
+    n_in = int((sp.pix < hw).sum())
+    # bytes: the block's in-frame elements once (12 B; 20 B with f32 colour),
+    # the reference at the pixels with points (4 B), 20 B written a pixel
+    n_px = int((mins[0] < 3e38).sum())
+    b4, by4 = bound_ms(12.0 * n_in + 4.0 * n_px + 20.0 * hw, 0.0)
+    bd, byd = bound_ms(20.0 * n_in + 4.0 * n_px + 20.0 * hw, 0.0)
+    # yardsticks, as the resolves' rows: segment_reduce over the same in-band
+    # runs (the band against the reference; f32 lanes r, g, b, 1), then
+    # index_copy_ of the per-pixel rows into a dense (H*W, 4) image
+    z = sp.zbits.view(torch.float32)
+    w = (sp.pix < hw) & ~(z > gmin[sp.pix.clamp(max=hw - 1).long()] + band)
+    pk = sp.packed[w]
+    lanes = torch.stack([pk & 255, (pk >> 8) & 255, (pk >> 16) & 255,
+                         torch.ones_like(pk)], 1).float()
+    cnt4 = rr.raster_images_v4(sp, hw, band, band_ref=gmin)[1]
+    lanes_f = torch.cat([sd.rgb[w], torch.ones_like(sd.rgb[w, :1])], 1)
+
+    def library(data):
+        lengths = cnt4[cnt4 > 0].to(torch.int64)
+        if int(lengths.sum()) != data.shape[0]:
+            fail("band_ref yardstick: the in-band runs do not match the counts")
+        occupied = (cnt4 > 0).nonzero()[:, 0]
+        dense = torch.zeros((hw, 4), dtype=torch.float32, device=M.device)
+        return lambda: dense.index_copy_(0, occupied, torch.segment_reduce(
+            data, "sum", lengths=lengths, axis=0))
+
+    lib4, libd = time_ms(library(lanes)), time_ms(library(lanes_f))
+    rows["resolve4_ref"] = dict(ms=r4_ref_ms, plain_ms=p4, bound_ms=b4, bound_by=by4,
+                                library_ms=lib4, max_abs_err=0.0, without_ref_ms=r4_ms)
+    rows["resolve_diff_ref"] = dict(ms=d_ref_ms, plain_ms=pd, bound_ms=bd, bound_by=byd,
+                                    library_ms=libd, max_abs_err=0.0, without_ref_ms=d_ms)
+    log(f"band_ref (C entries, one block of {sp.pix.numel()} points, {n_in} in frame): "
+        f"rtnr_resolve4 sums {r4_ref_ms:.4f} ms with the reference, {r4_ms:.4f} without, in "
+        f"turns (bound {b4:.4f} {by4}, twin {p4:.4f}, segment_reduce + index_copy_ "
+        f"{lib4:.4f}); rtnr_resolve_diff {d_ref_ms:.4f} ms with, {d_ms:.4f} without (bound "
+        f"{bd:.4f} {byd}, twin {pd:.4f}, segment_reduce + index_copy_ {libd:.4f})")
+
+
+PAR_CLI_TRAIN_STEPS = 30  # steps of the training CLI on 2 ranks
+
+
+def torchrun(nproc: int, module: str, args, timeout: float = 400):
+    """``python -m torch.distributed.run --standalone --nproc-per-node N -m
+    module args``: (exit code, stdout, stderr, seconds)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(nproc), "-m", module] + list(args)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def parallel_cli_runs(files, ckpt, cache, serial_full, tmp, card):
+    """The render CLI through ``torch.distributed.run`` on PAR_RANKS ranks
+    sharing the card, on the host phase's files: ``--batch 4 --stage full``
+    (PNGs the serial CLI's bytes), ``--tiles 4 --stage project`` (the serial
+    project PNGs' bytes) and ``--tiles 4 --stage full`` (the U-Net strips:
+    its PNGs against the serial ones, max and mean in levels)."""
+    import os
+
+    import numpy as np
+    from rtnr_tpu_torch.apps import render_trajectory as cli
+    from rtnr_tpu_torch.utils.image import read_png
+
+    serial_proj = os.path.join(tmp, "serial_project")
+    if cli.main(files + ["-o", serial_proj, "--stage", "project", "--cache-dir", cache]) != 0:
+        fail("serial render CLI (project) failed")
+    n = len(CLI_POSES)
+    frames = [f"frame_{i + 1}.png" for i in range(n)]
+    res = {}
+    for label, argv, want in (
+            ("batch_full", ["--batch", "4", "--stage", "full", "--ckpt", ckpt], serial_full),
+            ("tiles_project", ["--tiles", "4", "--stage", "project"], serial_proj),
+            ("tiles_full", ["--tiles", "4", "--stage", "full", "--ckpt", ckpt], serial_full)):
+        out = os.path.join(tmp, label)
+        rc, so, se, secs = torchrun(PAR_RANKS, "rtnr_tpu_torch.apps.render_trajectory",
+                                    files + ["-o", out, "--cache-dir", cache] + argv)
+        for line in so.strip().splitlines():
+            log(f"  {label}| {line}")
+        if rc != 0:
+            fail(f"render CLI {label} on {PAR_RANKS} ranks exited {rc}: {se[-4000:]}")
+        rec = json.loads(so.strip().splitlines()[-1])
+        if sum(1 for line in so.splitlines() if line.startswith("{")) != 1:
+            fail(f"render CLI {label}: the closing line came from more than rank 0")
+        diff = []
+        for f in frames:
+            a, b = read_png(os.path.join(out, f)), read_png(os.path.join(want, f))
+            if label != "tiles_full":
+                with open(os.path.join(out, f), "rb") as x, open(os.path.join(want, f), "rb") as y:
+                    if x.read() != y.read():
+                        fail(f"render CLI {label}: {f} differs from the serial CLI's")
+            diff.append(np.abs(a.astype(np.int32) - b.astype(np.int32)))
+        d = np.stack(diff)
+        if not d.mean() <= 1.0:
+            fail(f"render CLI {label}: mean {d.mean():.4f} levels from the serial frames")
+        res[label] = {"rc": rc, "seconds": secs, "record": rec, "max_levels": int(d.max()),
+                      "mean_levels": float(d.mean())}
+        log(f"render CLI {label} on {PAR_RANKS} ranks sharing the card: exit 0, {n} PNGs "
+            + ("byte-equal to the serial CLI's" if label != "tiles_full" else
+               f"against the serial frames max {int(d.max())}, mean {d.mean():.4f} levels")
+            + f"; {rec['fps']} fps, {secs:.1f} s with start-up ({card})")
+    return res
+
+
+def parallel_train_cli(ply, traj, calib, d, card):
+    """The training CLI through ``torch.distributed.run`` on 2 ranks sharing
+    the card (one frame a rank): the loss falls, rank 0 alone logs and
+    writes the checkpoint, which loads and renders a finite frame."""
+    import os
+
+    import numpy as np
+    from rtnr_tpu_torch.camera import Camera, Trajectory
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils.checkpoint import load_unet_variables
+
+    ckpt = os.path.join(d, "unet2.msgpack")
+    rc, so, se, secs = torchrun(2, "rtnr_tpu_torch.apps.train_unet",
+                                [ply, traj, calib, "--self-supervised", "--steps",
+                                 str(PAR_CLI_TRAIN_STEPS), "--lr", "2e-4", "-o", ckpt,
+                                 "--log-every", "5"])
+    for line in so.strip().splitlines():
+        log(f"  train2| {line}")
+    if rc != 0:
+        fail(f"training CLI on 2 ranks exited {rc}: {se[-4000:]}")
+    logs = [json.loads(line) for line in so.splitlines() if line.startswith("{")]
+    if not logs or logs[-1]["step"] != PAR_CLI_TRAIN_STEPS - 1 or len(
+            {e["step"] for e in logs}) != len(logs):
+        fail(f"training CLI on 2 ranks: {len(logs)} log lines (rank 0 alone logs)")
+    if not logs[-1]["loss"] < logs[0]["loss"]:
+        fail(f"training CLI on 2 ranks: the loss did not fall ({logs[0]['loss']} -> "
+             f"{logs[-1]['loss']})")
+    r = Renderer(Scene.from_file(ply), RenderConfig(), load_unet_variables(ckpt), device="cuda")
+    y = r.compute_full(Camera.load_calibration(calib), Trajectory.load(traj).world_to_cam(8))
+    if not np.isfinite(y["rgb_f"]).all():
+        fail("training CLI on 2 ranks: the checkpoint renders a non-finite frame")
+    del r
+    log(f"training CLI on 2 ranks sharing the card ({card}): {PAR_CLI_TRAIN_STEPS} steps, batch "
+        f"2 (one frame a rank), loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f}, "
+        f"{secs:.1f} s with start-up; the checkpoint loads and renders")
+    return {"steps": PAR_CLI_TRAIN_STEPS, "loss_first": logs[0]["loss"],
+            "loss_last": logs[-1]["loss"], "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -2727,6 +3438,7 @@ def main() -> int:
     check_convs(renderer.unet, x, rows)
     diff_ms = check_diff_raster(renderer.points, renderer.colors, renderer.valid, M,
                                 cfg.depth_band, rows)
+    check_band_ref(renderer.points, renderer.colors, renderer.valid, M, cfg.depth_band, rows)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     counted = {"resolve4": rr.raster_images_v4, "resolve5": r5.raster_images_v5,
@@ -2796,7 +3508,29 @@ def main() -> int:
         f"|ref| max {float(yr.abs().max()):.4g} (budget max 5e-2, mean 5e-3 x {scale:.4g})")
     if not (dmax <= 5e-2 * scale and dmean <= 5e-3 * scale):
         fail("U-Net bf16 output outside the budget against the f32 twin")
-    del yk, yr, x
+    # the strip U-Net's shape (render_full_tile_sharded at 1080p in 4 strips:
+    # 272 + 2 x 32 rows): the kernels take it (same budget), and a static
+    # int8 net runs exact bf16 there (336 % 64 != 0: the int8 gate)
+    xs = x[:, :1088 // PAR_RANKS + 2 * TILE_UNET_HALO].contiguous()
+    for fn in counted.values():
+        fn.launches = 0
+    with torch.no_grad():
+        ys = renderer.unet(xs).float()
+        yq = static_r.unet(xs, act_scales=static_r.act_scales).float()
+        yr = renderer.unet.forward_plain(xs, torch.float32)
+    strip_launches = {k: fn.launches for k, fn in counted.items()}
+    d = (ys - yr).abs()
+    scale = max(1.0, float(yr.abs().max()))
+    log(f"U-Net at the strip shape {tuple(xs.shape)}: bf16 kernels vs f32 twin max "
+        f"{float(d.max()):.4g}, mean {float(d.mean()):.4g} (budget as above x {scale:.4g}); the "
+        f"static net {'equals' if torch.equal(yq, ys) else 'differs from'} the bf16 frame; "
+        f"launches {dict((k, v) for k, v in strip_launches.items() if v)}")
+    if not (float(d.max()) <= 5e-2 * scale and float(d.mean()) <= 5e-3 * scale):
+        fail("U-Net at the strip shape outside the budget against the f32 twin")
+    if not torch.equal(yq, ys) or strip_launches["conv3x3_static_wgmma"] != 0 \
+            or strip_launches["conv3x3_wgmma"] != 34:
+        fail("the strip shape did not run exact bf16 on the sm90 kernels in both nets")
+    del yk, yr, x, xs, ys, yq
 
     check_small_vs_cpu((16, 32))
 
@@ -2881,6 +3615,10 @@ def main() -> int:
     # ---- the E57 chain: pairs from a 5M-point scanner file, training on them ----
     e57 = e57_phase(card, counted)
 
+    # ---- the multi-rank slice: ranks sharing the card, gloo and NCCL ----
+    torch.cuda.empty_cache()
+    par = parallel_phase(card, rows)
+
     sm90_src = "rtnr_tpu_torch/csrc/conv_sm90.cu"
     i8_src = "rtnr_tpu_torch/csrc/conv_i8_sm90.cu"
     in_src = "rtnr_tpu_torch/csrc/conv_in_sm90.cu"
@@ -2962,6 +3700,24 @@ def main() -> int:
             **({k: r[k] for k in ("sums_ms", "sums_bound_ms", "wrapper_ms", "float_sums_ms")
                 if k in r}),
         })
+    # the band-reference forms: launched on the point-sharded paths of the
+    # parallel phase (rank 0 of the four gloo ranks; every rank the same)
+    cases = par["gloo4"]["ranks"][0]["cases"]
+    for name, kernel, case, repl in (
+            ("resolve4_ref", "rtnr_resolve4 (sums form, band_ref)", "point_sharded",
+             "rtnr_tpu/ops/raster_pallas4.py:663, rtnr_tpu/ops/raster_pallas4.py:920"),
+            ("resolve_diff_ref", "rtnr_resolve_diff (band_ref)", "diff_point_sharded",
+             "rtnr_tpu/ops/raster_pallas4.py:872, rtnr_tpu/ops/raster_pallas4.py:920")):
+        r = rows[name]
+        kernels.append({
+            "name": name, "label": kernel, "route": "cuda",
+            "source": "rtnr_tpu_torch/csrc/raster_resolve.cu", "replaces": repl,
+            "launches": cases[case]["launches"][name],
+            "launches_by_path": {f"parallel_{c}": v["launches"][name]
+                                 for c, v in cases.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "without_ref_ms": r["without_ref_ms"]})
     summary = {"ms_per_frame": serve["ms_per_frame"], "frames": serve["frames"],
                "host_out_ms_per_frame": serve["host_out_ms_per_frame"],
                "stage_ms": serve["stage_ms"], "points": POINTS, "width": WIDTH,
@@ -2982,7 +3738,8 @@ def main() -> int:
                "int8_gate": int8_gate, "int8_kernels": int8_kernels,
                "host": {k: host[k] for k in ("write_s", "from_file_s", "cli", "split", "bench",
                                              "bench_960x720")},
-               "e57": {k: v for k, v in e57.items() if k != "launches"}}
+               "e57": {k: v for k, v in e57.items() if k != "launches"},
+               "parallel": par}
     log(json.dumps({"summary": summary}))
     log(json.dumps({"train": {"diff_raster_ms": diff_ms, **train, "train_cli": train_cli,
                               "card": card}}))

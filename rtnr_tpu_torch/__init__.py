@@ -19,6 +19,8 @@ Layout:
 - ``models``: the U-Net (inference), BN folding and weight conversion.
 - ``pipeline``: ``render_rgbd``/``render_filtered``/``render_full`` and
   ``Renderer``.
+- ``parallel``: several ranks on ``torch.distributed`` (point sharding,
+  frame batching, row strips, the sharded differentiable raster).
 
 Kernels are built from ``csrc/*.cu`` with ``nvcc`` at first use on a CUDA
 tensor (``_build.py``); importing the package needs no GPU.

@@ -13,10 +13,16 @@ PNGs (``--targets DIR``: the trajectory entry's file name, else
 ``-o`` writes ``{"params", "batch_stats"}`` as a flax msgpack file, which
 both packages' ``load_unet_variables`` read.
 
-It trains on one card (``main``'s ``device``, for tests; from the shell
-always the card, and it raises without one): ``--batch 0`` is one frame a
-step, ``--batch N`` N frames stacked into one step, what the JAX CLI does
-on one device. Several cards wait for the multi-device module (ROADMAP A4).
+It trains on the card (``main``'s ``device``, for tests; from the shell
+always the card, and it raises without one). Under a launcher
+(``torchrun --nproc-per-node N -m rtnr_tpu_torch.apps.train_unet ...``) it
+trains on N ranks, as the JAX CLI on N devices: the batch is
+``--batch`` (0: N) rounded down to a multiple of N (at least N), every rank
+draws the same frames and trains on its N-th of them
+(``train.trainer.make_train_step(mesh=...)`` on a (N, 1) mesh: global-batch
+BatchNorm, gradients summed over the ranks, parameters equal on every
+rank), and rank 0 logs and writes the checkpoint. On one rank ``--batch N``
+stacks N frames into one step.
 Without ``--init-ckpt`` the net starts from ``init_unet_numpy(0)`` (seeded
 He-normal weights), not from JAX's ``init_unet``: the two initializers give
 different weights.
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -57,6 +64,7 @@ def main(argv=None, device: str = "cuda") -> int:
     args = build_parser().parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from rtnr_tpu_torch.camera import Camera, Trajectory
     from rtnr_tpu_torch.models.convert import init_unet_numpy, to_flax_variables
@@ -75,8 +83,18 @@ def main(argv=None, device: str = "cuda") -> int:
         print("No scene found", file=sys.stderr)
         return 1
 
-    n_dev = 1
-    batch = max(args.batch, n_dev)
+    mesh, rank = None, 0
+    if "WORLD_SIZE" in os.environ:
+        from rtnr_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+        device = init_distributed(device)
+        rank = dist.get_rank()
+        if dist.get_world_size() > 1:
+            mesh = make_mesh((dist.get_world_size(), 1))
+    n_dev = 1 if mesh is None else mesh.world
+    batch = args.batch or n_dev
+    batch -= batch % n_dev or 0
+    batch = max(batch, n_dev)
 
     features = tuple(args.features)
     if args.init_ckpt:
@@ -85,7 +103,7 @@ def main(argv=None, device: str = "cuda") -> int:
         variables = init_unet_numpy(0, features)
     state = create_train_state(variables, features=features, dtype=torch.bfloat16,
                                learning_rate=args.lr, device=device)
-    step_fn = make_train_step(width=camera.width, height=camera.height)
+    step_fn = make_train_step(width=camera.width, height=camera.height, mesh=mesh)
     dev = next(state.model.parameters()).device
 
     pts, cols, valid = scene.sorted_by_block().device_arrays(8 * n_dev)
@@ -122,13 +140,14 @@ def main(argv=None, device: str = "cuda") -> int:
         state, metrics = step_fn(state, points, colors, validd,
                                  torch.from_numpy(projs[sel]).to(dev),
                                  torch.from_numpy(targets[sel]).to(dev))
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if (step % args.log_every == 0 or step == args.steps - 1) and rank == 0:
             print(json.dumps({"step": step, "loss": float(metrics["loss"]),
                               "grad_norm": float(metrics["grad_norm"]),
                               "sec": round(time.perf_counter() - t0, 1)}), flush=True)
 
-    save_msgpack(args.output, to_flax_variables(state.model))
-    print(f"saved {args.output}")
+    if rank == 0:
+        save_msgpack(args.output, to_flax_variables(state.model))
+        print(f"saved {args.output}")
     return 0
 
 

@@ -81,6 +81,21 @@
 // Bound: bytes, 20 B read per in-frame element (pix, z bits, 12 B of colour)
 // and 20 B written a pixel: ~136 MB at 5M points / 1080p, ~41 us at 3.35 TB/s.
 //
+// Band reference (the point-sharded passes, parallel/): rtnr_resolve4's sums
+// form and rtnr_resolve_diff take an optional (hw,) f32 image band_ref. With
+// it, pixel p's band ends at band_ref[p] + band (__fadd_rn) instead of at its
+// own head's depth + band: the band is tested against the z-buffer merged
+// over every point shard, as the reference's accumulate pass reads the final
+// z-buffer (render.cu:101-106); JAX runs the same test before its K5
+// compaction (rtnr_tpu/parallel/diff.py:152-232). The merged minimum is at or
+// below the local head, so the band is still a prefix of the depth-sorted
+// segment; a pixel whose limit lies below its own head gets a zero row. The
+// depth output stays the local head's depth (what the first pass's merge
+// reads). The reference is a compile-time flag (resolve4_ref_tile beside
+// resolve4_tile over one body; resolve_diff_tile<BAND_REF>), so the kernels
+// without it run today's code. Bound: as without it, plus 4 B read
+// a pixel with points.
+//
 // K1 (rtnr_winners, standalone: its tests and the "previous" pair; K5 and K6
 // share its head-count scan): a segment head is an element with pix < hw whose
 // predecessor has another pixel. Each head walks its own segment while
@@ -563,12 +578,15 @@ __device__ __forceinline__ void load_group(const int* __restrict__ pix,
 }
 
 // One tile of rtnr_resolve4: the stream window [s, e) into the tile (at its
-// defaults), pixels [q0, q1).
+// defaults), pixels [q0, q1). BAND_REF: the band of pixel p ends at
+// band_ref[p] + band, not at its head's depth + band (the head still writes
+// the depth row).
+template <bool BAND_REF>
 __device__ __forceinline__ void resolve4_window(const int* __restrict__ pix,
                                                 const int* __restrict__ zbits,
                                                 const int* __restrict__ packed, int n, int s,
                                                 int e, int q0, int q1, float band, int vec,
-                                                int* tile) {
+                                                const float* __restrict__ band_ref, int* tile) {
   int* tr = tile;
   int* tg = tile + TILE_P;
   int* tb = tile + 2 * TILE_P;
@@ -608,7 +626,7 @@ __device__ __forceinline__ void resolve4_window(const int* __restrict__ pix,
           atomicAdd(tc + cur - q0, sc);
         }
         cur = p[j];
-        lim = __fadd_rn(__int_as_float(td[cur - q0]), band);
+        lim = __fadd_rn(BAND_REF ? __ldg(band_ref + cur) : __int_as_float(td[cur - q0]), band);
         sr = sg = sb = sc = 0;
       }
       if (!(__int_as_float(z[j]) > lim)) {
@@ -635,11 +653,15 @@ __device__ __forceinline__ void resolve4_window(const int* __restrict__ pix,
   }
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(TILE_THREADS)
-resolve4_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
-              const int* __restrict__ packed, int n, int hw, float band, int vec,
-              int* __restrict__ out0, int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+// The block's tiles of rtnr_resolve4 (the body of both its kernels).
+template <bool PACKED, bool BAND_REF>
+__device__ __forceinline__ void resolve4_tiles(const int* __restrict__ pix,
+                                               const int* __restrict__ zbits,
+                                               const int* __restrict__ packed, int n, int hw,
+                                               float band, int vec,
+                                               const float* __restrict__ band_ref,
+                                               int* __restrict__ out0, int* __restrict__ out_cnt,
+                                               int* __restrict__ out_depth) {
   __shared__ int4 tile4[TILE_SMEM / 16];
   int* tile = reinterpret_cast<int*>(tile4);
   __shared__ int win[TILES_PER_BLOCK + 1];
@@ -651,11 +673,32 @@ resolve4_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
     const int q1 = min(q0 + TILE_P, hw);
     tile_init(tile);
     __syncthreads();
-    resolve4_window(pix, zbits, packed, n, win[j], win[j + 1], q0, q1, band, vec, tile);
+    resolve4_window<BAND_REF>(pix, zbits, packed, n, win[j], win[j + 1], q0, q1, band, vec,
+                              band_ref, tile);
     __syncthreads();
     tile_store<PACKED>(tile, q0, q1, out0, out_cnt, out_depth);
     __syncthreads();  // the next tile's defaults overwrite this one
   }
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(TILE_THREADS)
+resolve4_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
+              const int* __restrict__ packed, int n, int hw, float band, int vec,
+              int* __restrict__ out0, int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+  resolve4_tiles<PACKED, false>(pix, zbits, packed, n, hw, band, vec, nullptr, out0, out_cnt,
+                                out_depth);
+}
+
+// rtnr_resolve4's sums form with a band reference image (the point-sharded
+// accumulate pass)
+__global__ void __launch_bounds__(TILE_THREADS)
+resolve4_ref_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
+                  const int* __restrict__ packed, int n, int hw, float band, int vec,
+                  const float* __restrict__ band_ref, int* __restrict__ out0,
+                  int* __restrict__ out_cnt, int* __restrict__ out_depth) {
+  resolve4_tiles<false, true>(pix, zbits, packed, n, hw, band, vec, band_ref, out0, out_cnt,
+                              out_depth);
 }
 
 // One tile of rtnr_resolve5: the window [s, e) of the pixel-only-sorted
@@ -809,11 +852,16 @@ __device__ __forceinline__ void write_column(int* tile, int col, const double ac
 // after another: each walks its band prefix from L1/L2 in stream order
 // (walk_band: the same additions in the same order as K5, so the same bits on
 // any colours) and writes its pixel's column of the tile. One head a pixel,
-// so no atomics and no barrier between chunks.
+// so no atomics and no barrier between chunks. BAND_REF: the band ends at
+// band_ref[p] + band instead of the head's depth + band; depth ascends in a
+// segment, so the walk is still a prefix (empty when the limit lies below the
+// head: a zero column with the head's depth).
+template <bool BAND_REF>
 __device__ __forceinline__ void resolve_diff_window(const int* __restrict__ pix,
                                                     const int* __restrict__ zbits,
                                                     const float* __restrict__ rgb, int n, int s,
                                                     int e, int q0, int q1, float band, int vec,
+                                                    const float* __restrict__ band_ref,
                                                     int* tile) {
   const int lane = threadIdx.x & 31;
   int c = s & ~3;  // aligned down: the elements before the window have pix < q0
@@ -837,7 +885,8 @@ __device__ __forceinline__ void resolve_diff_window(const int* __restrict__ pix,
       heads &= heads - 1u;
       const int ph = __ldg(pix + i), zh = __ldg(zbits + i);
       double acc[4] = {0.0, 0.0, 0.0, 0.0};
-      walk_band(pix, zbits, rgb, n, i, ph, __fadd_rn(__int_as_float(zh), band), acc);
+      const float ref = BAND_REF ? __ldg(band_ref + ph) : __int_as_float(zh);
+      walk_band(pix, zbits, rgb, n, i, ph, __fadd_rn(ref, band), acc);
       write_column(tile, ph - q0, acc, zh);
     }
     if (more) {
@@ -847,10 +896,14 @@ __device__ __forceinline__ void resolve_diff_window(const int* __restrict__ pix,
   }
 }
 
+// BAND_REF: rtnr_resolve_diff with a band reference image (the point-sharded
+// forward's second pass); without it band_ref is not read.
+template <bool BAND_REF>
 __global__ void __launch_bounds__(TILE_THREADS)
 resolve_diff_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
                   const float* __restrict__ rgb, int n, int hw, float band, int vec,
-                  int* __restrict__ sums, int* __restrict__ count, int* __restrict__ depth) {
+                  const float* __restrict__ band_ref, int* __restrict__ sums,
+                  int* __restrict__ count, int* __restrict__ depth) {
   __shared__ int4 tile4[TILE_SMEM / 16];
   int* tile = reinterpret_cast<int*>(tile4);
   __shared__ int win[TILES_PER_BLOCK + 1];
@@ -862,7 +915,8 @@ resolve_diff_tile(const int* __restrict__ pix, const int* __restrict__ zbits,
     const int q1 = min(q0 + TILE_P, hw);
     tile_init(tile);
     __syncthreads();
-    resolve_diff_window(pix, zbits, rgb, n, win[j], win[j + 1], q0, q1, band, vec, tile);
+    resolve_diff_window<BAND_REF>(pix, zbits, rgb, n, win[j], win[j + 1], q0, q1, band, vec,
+                                  band_ref, tile);
     __syncthreads();
     tile_store<false>(tile, q0, q1, sums, count, depth);
     __syncthreads();  // the next tile's defaults overwrite this one
@@ -973,13 +1027,21 @@ extern "C" int rtnr_resolve_carriers(const void* pix, const void* zbits, const v
   return (int)cudaGetLastError();
 }
 
+// band_ref: NULL, or a (hw,) f32 image that ends each pixel's band (the sums
+// form only: with packed_out it is refused)
 extern "C" int rtnr_resolve4(const void* pix, const void* zbits, const void* packed, int n,
                              int hw, float band, int vec, int packed_out, void* out0,
-                             void* out_cnt, void* out_depth, void* stream) {
+                             void* out_cnt, void* out_depth, const void* band_ref,
+                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (band_ref && packed_out) return (int)cudaErrorInvalidValue;
   const int blocks = tile_blocks(hw);
   if (blocks == 0) return 0;
-  if (packed_out) {
+  if (band_ref) {
+    resolve4_ref_tile<<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec,
+        (const float*)band_ref, (int*)out0, (int*)out_cnt, (int*)out_depth);
+  } else if (packed_out) {
     resolve4_tile<true><<<blocks, TILE_THREADS, 0, s>>>(
         (const int*)pix, (const int*)zbits, (const int*)packed, n, hw, band, vec, (int*)out0,
         (int*)out_cnt, (int*)out_depth);
@@ -1009,15 +1071,22 @@ extern "C" int rtnr_resolve5(const void* pix, const void* zbits, const void* pac
   return (int)cudaGetLastError();
 }
 
+// band_ref: NULL, or a (hw,) f32 image that ends each pixel's band
 extern "C" int rtnr_resolve_diff(const void* pix, const void* zbits, const void* rgb, int n,
                                  int hw, float band, int vec, void* sums, void* count,
-                                 void* depth, void* stream) {
+                                 void* depth, const void* band_ref, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = tile_blocks(hw);
   if (blocks == 0) return 0;
-  resolve_diff_tile<<<blocks, TILE_THREADS, 0, s>>>((const int*)pix, (const int*)zbits,
-                                                     (const float*)rgb, n, hw, band, vec,
-                                                     (int*)sums, (int*)count, (int*)depth);
+  if (band_ref) {
+    resolve_diff_tile<true><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const float*)rgb, n, hw, band, vec,
+        (const float*)band_ref, (int*)sums, (int*)count, (int*)depth);
+  } else {
+    resolve_diff_tile<false><<<blocks, TILE_THREADS, 0, s>>>(
+        (const int*)pix, (const int*)zbits, (const float*)rgb, n, hw, band, vec, nullptr,
+        (int*)sums, (int*)count, (int*)depth);
+  }
   return (int)cudaGetLastError();
 }
 

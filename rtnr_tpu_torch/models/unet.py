@@ -383,6 +383,15 @@ class UNetTrain(nn.Module):
     tensors are concatenated ``[skip, up]`` (one conv over the concat, the
     same math as the JAX package's split conv); inputs must be padded to a
     multiple of 2**levels, so no bilinear resize arises.
+
+    ``sync_batch_stats(mesh, axis)`` (multi-rank training): the batch
+    statistics are those of the global batch sharded over the mesh's
+    ``axis``, as JAX's BatchNorm sees it under ``jit``: each rank's sums of x
+    and x^2 and its element count are summed over the axis before the
+    division, by a sum whose backward sums the gradients too
+    (``parallel.collectives.psum_autograd``), so every rank's gradients
+    include the other ranks' frames. Without it, or over one rank, the
+    statistics are the batch's ``mean``s.
     """
 
     def __init__(self, params: Dict[str, np.ndarray], stats: Dict[str, np.ndarray],
@@ -397,16 +406,36 @@ class UNetTrain(nn.Module):
             self.register_parameter(_buf(key), nn.Parameter(torch.tensor(np.asarray(a, np.float32))))
         for key, a in stats.items():
             self.register_buffer(_buf(key), torch.tensor(np.asarray(a, np.float32)))
+        self._bn_sync = None
 
     def param(self, key: str) -> torch.Tensor:
         return getattr(self, _buf(key))
+
+    def sync_batch_stats(self, mesh, axis: Optional[str]) -> None:
+        """Batch statistics over ``axis`` of ``mesh`` (class doc); None
+        clears it."""
+        self._bn_sync = None if axis is None or mesh.size(axis) == 1 else (mesh, axis)
+
+    def _batch_moments(self, xf: torch.Tensor):
+        """(E[x], E[x^2]) per channel of the batch (the global one when
+        synchronised)."""
+        if self._bn_sync is None:
+            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        from rtnr_tpu_torch.parallel.collectives import psum_autograd
+
+        mesh, axis = self._bn_sync
+        count = torch.full((1,), float(xf.numel() // xf.shape[1]), device=xf.device)
+        tot = psum_autograd(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                       count]), mesh, axis)
+        c = xf.shape[1]
+        return tot[:c] / tot[-1], tot[c:2 * c] / tot[-1]
 
     def _bn(self, x: torch.Tensor, name: str) -> torch.Tensor:
         mean_buf, var_buf = self.param(f"{name}/mean"), self.param(f"{name}/var")
         xf = x.to(torch.float32)
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = self._batch_moments(xf)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 mean_buf.copy_(_BN_MOMENTUM * mean_buf + (1 - _BN_MOMENTUM) * mean)
                 var_buf.copy_(_BN_MOMENTUM * var_buf + (1 - _BN_MOMENTUM) * var)

@@ -105,6 +105,7 @@ def project_and_sort(
     valid: Optional[torch.Tensor] = None,
     carriers: bool = False,
     depth_key: bool = True,
+    row_offset: Optional[int] = None,
 ) -> SortedPoints:
     """Project, then ONE ``torch.sort`` on the int64 key ``pix << 32 | zbits``.
 
@@ -118,9 +119,18 @@ def project_and_sort(
     stream that K1 reads: ``carriers=True`` appends the H*W carriers and
     flags real points with ``REAL_BIT``; ``depth_key=False`` sorts the int32
     pixel id alone (one 32-bit key: depth order inside a pixel segment is
-    then arbitrary) and gathers ``zbits`` and ``packed`` by the order."""
+    then arbitrary) and gathers ``zbits`` and ``packed`` by the order.
+
+    ``row_offset`` (``raster.py:127-148``) renders the row band
+    [row_offset, row_offset + height) of the full image: v is rounded with
+    the full-image matrix, then the offset is subtracted as an integer, so
+    each point's pixel row is bit-identical to the full-image render (a
+    shift baked into the matrix rounds differently near .5; the row strips
+    of ``parallel/tiles.py``)."""
     hw = width * height
     u, v, z = project_points(points, cam_proj)
+    if row_offset is not None:
+        v = v - int(row_offset)
     pix, ok = _pixel_ids(u, v, z, valid, width, height)
     zs = torch.where(ok, z, torch.full_like(z, float("inf")))
     zbits = zs.view(torch.int32)

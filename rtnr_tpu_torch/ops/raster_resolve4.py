@@ -30,7 +30,8 @@ it.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 twin only for CPU tensors. ``raster_images_v4.launches`` /
-``raster_images_diff.launches`` / ``winners.launches`` /
+``raster_images_diff.launches`` (and both wrappers' ``band_ref_launches``,
+their band-reference form) / ``winners.launches`` /
 ``winners_f32.launches`` / ``expand_winners.launches`` /
 ``expand_search.launches`` count kernel launches.
 """
@@ -68,9 +69,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.rtnr_expand, lib.rtnr_expand_search):
         fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.rtnr_resolve_carriers.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
-    for fn in (lib.rtnr_resolve4, lib.rtnr_resolve5):
-        fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
-    lib.rtnr_resolve_diff.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P]
+    lib.rtnr_resolve5.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
+    # rtnr_resolve4 and rtnr_resolve_diff take a band reference image (or NULL)
+    # before the stream
+    lib.rtnr_resolve4.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P,
+                                  _P]
+    lib.rtnr_resolve_diff.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P,
+                                      _P]
     for fn in (lib.rtnr_expand, lib.rtnr_expand_search, lib.rtnr_resolve_carriers,
                lib.rtnr_resolve4, lib.rtnr_resolve5, lib.rtnr_resolve_diff):
         fn.restype = _I
@@ -89,12 +94,14 @@ def _check_stream(sp: SortedPoints) -> None:
 
 
 def _winner_rows(pix, zbits, hw, depth_band, lanes: torch.Tensor, acc_dtype, out_bits,
-                 seg_min: bool = False):
+                 seg_min: bool = False, band_ref=None):
     """Shared twin body: heads, band membership (``!(z > z_ref + band)``)
     and per-segment in-band sums of the four ``lanes`` (4, n) in
     ``acc_dtype``, turned to int32 rows by ``out_bits``. ``z_ref`` is the
     head's depth, or with ``seg_min`` (K6, any order inside a segment) the
-    segment's minimum; row 4 holds it."""
+    segment's minimum, or with ``band_ref`` (a (hw,) f32 image) that image at
+    the element's pixel; row 4 holds the head's depth (the minimum with
+    ``seg_min``)."""
     n = pix.numel()
     dev = pix.device
     cap = max(min(n, hw), 1)
@@ -112,7 +119,10 @@ def _winner_rows(pix, zbits, hw, depth_band, lanes: torch.Tensor, acc_dtype, out
         idx = torch.arange(n, device=dev)
         head_pos = torch.cummax(torch.where(head, idx, torch.zeros_like(idx)), dim=0).values
         zref, zhead = zbits[head_pos], zbits[head]
-    lim = zref.view(torch.float32) + torch.tensor(depth_band, dtype=torch.float32, device=dev)
+    zref = zref.view(torch.float32)
+    if band_ref is not None:
+        zref = band_ref[torch.clamp(pix, max=max(hw - 1, 0)).to(torch.int64)]
+    lim = zref + torch.tensor(depth_band, dtype=torch.float32, device=dev)
     in_band = ok & ~(zbits.view(torch.float32) > lim)
     wimg = torch.zeros((6, cap), dtype=torch.int32, device=dev)
     acc = torch.zeros((4, cap), dtype=acc_dtype, device=dev)
@@ -142,14 +152,15 @@ def _launch_winners(fn: str, pix, zbits, payload, hw: int, depth_band: float):
     return wimg, total
 
 
-def winners_plain(sp: SortedPoints, hw: int, depth_band: float, seg_min: bool = False):
-    """Plain torch twin of K1 (with ``seg_min``, of K6): same (wimg, total)
-    contract."""
+def winners_plain(sp: SortedPoints, hw: int, depth_band: float, seg_min: bool = False,
+                  band_ref=None):
+    """Plain torch twin of K1 (with ``seg_min``, of K6; with ``band_ref``, of
+    the band-reference form): same (wimg, total) contract."""
     pix, zbits, packed = sp
     lanes = torch.stack([packed & 255, (packed >> 8) & 255, (packed >> 16) & 255,
                          torch.ones_like(packed)], 0)
     return _winner_rows(pix, zbits, hw, depth_band, lanes, torch.int64,
-                        lambda acc: acc.to(torch.int32), seg_min)
+                        lambda acc: acc.to(torch.int32), seg_min, band_ref)
 
 
 def winners(sp: SortedPoints, hw: int, depth_band: float):
@@ -180,15 +191,17 @@ def _check_diff_stream(sd: SortedDiff) -> None:
         raise ValueError("sorted stream tensors must share a device")
 
 
-def winners_f32_plain(sd: SortedDiff, hw: int, depth_band: float):
+def winners_f32_plain(sd: SortedDiff, hw: int, depth_band: float, band_ref=None):
     """Plain torch twin of K5: per-pixel in-band sums of the f32 colours and
     the count, accumulated in f64 (``index_add_``) and rounded once to f32,
     stored as bit patterns. On the CPU ``index_add_`` adds in stream order,
     as the kernel does; on the card it adds with atomics, in any order, which
-    can only move an f64 sum's last bits (integer colours stay exact)."""
+    can only move an f64 sum's last bits (integer colours stay exact).
+    ``band_ref``: the band ends at that (hw,) f32 image's value + band."""
     lanes = torch.cat([sd.rgb.t(), torch.ones_like(sd.rgb[:, :1]).t()], 0)
     return _winner_rows(sd.pix, sd.zbits, hw, depth_band, lanes, torch.float64,
-                        lambda acc: acc.to(torch.float32).view(torch.int32))
+                        lambda acc: acc.to(torch.float32).view(torch.int32),
+                        band_ref=band_ref)
 
 
 def winners_f32(sd: SortedDiff, hw: int, depth_band: float):
@@ -209,23 +222,30 @@ def winners_f32(sd: SortedDiff, hw: int, depth_band: float):
 winners_f32.launches = 0
 
 
-def raster_images_diff_plain(sd: SortedDiff, hw: int, depth_band: float):
-    """Plain torch twin of ``rtnr_resolve_diff``: K5's twin, then K2's
-    ``float_sums`` twin."""
-    wimg, total = winners_f32_plain(sd, hw, depth_band)
+def raster_images_diff_plain(sd: SortedDiff, hw: int, depth_band: float, band_ref=None):
+    """Plain torch twin of ``rtnr_resolve_diff`` (and of its band-reference
+    form): K5's twin, then K2's ``float_sums`` twin."""
+    wimg, total = winners_f32_plain(sd, hw, depth_band, band_ref)
     return expand_plain(wimg, total, hw, False, float_sums=True)
 
 
-def raster_images_diff(sd: SortedDiff, hw: int, depth_band: float):
+def raster_images_diff(sd: SortedDiff, hw: int, depth_band: float, band_ref=None):
     """The differentiable forward's dense images from its (pixel,
     depth)-sorted stream: (sums (HW,3) f32, count (HW,) f32, depth (HW,)
     f32), what ``expand_winners(*winners_f32(sd, hw, band), hw,
     float_sums=True)`` returns. On the card: one launch of
     ``rtnr_resolve_diff`` (no winner image); for CPU tensors the plain
-    twin."""
+    twin.
+
+    ``band_ref`` (a (hw,) f32 image, e.g. the z-buffer merged over point
+    shards): each pixel's band ends at ``band_ref + band`` instead of its
+    head's depth + band; the depth output is still the head's depth.
+    ``raster_images_diff.band_ref_launches`` counts that form's launches
+    (``launches`` counts both)."""
     _check_diff_stream(sd)
+    _check_band_ref(band_ref, hw, sd.pix.device)
     if sd.pix.device.type == "cpu":
-        return raster_images_diff_plain(sd, hw, depth_band)
+        return raster_images_diff_plain(sd, hw, depth_band, band_ref)
     if sd.pix.device.type != "cuda":
         raise ValueError(f"unsupported device {sd.pix.device}")
     dev = sd.pix.device
@@ -234,14 +254,26 @@ def raster_images_diff(sd: SortedDiff, hw: int, depth_band: float):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().rtnr_resolve_diff(
         sd.pix.data_ptr(), sd.zbits.data_ptr(), sd.rgb.data_ptr(), sd.pix.numel(), hw,
-        float(depth_band), vec, out0.data_ptr(), count.data_ptr(), depth.data_ptr(), stream,
+        float(depth_band), vec, out0.data_ptr(), count.data_ptr(), depth.data_ptr(),
+        None if band_ref is None else band_ref.data_ptr(), stream,
     )
     _build.check(rc, "rtnr_resolve_diff")
     raster_images_diff.launches += 1
+    if band_ref is not None:
+        raster_images_diff.band_ref_launches += 1
     return _expand_images(out0, count, depth, False, True)
 
 
 raster_images_diff.launches = 0
+raster_images_diff.band_ref_launches = 0
+
+
+def _check_band_ref(band_ref, hw: int, dev) -> None:
+    if band_ref is None:
+        return
+    if band_ref.dtype != torch.float32 or tuple(band_ref.shape) != (hw,) or \
+            not band_ref.is_contiguous() or band_ref.device != dev:
+        raise ValueError(f"band_ref must be a contiguous ({hw},) float32 tensor on {dev}")
 
 
 def expand_plain(wimg: torch.Tensor, total: torch.Tensor, hw: int, packed_out: bool,
@@ -350,45 +382,62 @@ expand_search.launches = 0
 
 
 def raster_images_v4_plain(sp: SortedPoints, hw: int, depth_band: float,
-                           packed_out: bool = False):
-    """Plain torch twin of ``rtnr_resolve4``: K1's twin, then K2's."""
-    wimg, total = winners_plain(sp, hw, depth_band)
+                           packed_out: bool = False, band_ref=None):
+    """Plain torch twin of ``rtnr_resolve4`` (and of its band-reference
+    form): K1's twin, then K2's."""
+    wimg, total = winners_plain(sp, hw, depth_band, band_ref=band_ref)
     return expand_plain(wimg, total, hw, packed_out)
 
 
 def raster_images_v4(sp: SortedPoints, hw: int, depth_band: float,
-                     packed_out: bool = False):
+                     packed_out: bool = False, band_ref=None):
     """Dense images from a carrier-free (pixel, depth)-sorted stream:
     (sums (HW,3) i32, count (HW,) i32, depth (HW,) f32), or with
     ``packed_out`` (packed rgb (HW,) i32, depth (HW,) f32) — the contract of
     ``raster_images_pallas4``. On the card: one launch of ``rtnr_resolve4``
-    (no winner image); for CPU tensors the plain twin."""
+    (no winner image); for CPU tensors the plain twin.
+
+    ``band_ref`` (sums form only; a (hw,) f32 image, e.g. the z-buffer
+    merged over point shards): each pixel's band ends at ``band_ref +
+    band`` instead of its head's depth + band, the semantics of the JAX
+    package's ``accumulate_sums(sp, min_depth, ...)``; the depth output is
+    still the head's depth. ``raster_images_v4.band_ref_launches`` counts
+    that form's launches (``launches`` counts both)."""
     _check_stream(sp)
+    _check_band_ref(band_ref, hw, sp.pix.device)
+    if band_ref is not None and packed_out:
+        raise ValueError("band_ref needs the sums form (packed_out=False)")
     if sp.pix.device.type == "cpu":
-        return raster_images_v4_plain(sp, hw, depth_band, packed_out)
+        return raster_images_v4_plain(sp, hw, depth_band, packed_out, band_ref)
     if sp.pix.device.type != "cuda":
         raise ValueError(f"unsupported device {sp.pix.device}")
-    out = _launch_tile_resolve("rtnr_resolve4", sp, hw, depth_band, packed_out)
+    out = _launch_tile_resolve("rtnr_resolve4", sp, hw, depth_band, packed_out, band_ref)
     raster_images_v4.launches += 1
+    if band_ref is not None:
+        raster_images_v4.band_ref_launches += 1
     return out
 
 
 def _launch_tile_resolve(fn: str, sp: SortedPoints, hw: int, depth_band: float,
-                         packed_out: bool):
-    """Run a tile resolve's C entry ``fn`` (``rtnr_resolve4`` or
-    ``rtnr_resolve5``) on a CUDA stream -> the dense images."""
+                         packed_out: bool, band_ref=None):
+    """Run a tile resolve's C entry ``fn`` (``rtnr_resolve4``, which also
+    takes ``band_ref``, or ``rtnr_resolve5``) on a CUDA stream -> the dense
+    images."""
     dev = sp.pix.device
     out0, count, depth = _dense_outputs(dev, hw, packed_out)
     # 16-byte stream loads where every pointer allows them
     vec = int(all(t.data_ptr() % 16 == 0 for t in sp))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ref = () if fn != "rtnr_resolve4" else (
+        None if band_ref is None else band_ref.data_ptr(),)
     rc = getattr(_lib(), fn)(
         sp.pix.data_ptr(), sp.zbits.data_ptr(), sp.packed.data_ptr(), sp.pix.numel(), hw,
         float(depth_band), vec, int(packed_out), out0.data_ptr(),
-        None if count is None else count.data_ptr(), depth.data_ptr(), stream,
+        None if count is None else count.data_ptr(), depth.data_ptr(), *ref, stream,
     )
     _build.check(rc, fn)
     return _expand_images(out0, count, depth, packed_out, False)
 
 
 raster_images_v4.launches = 0
+raster_images_v4.band_ref_launches = 0

@@ -1,8 +1,10 @@
 """The port's render CLI (``rtnr_tpu_torch.apps.render_trajectory``) on the
 CPU against the JAX package's CLI on tests/test_cli.py's fixture: the
 project and filtered stages write the JAX CLI's PNG bytes; the full stage
-writes the port Renderer's ``compute_full`` frames; what waits for the
-multi-device module exits 1."""
+writes the port Renderer's ``compute_full`` frames; ``--batch`` in one
+process writes the serial frames; ``--tiles`` without as many ranks and the
+full stage without a checkpoint exit 1 (the CLI on several ranks:
+tests/test_torch_parallel.py)."""
 
 import json
 
@@ -128,14 +130,27 @@ def test_cli_full_stage_writes_compute_full(fixture, capsys, ckpt):
 
 
 @pytest.mark.parametrize("argv, msg", [
-    (["--batch", "2"], "ROADMAP A4"),
-    (["--tiles", "2"], "ROADMAP A4"),
+    (["--tiles", "2"], "needs 2 ranks"),
     (["--stage", "full"], "requires --ckpt"),
 ])
 def test_cli_refuses_what_is_not_there(fixture, capsys, argv, msg):
     tmp, files = fixture
     assert main(files + ["-o", str(tmp / "out")] + argv, device="cpu") == 1
     assert msg in capsys.readouterr().err
+
+
+def test_cli_batch_in_one_process_writes_the_serial_pngs(fixture, capsys):
+    """--batch without a launcher: one rank renders the batch (2 poses
+    padded to 3) and writes the serial CLI's PNGs; the closing line names
+    the batch."""
+    tmp, files = fixture
+    argv = ["--stage", "filtered", "--depth"]
+    assert main(files + ["-o", str(tmp / "batch"), "--batch", "3"] + argv, device="cpu") == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["batch"] == 3 and rec["ranks"] == 1 and rec["frames"] == 2
+    assert main(files + ["-o", str(tmp / "serial")] + argv, device="cpu") == 0
+    got, want = _pngs(tmp / "batch"), _pngs(tmp / "serial")
+    assert len(got) == 4 and got == want
 
 
 def test_cli_defaults_to_the_card_and_raises_without_it(fixture):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (the v4, v5 and differentiable resolves, K1-K6,
+"""The port's CUDA kernels (the v4, v5 and differentiable resolves and their
+band-reference forms, K1-K6,
 the carrier kernel for K7-K9, K10 on K3, K3's fused-ConvTranspose mode, the
 input conv on conv_in_sm90.cu, and the int8 modes of K3/K4 on conv.cu and on
 the s8 wgmma kernels of conv_i8_sm90.cu) against their plain torch twins on
@@ -425,6 +426,72 @@ def _same_bits(a, b):
     return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
                            y.view(torch.int32) if y.dtype == torch.float32 else y)
                for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "one_pixel_20000", "all_culled", "ragged"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_band_ref_forms_match_twins(cuda, case, integer):
+    """The band-reference forms (``band_ref=``: rtnr_resolve4's sums form,
+    rtnr_resolve_diff) on one of two point shards against their twins on
+    the CPU and, for integer colours, on the card. The reference is the
+    shards' merged z-buffer, moved below the local head at a tenth of the
+    pixels (those get zero rows) and to FLT_MAX at another tenth; the depth
+    output stays the local head's; each call counts one launch of each
+    counter; the packed form refuses a reference."""
+    rng = np.random.default_rng(91)
+    hw, n = 96 * 64, 50_000
+    z = np.where(rng.random(n) < 0.5, rng.uniform(4.0, 4.04, n), rng.uniform(2.0, 8.0, n))
+    pix = rng.integers(0, hw + 500, n)
+    if case == "one_pixel_20000":
+        pix, z = np.r_[np.full(20_000, 1000), pix[:3000]], np.r_[rng.uniform(2.0, 2.3, 20_000),
+                                                                 z[:3000]]
+    elif case == "all_culled":
+        pix = np.full(n, hw)
+    elif case == "ragged":
+        hw = 3 * 512 + 517
+        pix = rng.integers(0, hw + 40, n)
+    m = len(pix)
+    cols = rng.integers(0, 256, (m, 3)) if integer else rng.uniform(-40.0, 300.0, (m, 3))
+    shard = rng.random(m) < 0.5
+    mine = _diff_stream(pix[shard], z[shard], cols[shard], hw)
+    other = _diff_stream(pix[~shard], z[~shard], cols[~shard], hw)
+    heads = [rr.raster_images_diff_plain(s, hw, 0.02)[2] for s in (mine, other)]
+    ref = torch.minimum(*heads)
+    move = rng.random(hw)
+    ref = torch.where(torch.from_numpy(move < 0.1), ref - 0.5, ref)
+    ref = torch.where(torch.from_numpy(move > 0.9), torch.full_like(ref, 3.4028234663852886e38),
+                      ref).contiguous()
+    ref_c = ref.to(cuda)
+    sd = tr.SortedDiff(*(x.to(cuda) for x in mine))
+    before = (rr.raster_images_diff.launches, rr.raster_images_diff.band_ref_launches)
+    got = rr.raster_images_diff(sd, hw, 0.02, band_ref=ref_c)
+    assert (rr.raster_images_diff.launches, rr.raster_images_diff.band_ref_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _same_bits([g.cpu() for g in got],
+                      rr.raster_images_diff_plain(mine, hw, 0.02, band_ref=ref))
+    if integer:
+        assert _same_bits(got, rr.raster_images_diff_plain(sd, hw, 0.02, band_ref=ref_c))
+    assert torch.equal(got[2].cpu().view(torch.int32), heads[0].view(torch.int32))
+    # the serving stream's sums form: 8-bit colours packed in one int32, in
+    # _diff_stream's order
+    c8 = rng.integers(0, 256, (int(shard.sum()), 3))
+    packed = (c8[:, 0] | (c8[:, 1] << 8) | (c8[:, 2] << 16)).astype(np.int32)
+    ps = np.asarray(pix[shard], np.int64)
+    ps = np.where(ps < hw, ps, hw)
+    zb = np.where(ps < hw, np.asarray(z[shard], np.float32), np.float32(np.inf)).view(np.int32)
+    sp_cpu = tr.SortedPoints(mine.pix, mine.zbits,
+                             torch.from_numpy(packed[np.lexsort((zb, ps))]))
+    sp = tr.SortedPoints(*(x.to(cuda) for x in sp_cpu))
+    before = (rr.raster_images_v4.launches, rr.raster_images_v4.band_ref_launches)
+    got4 = rr.raster_images_v4(sp, hw, 0.02, band_ref=ref_c)
+    assert (rr.raster_images_v4.launches, rr.raster_images_v4.band_ref_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _same_bits([g.cpu() for g in got4],
+                      rr.raster_images_v4_plain(sp_cpu, hw, 0.02, band_ref=ref))
+    assert _same_bits(got4, rr.raster_images_v4_plain(sp, hw, 0.02, band_ref=ref_c))
+    with pytest.raises(ValueError, match="sums form"):
+        rr.raster_images_v4(sp, hw, 0.02, packed_out=True, band_ref=ref_c)
 
 
 def _resolver_cloud(cuda, n, w, h, seed, one_pixel=0):

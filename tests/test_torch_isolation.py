@@ -23,6 +23,9 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 assert callable(chip_smoke.main)
+parallel = {"rtnr_tpu_torch.parallel." + m
+            for m in ("mesh", "collectives", "launch", "render", "tiles", "diff")}
+assert parallel <= set(mods), parallel - set(mods)
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "rtnr_tpu" or m.startswith("rtnr_tpu.") or m == "msgpack" or m == "PIL"]
 assert all(sys.modules[m] is None for m in bad), bad
@@ -37,7 +40,7 @@ def test_port_imports_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split()[-1])
-    assert n >= 41  # every module of the port was imported
+    assert n >= 48  # every module of the port was imported, parallel/ included
     # importing chip_smoke must not run it
     assert "card:" not in res.stdout
 
@@ -51,7 +54,9 @@ _IMPORT_RE = re.compile(
 
 def test_port_sources_never_import_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 42
+    assert len(files) >= 49
+    assert {"mesh.py", "collectives.py", "launch.py", "render.py", "tiles.py", "diff.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files for m in _IMPORT_RE.finditer(f.read_text())
@@ -65,7 +70,7 @@ def test_port_sources_never_name_the_jax_package_native_code():
     its data modules."""
     files = [f for f in sorted(PORT.rglob("*"))
              if f.suffix in (".py", ".cpp", ".cu", ".cuh") and "_build" not in f.parts]
-    assert len(files) >= 49
+    assert len(files) >= 56
     offenders = [f"{f.relative_to(ROOT)}: {word}" for f in files
                  for word in ("cpp/", "rtnr_tpu/data") if word in f.read_text()]
     assert not offenders, offenders
