@@ -1,0 +1,8 @@
+"""Mean over the window's frames of ``Renderer.last_timings.filter_ms``
+(CUDA events on the render stream, ms)."""
+
+
+def read(run):
+    if not run.frames:
+        return None
+    return sum(f["filter_ms"] for f in run.frames) / len(run.frames)
