@@ -1840,7 +1840,7 @@ def e57_phase(card, counted):
 
         trace_dir = os.path.join(d, "trace")
         with trace.capture(trace_dir):
-            with trace.annotate("e57.pairs.render"):
+            with trace.span("e57.pairs.render"):
                 rr.compute_rgbd(cam, poses[0])
             torch.cuda.synchronize()
         with open(os.path.join(trace_dir, "trace.json")) as f:

@@ -11,6 +11,11 @@ calibration (COLMAP ``cameras.txt`` or the matrix file) and the trajectory
 (TUM or COLMAP order), renders every frame with ``Renderer`` on the card and
 writes one PNG per frame (``--depth``: a normalised 8-bit depth PNG beside
 it), printing each frame's ``RENDER_TIME`` stages and a closing JSON line.
+``--timings`` adds the frame's record (``utils.trace``) to its line: the
+host ms of the culling, of the wait for the last stage and of the copy to
+the host, ``recomputed[0|1]`` for the culled compaction, the points it
+kept and ``overflowed[0|1]`` (more than the culling budget: the frame
+rendered the whole cloud) (serial rendering only).
 
 Stages: ``project`` (the reference example's default, main.cpp:96),
 ``filtered``, ``full`` (the neural pipeline; needs ``--ckpt``, a ``.msgpack``
@@ -81,8 +86,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--features", type=int, nargs="+", default=[64, 128, 256, 512],
                    help="U-Net feature widths (must match the checkpoint)")
     p.add_argument("--timings", action="store_true",
-                   help="per-stage RENDER_TIME (projection/filter/unet) per frame")
+                   help="add the frame's record to each frame's line: culling, wait and "
+                        "copy ms, whether the culled compaction was recomputed, points kept, "
+                        "whether they overflowed the budget")
     return p
+
+
+def record_line(rec) -> str:
+    """A frame's record (``utils.trace.records()``) as the ``--timings`` part
+    of its line: the host ms of the culling, the wait for the last stage and
+    the copy to the host, whether the culled compaction was recomputed, the
+    points it kept ("-" without culling) and whether they overflowed the
+    culling budget, so that the frame rendered the whole cloud."""
+    root = rec["spans"][0]["id"]
+    ms = {sp["name"]: sp["host_ms"] for sp in rec["spans"] if sp["parent"] == root}
+    c = rec["counters"]
+    kept = c.get("cull.kept_points")
+    return (f"cull[{ms.get('frame.cull', 0.0):.2f}], wait[{ms.get('frame.wait', 0.0):.2f}], "
+            f"copy[{ms.get('frame.copy_out', 0.0):.2f}], "
+            f"recomputed[{int(c.get('cull.recomputed', 0))}], "
+            f"kept[{'-' if kept is None else int(kept)}], "
+            f"overflowed[{int(c.get('cull.overflowed', 0))}]")
 
 
 def main(argv=None, device: str = "cuda") -> int:
@@ -109,6 +133,7 @@ def main(argv=None, device: str = "cuda") -> int:
     from rtnr_tpu_torch.config import RenderConfig
     from rtnr_tpu_torch.pipeline import Renderer
     from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils import trace
     from rtnr_tpu_torch.utils.checkpoint import load_unet_variables
     from rtnr_tpu_torch.utils.image import write_png
 
@@ -178,7 +203,10 @@ def main(argv=None, device: str = "cuda") -> int:
             write_png(outdir / frame_name(i), out["rgb"])
             if args.depth:
                 write_depth(frame_name(i), np.asarray(out["depth"]))
-            print(f"[{i + 1}/{len(trajectory)}] {frame_name(i)}  {renderer.last_timings}")
+            line = f"[{i + 1}/{len(trajectory)}] {frame_name(i)}  {renderer.last_timings}"
+            if args.timings:
+                line += f"  {record_line(trace.records(1)[0])}"
+            print(line)
     total = time.perf_counter() - t_start
     fps = len(trajectory) / total if total > 0 else 0.0
     say(json.dumps({"frames": len(trajectory), "seconds": round(total, 3),

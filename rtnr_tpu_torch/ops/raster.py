@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from rtnr_tpu_torch.config import DEPTH_EMPTY
+from rtnr_tpu_torch.utils import trace
 
 # float bounds for the pixel-coordinate cast: |coordinate| <= 2^31 - 128 keeps
 # the int32 conversion defined; every in-frame coordinate is far inside
@@ -143,10 +144,12 @@ def project_and_sort(
                                              device=dev)])
         packed = torch.cat([packed | REAL_BIT, torch.zeros(hw, dtype=torch.int32, device=dev)])
     if not depth_key:
-        pix_s, order = torch.sort(pix)
+        with trace.span("projection.sort", fresh=True):
+            pix_s, order = torch.sort(pix)
         return SortedPoints(pix=pix_s, zbits=zbits[order], packed=packed[order])
     key = (pix.to(torch.int64) << 32) | zbits.to(torch.int64)
-    key_s, order = torch.sort(key)
+    with trace.span("projection.sort", fresh=True):
+        key_s, order = torch.sort(key)
     return SortedPoints(
         pix=(key_s >> 32).to(torch.int32),
         zbits=(key_s & 0xFFFFFFFF).to(torch.int32),

@@ -15,10 +15,10 @@ raises. It takes every option of the JAX ``Renderer``: the bf16, int8
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, ContextManager, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from rtnr_tpu_torch.ops.culling import build_block_index, compact_points, cull_p
 from rtnr_tpu_torch.ops.prefilter import depth_prefilter
 from rtnr_tpu_torch.ops.raster import rasterize, rasterize_packed, unpack_rgb8
 from rtnr_tpu_torch.scene import Scene
+from rtnr_tpu_torch.utils import trace
 
 
 def pyramid_pad_shape(height: int, width: int, levels: int) -> Tuple[int, int]:
@@ -63,24 +64,29 @@ def render_rgbd(points, colors, valid, cam_proj, *, width: int, height: int,
     return {"rgb": rgb, "depth": depth}
 
 
+def _no_stage(name: str) -> ContextManager:
+    return contextlib.nullcontext()
+
+
 def _render(points, colors, valid, cam_proj, unet: Optional[Callable], *, width: int,
             height: int, depth_band: float, levels: int, filter_strength: float,
-            gradient_filter: float, mark: Callable[[], None] = lambda: None):
-    """Raster -> prefilter (-> U-Net when ``unet`` is given); ``mark`` is
-    called after each stage (the Renderer's stage clock)."""
-    if unet is None:
-        raw_rgb, raw_depth = rasterize(points, colors, cam_proj, width=width, height=height,
-                                       valid=valid, depth_band=depth_band)
-    else:  # the integer-average resolve runs inside the resolve kernel
-        packed, raw_depth = rasterize_packed(points, colors, cam_proj, width=width,
-                                             height=height, valid=valid, depth_band=depth_band)
-        raw_rgb = unpack_rgb8(packed)
-    mark()
-    dpad, cpad = pad_to_pyramid(raw_depth, raw_rgb, levels)
-    pf = depth_prefilter(dpad, cpad, levels=levels, filter_strength=filter_strength,
-                         gradient_filter=gradient_filter)
+            gradient_filter: float, stage: Callable[[str], ContextManager] = _no_stage):
+    """Raster -> prefilter (-> U-Net when ``unet`` is given); ``stage(name)``
+    wraps each stage (the Renderer's stage spans)."""
+    with stage("frame.projection"):
+        if unet is None:
+            raw_rgb, raw_depth = rasterize(points, colors, cam_proj, width=width,
+                                           height=height, valid=valid, depth_band=depth_band)
+        else:  # the integer-average resolve runs inside the resolve kernel
+            packed, raw_depth = rasterize_packed(points, colors, cam_proj, width=width,
+                                                 height=height, valid=valid,
+                                                 depth_band=depth_band)
+            raw_rgb = unpack_rgb8(packed)
+    with stage("frame.filter"):
+        dpad, cpad = pad_to_pyramid(raw_depth, raw_rgb, levels)
+        pf = depth_prefilter(dpad, cpad, levels=levels, filter_strength=filter_strength,
+                             gradient_filter=gradient_filter)
     crop = lambda x: x[:height, :width]
-    mark()
     if unet is None:
         return {
             "rgb": crop(pf["filtered_rgb"]),
@@ -92,8 +98,8 @@ def _render(points, colors, valid, cam_proj, unet: Optional[Callable], *, width:
             "raw_rgb": raw_rgb,
             "raw_depth": raw_depth,
         }
-    y = crop(unet(pf["unet_input"][None])[0]).to(torch.float32)
-    mark()
+    with stage("frame.unet"):
+        y = crop(unet(pf["unet_input"][None])[0]).to(torch.float32)
     return {
         # the saturating x255 uint8 frame (reference project_cloud.cu:480)
         "rgb": torch.clamp(torch.round(y * 255.0), 0, 255).to(torch.uint8),
@@ -133,8 +139,9 @@ def render_full(points, colors, valid, cam_proj, unet: UNet, *, width: int, heig
 @dataclasses.dataclass
 class FrameTimings:
     """Per-stage times in ms (the reference's RENDER_TIME print,
-    project_cloud.cu:490): CUDA events on the card, the host clock around
-    the CPU path."""
+    project_cloud.cu:490): the frame's stage spans ``frame.projection``,
+    ``frame.filter``, ``frame.unet`` (``utils.trace``): CUDA events on the
+    card, the host clock around the CPU path."""
 
     projection_ms: float = 0.0
     filter_ms: float = 0.0
@@ -149,30 +156,11 @@ class FrameTimings:
         )
 
 
-class _Clock:
-    """Stage marks: CUDA events on a CUDA device, else the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def spans_ms(self):
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
-
-
 def _numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    """The outputs in host numpy: the frame's ``frame.copy_out`` span."""
+    with trace.span("frame.copy_out"):
+        trace.count("copy_out.bytes", sum(v.numel() * v.element_size() for v in out.values()))
+        return {k: v.detach().cpu().numpy() for k, v in out.items()}
 
 
 class Renderer:
@@ -323,54 +311,104 @@ class Renderer:
             self.unet.prepare_int8(self.act_scales)
         return self.act_scales
 
+    def _frame(self):
+        """The frame's root span (``utils.trace``)."""
+        return trace.span("frame", root=True, device=self.device)
+
+    @contextlib.contextmanager
+    def _staged(self, camera: Camera, extrinsics: np.ndarray, full: bool):
+        """The frame, holding its stages' outputs on the device (``full``:
+        through the U-Net)."""
+        if full and self.unet is None:
+            raise RuntimeError("No U-Net variables given; compute_full unavailable.")
+        with self._frame():
+            yield self._stages(camera, extrinsics, full)
+
+    def _stage(self, stages: List, name: str):
+        """A stage span, timed whether or not the record is on."""
+        sp = trace.span(name, timed=True)
+        stages.append(sp)
+        return sp
+
+    def _cull(self, camera: Camera, extrinsics: np.ndarray, prev: Optional[dict]):
+        """``_view_points`` and the pose upload in the frame's culling span,
+        with its counters (``prev``: the compaction cached when the frame
+        began): (points, colours, valid, the camera matrix on the device).
+        The upload's copy waits for the stream, so after a recompute the span
+        ends once the compaction has run. The calibration may precede it in
+        the frame: its device time starts at an event of its own."""
+        with trace.span("frame.cull", fresh=True):
+            arrays = self._view_points(camera, extrinsics)
+            M = self._cam_proj(camera, extrinsics)
+        cache = self._cull_cache
+        if cache is not None:
+            trace.count("cull.recomputed", int(cache is not prev))
+            trace.count("cull.kept_points", cache["n_kept"])
+            trace.count("cull.overflowed", int(cache["overflowed"]))
+        return (*arrays, M)
+
+    def _wait(self, stages: List) -> None:
+        """Wait for the last stage's end; ``last_timings`` from the stages."""
+        with trace.span("frame.wait"):
+            stages[-1].wait()
+        ms = [sp.ms for sp in stages] + [0.0] * (3 - len(stages))
+        self.last_timings = FrameTimings(projection_ms=ms[0], filter_ms=ms[1], unet_ms=ms[2],
+                                         total_ms=sum(ms))
+
     def compute_rgbd(self, camera: Camera, extrinsics: np.ndarray) -> Dict[str, np.ndarray]:
-        pts, cols, valid = self._view_points(camera, extrinsics)
-        clock = _Clock(self.device)
-        clock.mark()
-        out = render_rgbd(pts, cols, valid, self._cam_proj(camera, extrinsics),
-                          width=camera.width, height=camera.height,
-                          depth_band=self.config.depth_band)
-        clock.mark()
-        (dt,) = clock.spans_ms()
-        self.last_timings = FrameTimings(projection_ms=dt, total_ms=dt)
-        return _numpy(out)
+        with self._frame():
+            pts, cols, valid, M = self._cull(camera, extrinsics, self._cull_cache)
+            stages = []
+            with self._stage(stages, "frame.projection"):
+                out = render_rgbd(pts, cols, valid, M, width=camera.width,
+                                  height=camera.height, depth_band=self.config.depth_band)
+            self._wait(stages)
+            return _numpy(out)
 
     def _stages(self, camera: Camera, extrinsics: np.ndarray, full: bool):
+        """The frame's stages; call inside ``_frame()`` (``_staged``)."""
         cfg = self.config
-        pts, cols, valid = self._view_points(camera, extrinsics)
-        clock = _Clock(self.device)
-        M = self._cam_proj(camera, extrinsics)
-        clock.mark()
+        prev = self._cull_cache
+        if full:
+            self.calibrate(camera, extrinsics)
+        pts, cols, valid, M = self._cull(camera, extrinsics, prev)
+        stages = []
         out = _render(pts, cols, valid, M, self._unet if full else None,
                       width=camera.width, height=camera.height, depth_band=cfg.depth_band,
                       levels=cfg.pyramid_levels, filter_strength=cfg.filter_strength,
-                      gradient_filter=cfg.gradient_filter, mark=clock.mark)
-        spans = clock.spans_ms() + [0.0]
-        self.last_timings = FrameTimings(projection_ms=spans[0], filter_ms=spans[1],
-                                         unet_ms=spans[2], total_ms=sum(spans))
+                      gradient_filter=cfg.gradient_filter,
+                      stage=functools.partial(self._stage, stages))
+        self._wait(stages)
         return out
 
     def compute_filtered_rgbd(self, camera: Camera, extrinsics: np.ndarray,
                               timings: bool = False) -> Dict[str, np.ndarray]:
         """Projection + prefilter; ``timings`` as in ``compute_full``."""
-        return _numpy(self._stages(camera, extrinsics, full=False))
+        with self._staged(camera, extrinsics, full=False) as out:
+            return _numpy(out)
 
     def compute_full_tensors(self, camera: Camera, extrinsics: np.ndarray,
                              timings: bool = False) -> Dict[str, torch.Tensor]:
         """``compute_full`` without the copy to host numpy (outputs stay on
         the device)."""
-        if self.unet is None:
-            raise RuntimeError("No U-Net variables given; compute_full unavailable.")
-        self.calibrate(camera, extrinsics)
-        return self._stages(camera, extrinsics, full=True)
+        with self._staged(camera, extrinsics, full=True) as out:
+            return out
 
     def compute_full(self, camera: Camera, extrinsics: np.ndarray,
                      timings: bool = False) -> Dict[str, np.ndarray]:
         """Full neural render; ``last_timings`` holds the staged times.
+
+        Each call is one frame of the record (``utils.trace``): the root span
+        ``frame`` holds ``frame.cull``, the three stage spans, ``frame.wait``
+        and ``frame.copy_out`` (``frame.projection`` holds
+        ``projection.sort``), with the counters ``cull.recomputed``,
+        ``cull.kept_points``, ``cull.overflowed`` and ``copy_out.bytes``; the
+        view that calibrates static int8 calibrates inside its frame.
 
         ``timings`` (and ``config.stage_timing``) is the JAX package's switch
         to run the stages as separate synchronised programs
         (``rtnr_tpu/pipeline.py:474-488``). The port always marks the same
         stages with CUDA events on one stream, so the switch changes neither
         the outputs nor the timings."""
-        return _numpy(self.compute_full_tensors(camera, extrinsics))
+        with self._staged(camera, extrinsics, full=True) as out:
+            return _numpy(out)

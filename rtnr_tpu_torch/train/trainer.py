@@ -51,6 +51,7 @@ from rtnr_tpu_torch.parallel.diff import rasterize_diff_sharded_batch
 from rtnr_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rtnr_tpu_torch.parallel.render import render_filtered_sharded
 from rtnr_tpu_torch.pipeline import pad_to_pyramid
+from rtnr_tpu_torch.utils import trace
 
 
 def _mesh(mesh: Optional[Mesh], batch_axis: str, points_axis: str) -> Mesh:
@@ -161,28 +162,36 @@ def make_train_step(*, width: int, height: int, depth_band: float = 0.02, levels
                     points_axis: str = "points", batch_axis: str = "batch") -> Callable:
     """step(state, points, colors, valid, cam_projs (F,4,4), targets
     (F,H,W,3) float in [0,1]) -> (state, {"loss", "grad_norm"}). ``mesh``:
-    several ranks (module doc)."""
+    several ranks (module doc). Each call is one step of the record
+    (``utils.trace``): the root span ``step`` holds ``step.render`` (the
+    raster and prefilter), ``step.forward`` (``zero_grad``, the BatchNorm
+    sync, the U-Net and the loss), ``step.backward`` and ``step.optimizer``
+    (the gradient sum, ``global_norm``, Adam)."""
     mesh = _mesh(mesh, batch_axis, points_axis)
 
     def step(state: TrainState, points, colors, valid, cam_projs, targets):
-        with torch.no_grad():
-            x = render_filtered_sharded(
-                points, colors, valid, cam_projs, mesh, width=width, height=height,
-                depth_band=depth_band, levels=levels, filter_strength=filter_strength,
-                gradient_filter=gradient_filter, points_axis=points_axis,
-                batch_axis=batch_axis)["unet_input"]
-        state.optimizer.zero_grad(set_to_none=True)
-        state.model.sync_batch_stats(mesh, batch_axis)
-        loss = _unet_loss(state.model, x, shard_rows(targets, mesh, batch_axis), height, width,
-                          loss_fn)
-        (loss / mesh.size(batch_axis)).backward()
-        params = list(state.model.parameters())
-        _sum_grads(params, mesh, batch_axis)
-        gnorm = global_norm(p.grad for p in params)
-        state.optimizer.step()
-        state.step += 1
-        return state, {"loss": _global_loss(loss.detach(), mesh, batch_axis),
-                       "grad_norm": gnorm}
+        with trace.span("step", root=True, device=points.device):
+            with trace.span("step.render"), torch.no_grad():
+                x = render_filtered_sharded(
+                    points, colors, valid, cam_projs, mesh, width=width, height=height,
+                    depth_band=depth_band, levels=levels, filter_strength=filter_strength,
+                    gradient_filter=gradient_filter, points_axis=points_axis,
+                    batch_axis=batch_axis)["unet_input"]
+            with trace.span("step.forward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                state.model.sync_batch_stats(mesh, batch_axis)
+                loss = _unet_loss(state.model, x, shard_rows(targets, mesh, batch_axis), height,
+                                  width, loss_fn)
+            with trace.span("step.backward"):
+                (loss / mesh.size(batch_axis)).backward()
+            with trace.span("step.optimizer"):
+                params = list(state.model.parameters())
+                _sum_grads(params, mesh, batch_axis)
+                gnorm = global_norm(p.grad for p in params)
+                state.optimizer.step()
+            state.step += 1
+            return state, {"loss": _global_loss(loss.detach(), mesh, batch_axis),
+                           "grad_norm": gnorm}
 
     return step
 
