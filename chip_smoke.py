@@ -106,14 +106,19 @@ Phases (any failure exits non-zero, and the result line is not printed):
    plain conv 15 and ``conv_in_sm90.cu`` 1 a frame) with a trace, the fused net against the f32 twin
    net, its frame against the unfused one, and one dyn frame fused at
    levels 2 and 3; the environment is restored;
-8. the training paths at full width (bf16 U-Net, batch 1, targets the
-   scene's own ``render_rgbd`` frames): 1 warm-up + 3 timed steps of
-   ``make_train_step`` (``rtnr_resolve4`` must launch, K1 and K2 must not) and
-   of ``make_scene_train_step`` (``rtnr_resolve_diff`` must launch, K5 and K2
-   must not), with ms/step, peak device memory per step, finite losses,
-   moved batch statistics, colours and camera matrices, non-zero pose and
-   colour gradients, and a profiler trace of one scene step; then a
-   small scene step on the card against the CPU;
+8. UNetTrain's BatchNorm + ReLU on ``csrc/bn_train.cu`` (``check_bn_train``)
+   at the step's five layer shapes in bf16: forward and backward against the
+   plain layer, two calls equal bit for bit, device time against the plain
+   layer and ``F.batch_norm`` + ``relu``; then the training paths at full
+   width (bf16 U-Net, batch 1, targets the scene's own ``render_rgbd``
+   frames): 1 warm-up + 3 timed steps of ``make_train_step``
+   (``rtnr_resolve4`` must launch, K1 and K2 must not) and of
+   ``make_scene_train_step`` (``rtnr_resolve_diff`` must launch, K5 and K2
+   must not), each with 18 BatchNorm layers a step on the fused kernels, with
+   ms/step, peak device memory per step, finite losses, moved batch
+   statistics, colours and camera matrices, non-zero pose and colour
+   gradients, and a profiler trace of one scene step; then a small scene
+   step on the card against the CPU;
 9. the host layer, the render CLI and the bench line: the 5M-point scene
    written with ``data.ply.write_ply``, a 3-pose TUM trajectory around the
    bench pose, a COLMAP ``cameras.txt`` and a ``.msgpack`` checkpoint of the
@@ -154,7 +159,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    by the host clock between its log lines); the checkpoint reloaded and
    rendered by ``compute_full``; the launch counts set to 0 just before the
    pairs CLI in process, the training CLI and the trained frame, and read
-   just after each (``rtnr_resolve4`` 6, 20 and 1; the frame's
+   just after each (``rtnr_resolve4`` 6, 20 and 1; the training CLI's fused
+   BatchNorm 360; the frame's
    ``conv_sm90.cu`` conv 17, K4 4 and input conv 1; nothing else); the
    ``StageTimer`` line of the phase;
 11. the multi-rank slice (``rtnr_tpu_torch/parallel``; ranks are fresh
@@ -175,7 +181,8 @@ Phases (any failure exits non-zero, and the result line is not printed):
    image's outer 64 rows, and its uint8 frame within 1 level on average);
    two ranks run two
    scene-train steps on (2, 1) at 1080p against one rank stepping both
-   frames (parameters equal on both ranks, the loss within 1e-2); one rank
+   frames (parameters equal on both ranks, the loss within 1e-2, 18 fused
+   BatchNorm layers a step on each rank); one rank
    runs the cases on NCCL plus NCCL's collectives; the render CLI through
    ``torch.distributed.run`` on four ranks (``--batch 4 --stage full`` and
    ``--tiles 4 --stage project`` byte-equal to the serial CLI's PNGs,
@@ -187,6 +194,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    in two rows, ``conv3x3_in`` and ``conv3x3_in_i8out``, with the
    previous gemm<0,0> time; ``resolve4`` with the old pair's time,
    ``resolve5`` with K6 + K2's, ``resolve_diff`` with K5 + K2 ``float_sums``'s,
+   ``bn_train`` summed over a training step's 18 layers,
    ``expand`` also with its ``float_sums`` time on K5's rows, ``expand`` with the search kernel's,
    ``conv3x3_up`` with the pair's; the band-reference forms, ``resolve4_ref``
    and ``resolve_diff_ref``, with their launches on the point-sharded paths
@@ -254,6 +262,24 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Mean device time of one call of ``fn``: its kernels, copies and
+    sets summed from a ``torch.profiler`` trace of ``reps`` calls, so a call
+    whose host side outlasts its device work is timed by the device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def turns_ms(fns: dict):
@@ -1299,6 +1325,9 @@ def train_phase(renderer, cam, E, variables, counted):
         for k in need:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched on the {name} path")
+        if launches["bn_train"] != 18 * (1 + TRAIN_STEPS):  # every BatchNorm of every step
+            fail(f"{name}: {launches['bn_train']} BatchNorm layers on the fused kernels in "
+                 f"{1 + TRAIN_STEPS} steps, not 18 a step")
         for k in absent:
             if launches[k]:
                 fail(f"kernel {k} was launched on the {name} path")
@@ -1317,8 +1346,8 @@ def train_phase(renderer, cam, E, variables, counted):
     state = tt.create_train_state(variables, dtype=torch.bfloat16, device="cuda")
     step = tt.make_train_step(width=WIDTH, height=HEIGHT)
     run("train_step", state, step,
-        (renderer.points, renderer.colors, renderer.valid, cams, targets), ("resolve4",),
-        absent=("winners", "expand"))
+        (renderer.points, renderer.colors, renderer.valid, cams, targets),
+        ("resolve4", "bn_train"), absent=("winners", "expand"))
     del state
     torch.cuda.empty_cache()
 
@@ -1327,7 +1356,7 @@ def train_phase(renderer, cam, E, variables, counted):
     cols0, cams0 = sstate.colors.detach().clone(), sstate.cam_projs.detach().clone()
     sstep = tt.make_scene_train_step(width=WIDTH, height=HEIGHT)
     sargs = (renderer.points, renderer.valid, targets)
-    sstate, m = run("scene_step", sstate, sstep, sargs, ("resolve_diff",),
+    sstate, m = run("scene_step", sstate, sstep, sargs, ("resolve_diff", "bn_train"),
                     absent=("winners_f32", "expand"))
     if not (float(m["pose_grad_norm"]) > 0 and float(m["color_grad_norm"]) > 0):
         fail(f"scene_step: zero pose or colour gradient {m}")
@@ -1337,6 +1366,93 @@ def train_phase(renderer, cam, E, variables, counted):
     result["scene_step"]["trace"] = trace_step(lambda: sstep(sstate, *sargs),
                                                result["scene_step"]["ms_per_step"])
     return result
+
+
+# (H, W, C, layers a step) of the [64,128,256,512] UNetTrain's 18 BatchNorm
+# layers at 1088x1920: four at each encoder / decoder level, two in the bottleneck
+BN_LAYERS = ((1088, 1920, 64, 4), (544, 960, 128, 4), (272, 480, 256, 4), (136, 240, 512, 4),
+             (68, 120, 1024, 2))
+
+
+def check_bn_train(rows):
+    """UNetTrain's BatchNorm + ReLU on ``csrc/bn_train.cu`` at the training
+    step's five layer shapes, bf16 (``ops.bn_train.bn_relu_train``): forward
+    and backward against the plain layer (``bn_relu_train_plain`` under
+    autograd), the output and dx within 2 bf16 ulp of relative norm (one
+    rounding each, apart where the f32 sums' order moves a value across a
+    rounding boundary), dscale and dbias within 1e-3 (f32 sums over up to
+    2.1M elements in two orders); two calls equal bit for bit; then forward +
+    backward timed by their device time (``device_ms``: at the deep levels a
+    call's host side outlasts its kernels) against the plain layer and
+    ``F.batch_norm`` + ``relu`` (the library yardstick; the port never calls
+    it), summed over a step's 18 layers, beside the byte bound (6 bytes an
+    element forward, 10 backward, at 3.35 TB/s), and the kernels' call also
+    by CUDA events around 5 calls (``wall``, host included)."""
+    import torch
+    import torch.nn.functional as Fn
+    from rtnr_tpu_torch.ops import bn_train as bt
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "fwd_ms": 0.0,
+           "wall_ms": 0.0}
+    worst = 0.0
+    for h, w, c, layers in BN_LAYERS:
+        g = torch.Generator(device="cuda").manual_seed(SEED + c)
+        off = torch.randn(c, generator=g, device="cuda") * 0.5
+        x = (torch.randn((1, h, w, c), generator=g, device="cuda") * (1 + off.abs()) + off) \
+            .to(torch.bfloat16).permute(0, 3, 1, 2).requires_grad_(True)
+        dy = torch.randn((1, h, w, c), generator=g, device="cuda").to(torch.bfloat16) \
+            .permute(0, 3, 1, 2)
+        scale = (torch.rand(c, generator=g, device="cuda") + 0.5).requires_grad_(True)
+        bias = (torch.randn(c, generator=g, device="cuda") * 0.3).requires_grad_(True)
+        m0, v0 = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+
+        def run(layer, m=None, v=None):
+            m = m0.clone() if m is None else m
+            v = v0.clone() if v is None else v
+            y = layer(x, scale, bias, m, v)
+            return (y, *torch.autograd.grad(y, (x, scale, bias), dy), m, v)
+
+        def library(x, scale, bias, m, v):
+            return torch.relu(Fn.batch_norm(x, m, v, scale, bias, training=True, momentum=0.1,
+                                            eps=bt.EPS))
+
+        got, again = run(bt.bn_relu_train), run(bt.bn_relu_train)
+        want = run(bt.bn_relu_train_plain)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"bn_relu_train at {h}x{w}x{c}: two calls differ")
+        gaps = {k: float((a.detach().float() - b.float()).norm() / b.float().norm())
+                for k, a, b in zip(("y", "dx", "dscale", "dbias", "mean", "var"), got, want)}
+        limit = {"y": 2 * 2.0 ** -8, "dx": 2 * 2.0 ** -8, "dscale": 1e-3, "dbias": 1e-3,
+                 "mean": 1e-3, "var": 1e-3}
+        for k, v in gaps.items():
+            if not v <= limit[k]:
+                fail(f"bn_relu_train at {h}x{w}x{c}: {k} off the plain layer by {v:.3e} "
+                     f"(> {limit[k]:.3e})")
+        worst = max(worst, float((got[0].detach().float() - want[0].detach().float())
+                                 .abs().max()))
+        mk, vk = m0.clone(), v0.clone()
+        fwd = device_ms(lambda: bt.bn_relu_train(x, scale, bias, mk, vk))
+        ms, plain, lib = (device_ms(lambda: run(layer, mk, vk))
+                          for layer in (bt.bn_relu_train, bt.bn_relu_train_plain, library))
+        wall = time_ms(lambda: run(bt.bn_relu_train, mk, vk))
+        bnd, by = bound_ms(16.0 * h * w * c, 0.0)
+        log(f"bn_relu_train {h}x{w}x{c} (x{layers} a step) bf16: forward + backward "
+            f"{ms:.4f} ms of device time (forward {fwd:.4f}; wall {wall:.4f}), bound {bnd:.4f} "
+            f"{by} ({100 * bnd / ms:.1f}%), plain {plain:.4f}, F.batch_norm + relu {lib:.4f}; "
+            "gaps to the plain layer " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bnd),
+                     ("fwd_ms", fwd), ("wall_ms", wall)):
+            tot[k] += layers * v
+        del x, dy, got, again, want
+        torch.cuda.empty_cache()
+    rows["bn_train"] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                            bound_by="bytes", library_ms=tot["library_ms"], max_abs_err=worst,
+                            forward_ms=tot["fwd_ms"], wall_ms=tot["wall_ms"])
+    log(f"bn_relu_train over a step's 18 layers: {tot['ms']:.4f} ms of device time (forward "
+        f"{tot['fwd_ms']:.4f}; wall {tot['wall_ms']:.4f}), bound {tot['bound_ms']:.4f} "
+        f"({100 * tot['bound_ms'] / tot['ms']:.1f}%), plain {tot['plain_ms']:.4f}, "
+        f"F.batch_norm + relu {tot['library_ms']:.4f}")
 
 
 CLI_POSES = ("0 0 0 -12 0 0 0 1", "1 0.3 0 -12 0 0 0 1",
@@ -1904,9 +2020,11 @@ def e57_phase(card, counted):
             fail("e57: the trained checkpoint's compute_full is not a finite 1080p frame")
         del rt, read
     torch.cuda.empty_cache()
-    # the pairs and the training CLIs run the v4 resolve and nothing else of the port's
-    # kernels (the training net is plain torch); the trained frame runs the bf16 U-Net
-    need = {"pairs_cli": {"resolve4": E57_PHOTOS}, "train_cli": {"resolve4": E57_TRAIN_STEPS},
+    # the pairs CLI runs the v4 resolve and nothing else of the port's kernels; the
+    # training CLI that and the 18 fused BatchNorm layers a step (its convs are plain
+    # torch); the trained frame runs the bf16 U-Net
+    need = {"pairs_cli": {"resolve4": E57_PHOTOS},
+            "train_cli": {"resolve4": E57_TRAIN_STEPS, "bn_train": 18 * E57_TRAIN_STEPS},
             "render": {"resolve4": 1, "conv3x3": 18, "conv3x3_wgmma": 17, "convt2x2": 4,
                        "convt2x2_wgmma": 4, "conv3x3_in": 1, "conv3x3_in_i8out": 1}}
     for part, counts in need.items():
@@ -2701,10 +2819,12 @@ STRIP_EDGE = 64  # the image's outer rows left out of the strip U-Net's seam bou
 
 def par_counters():
     """The launch counters of the parallel paths: name -> (wrapper, attribute)."""
+    from rtnr_tpu_torch.ops import bn_train
     from rtnr_tpu_torch.ops import conv as cv
     from rtnr_tpu_torch.ops import raster_resolve4 as rr
 
     return {"resolve4": (rr.raster_images_v4, "launches"),
+            "bn_train": (bn_train.bn_relu_train, "launches"),
             "resolve4_ref": (rr.raster_images_v4, "band_ref_launches"),
             "resolve_diff": (rr.raster_images_diff, "launches"),
             "resolve_diff_ref": (rr.raster_images_diff, "band_ref_launches"),
@@ -3088,6 +3208,11 @@ def parallel_phase(card, rows):
                     if not v <= PAR_GRAD_RTOL[dt][k]:
                         fail(f"scene-train step 0 ({dt}): {k} {a[k]} on (2, 1) vs {b[k]} on "
                              f"one rank (rel {v:.3e} > {PAR_GRAD_RTOL[dt][k]})")
+            for r in res:  # the multi-rank step's BatchNorm on the fused kernels
+                if r["launches"]["bn_train"] != 18 * PAR_TRAIN_STEPS:
+                    fail(f"scene-train on (2, 1), rank {r['rank']}: "
+                         f"{r['launches']['bn_train']} fused BatchNorm layers in "
+                         f"{PAR_TRAIN_STEPS} steps, not 18 a step")
             if res[0]["two_ranks_f32"][0]["params"] != res[1]["two_ranks_f32"][0]["params"]:
                 fail("scene-train f32 step: the two ranks' parameters differ")
             for s in range(PAR_TRAIN_STEPS):
@@ -3372,6 +3497,7 @@ def main() -> int:
         from rtnr_tpu_torch.camera import Camera
         from rtnr_tpu_torch.config import RenderConfig
         from rtnr_tpu_torch.models.convert import init_unet_numpy
+        from rtnr_tpu_torch.ops import bn_train
         from rtnr_tpu_torch.ops import conv as cv
         from rtnr_tpu_torch.ops import conv_direct
         from rtnr_tpu_torch.ops import raster_resolve4 as rr
@@ -3455,7 +3581,8 @@ def main() -> int:
                "conv3x3_static_wgmma": cv.conv3x3_static_wgmma,
                "convt2x2_wgmma": cv.convt2x2_wgmma,
                # one counter, two rows: the input conv's bf16 and int8-out forms
-               "conv3x3_in": cv.conv3x3_in, "conv3x3_in_i8out": cv.conv3x3_in}
+               "conv3x3_in": cv.conv3x3_in, "conv3x3_in_i8out": cv.conv3x3_in,
+               "bn_train": bn_train.bn_relu_train}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
     conv_up = check_conv_up(renderer.unet, x, rows)
@@ -3599,6 +3726,7 @@ def main() -> int:
 
     # ---- the training paths ----
     torch.cuda.empty_cache()
+    check_bn_train(rows)
     train = train_phase(renderer, cam, E, variables, counted)
     check_small_train_vs_cpu()
 
@@ -3662,12 +3790,16 @@ def main() -> int:
         # :842-856), in its two output forms
         "conv3x3_in": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
         "conv3x3_in_i8out": ("cuda", in_src, "rtnr_tpu/ops/conv_phase.py:1018"),
+        # no TPU kernel: flax's nn.BatchNorm + ReLU, which XLA fuses on its own
+        "bn_train": ("cuda", "rtnr_tpu_torch/csrc/bn_train.cu",
+                     "none (flax nn.BatchNorm + relu under XLA, rtnr_tpu/models/unet.py:366-374)"),
     }
     labels = {"resolve4": "K1 + K2, the v4 resolve (packed form)",
               "resolve5": "K6 + K2, the v5 resolve (packed form)",
               "resolve_diff": "K5 + K2 float_sums, the differentiable forward's resolve",
               "conv3x3_in": "K3 input conv, bf16 out",
-              "conv3x3_in_i8out": "K3 input conv, int8 out"}
+              "conv3x3_in_i8out": "K3 input conv, int8 out",
+              "bn_train": "UNetTrain BatchNorm + ReLU, forward and backward, a step's 18 layers"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
              "render_cli": host,
@@ -3682,7 +3814,8 @@ def main() -> int:
            "conv3x3_static": "serve_static", "convt2x2_static": "serve_static",
            "conv3x3_dyn": "serve_dyn", "winners5": "resolve_v5",
            "resolve_carriers": "resolve_v3", "conv3x3_direct": "conv_direct",
-           "conv3x3_up": "serve_fuse_up", "conv3x3_in_i8out": "serve_static"}
+           "conv3x3_up": "serve_fuse_up", "conv3x3_in_i8out": "serve_static",
+           "bn_train": "train_step"}
     kernels = []
     for name, (route, src, repl) in sources.items():
         r = rows[name]
@@ -3697,8 +3830,8 @@ def main() -> int:
             **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
             **({"pair_ms": r["pair_ms"]} if "pair_ms" in r else {}),
             **({"bf16_ms": r["bf16_ms"]} if "bf16_ms" in r else {}),
-            **({k: r[k] for k in ("sums_ms", "sums_bound_ms", "wrapper_ms", "float_sums_ms")
-                if k in r}),
+            **({k: r[k] for k in ("sums_ms", "sums_bound_ms", "wrapper_ms", "float_sums_ms",
+                                  "forward_ms", "wall_ms") if k in r}),
         })
     # the band-reference forms: launched on the point-sharded paths of the
     # parallel phase (rank 0 of the four gloo ranks; every rank the same)

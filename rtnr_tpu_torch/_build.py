@@ -50,6 +50,8 @@ SOURCES: Dict[str, tuple] = {
     "conv_i8_sm90": ("conv_i8_sm90.cu", []),
     # the U-Net's input conv (1-8 channels -> 64) on mma.sync, bf16 or int8 out
     "conv_in_sm90": ("conv_in_sm90.cu", []),
+    # UNetTrain's BatchNorm + ReLU, forward and backward
+    "bn_train": ("bn_train.cu", []),
 }
 
 _BASE_FLAGS = [

@@ -32,11 +32,13 @@ mirrored.
 
 ``UNetTrain`` is the un-folded net for training (``UNet.__call__`` with
 BatchNorm, ``rtnr_tpu/models/unet.py:478-522``): plain ``F.conv2d`` /
-``F.conv_transpose2d``, as the JAX package trains on XLA's own convs.
+``F.conv_transpose2d``, as the JAX package trains on XLA's own convs, and
+each BatchNorm + ReLU on the card on the fused kernels of ``ops.bn_train``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import AbstractSet, Dict, List, Optional, Sequence
 
@@ -46,6 +48,8 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from rtnr_tpu_torch.models.convert import unet_layer_names
+from rtnr_tpu_torch.ops.bn_train import EPS as BN_EPS
+from rtnr_tpu_torch.ops.bn_train import bn_relu_train
 from rtnr_tpu_torch.ops.conv import (
     INV127,
     conv3x3_plain,
@@ -357,10 +361,6 @@ def calibrate_act_scales(unet: UNet, x: torch.Tensor) -> Dict[str, torch.Tensor]
     return {k: torch.clamp_min(m, 1e-8) * INV127 for k, m in seen.items()}
 
 
-_BN_EPS = 1e-5
-_BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
-
-
 class UNetTrain(nn.Module):
     """Trainable U-Net with BatchNorm (the JAX package's ``UNet`` with
     ``fold_bn=False``), in the JAX package's layouts: NHWC in and out, flax
@@ -375,7 +375,9 @@ class UNetTrain(nn.Module):
     flax 0.12, not ``F.batch_norm``: statistics in f32 with ``var = E[x^2] -
     E[x]^2`` clipped at 0 (``use_fast_variance``), and the running variance
     updated with that same biased variance (``F.batch_norm`` would store the
-    unbiased one).
+    unbiased one). In training mode each BatchNorm and the ReLU after it are
+    one ``ops.bn_train.bn_relu_train``: the fused kernels of
+    ``csrc/bn_train.cu`` on a CUDA tensor, the plain torch layer on the CPU.
 
     ``dtype`` follows flax's ``dtype``: parameters stay f32; with bfloat16
     every conv runs in bf16 (inputs and kernels rounded), BatchNorm
@@ -416,41 +418,33 @@ class UNetTrain(nn.Module):
         clears it."""
         self._bn_sync = None if axis is None or mesh.size(axis) == 1 else (mesh, axis)
 
-    def _batch_moments(self, xf: torch.Tensor):
-        """(E[x], E[x^2]) per channel of the batch (the global one when
-        synchronised)."""
+    def _bn_reduce(self):
+        """The sum over ranks of a per-channel vector, with the sum of the
+        gradients as its gradient (None: this rank alone)."""
         if self._bn_sync is None:
-            return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            return None
         from rtnr_tpu_torch.parallel.collectives import psum_autograd
 
         mesh, axis = self._bn_sync
-        count = torch.full((1,), float(xf.numel() // xf.shape[1]), device=xf.device)
-        tot = psum_autograd(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                                       count]), mesh, axis)
-        c = xf.shape[1]
-        return tot[:c] / tot[-1], tot[c:2 * c] / tot[-1]
+        return functools.partial(psum_autograd, mesh=mesh, axis=axis)
 
-    def _bn(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        mean_buf, var_buf = self.param(f"{name}/mean"), self.param(f"{name}/var")
-        xf = x.to(torch.float32)
+    def _bn_relu(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """BatchNorm ``name`` then ReLU of the conv output ``x``: in training
+        mode ``ops.bn_train.bn_relu_train`` (the fused kernels on the card,
+        the plain layer on the CPU), else the running statistics."""
+        scale, bias = self.param(f"{name}/scale"), self.param(f"{name}/bias")
+        mean, var = self.param(f"{name}/mean"), self.param(f"{name}/var")
         if self.training:
-            mean, sq = self._batch_moments(xf)
-            var = torch.clamp(sq - mean * mean, min=0.0)
-            with torch.no_grad():
-                mean_buf.copy_(_BN_MOMENTUM * mean_buf + (1 - _BN_MOMENTUM) * mean)
-                var_buf.copy_(_BN_MOMENTUM * var_buf + (1 - _BN_MOMENTUM) * var)
-        else:
-            mean, var = mean_buf, var_buf
-        mul = torch.rsqrt(var + _BN_EPS) * self.param(f"{name}/scale")
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.param(f"{name}/bias")[:, None, None]
-        return y.to(self.dtype)
+            return bn_relu_train(x, scale, bias, mean, var, self._bn_reduce())
+        mul = torch.rsqrt(var + BN_EPS) * scale
+        y = (x.to(torch.float32) - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+        return torch.relu(y.to(self.dtype))
 
     def _double_conv(self, block: str, xs: List[torch.Tensor]) -> torch.Tensor:
         x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
         for j in range(2):
             k = self.param(f"{block}/conv{j}/kernel").permute(3, 2, 0, 1).to(self.dtype)
-            x = Fn.conv2d(x, k, padding=1)
-            x = torch.relu(self._bn(x, f"{block}/bn{j}"))
+            x = self._bn_relu(Fn.conv2d(x, k, padding=1), f"{block}/bn{j}")
         return x
 
     def _convt(self, name: str, x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ itself) but reads a send or receive buffer as host memory, so
 the backend's requirement, not a fallback, and NCCL never takes it.
 
 ``psum_autograd`` is ``psum`` with a backward that ``psum``s the gradient,
-for BatchNorm statistics over a batch-sharded batch (``models/unet.py``).
+for BatchNorm statistics over a batch-sharded batch (``ops/bn_train.py``).
 """
 
 from __future__ import annotations

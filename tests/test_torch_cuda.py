@@ -1,8 +1,9 @@
 """The port's CUDA kernels (the v4, v5 and differentiable resolves and their
 band-reference forms, K1-K6,
 the carrier kernel for K7-K9, K10 on K3, K3's fused-ConvTranspose mode, the
-input conv on conv_in_sm90.cu, and the int8 modes of K3/K4 on conv.cu and on
-the s8 wgmma kernels of conv_i8_sm90.cu) against their plain torch twins on
+input conv on conv_in_sm90.cu, the int8 modes of K3/K4 on conv.cu and on
+the s8 wgmma kernels of conv_i8_sm90.cu, and UNetTrain's BatchNorm + ReLU on
+bn_train.cu) against their plain torch twins on
 the card, the differentiable raster and the int8 Renderer on the card
 against the CPU, and Renderer frames under every RTNR_RESOLVE value. Marked
 ``cuda``; each test skips without a CUDA device. This file imports neither
@@ -1171,3 +1172,189 @@ def test_generate_pairs_from_e57_card_equals_cpu(cuda, tmp_path):
         for k in ("image", "depth", "proj_rgb", "world_to_cam"):
             np.testing.assert_array_equal(getattr(g, k), getattr(w, k), err_msg=k)
         assert (g.depth < 3e38).mean() > 0.05
+
+
+# ---- BatchNorm + ReLU of UNetTrain (ops/bn_train.py, csrc/bn_train.cu) ----
+
+# (N, H, W, C): the main path's five layer shapes at 1088x1920, then a narrow
+# layer (C % 8 != 0: one channel a thread), a layer wider than a block row
+# (two blocks along y) and a batch of two
+BN_SHAPES = {"l0": (1, 1088, 1920, 64), "l1": (1, 544, 960, 128), "l2": (1, 272, 480, 256),
+             "l3": (1, 136, 240, 512), "bottleneck": (1, 68, 120, 1024),
+             "c12": (1, 32, 48, 12), "c2560": (1, 8, 16, 2560), "n2": (2, 64, 96, 64)}
+
+
+class _Keep:
+    """A ``reduce`` that keeps what it is given: the kernels' forward sums,
+    then the backward's."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __call__(self, v):
+        self.seen.append(v.clone())
+        return v
+
+
+def _bn_inputs(cuda, dtype, shape, seed=5, misalign=False):
+    n, h, w, c = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    off = torch.randn(c, generator=g, device=cuda) * 0.5
+    std = torch.rand(c, generator=g, device=cuda) + 0.5
+    flat = torch.empty(n * h * w * c + 1, dtype=dtype, device=cuda)
+    x = flat[int(misalign):int(misalign) + n * h * w * c].view(n, h, w, c)
+    x.copy_(torch.randn(shape, generator=g, device=cuda) * std + off)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    p = {"scale": torch.rand(c, generator=g, device=cuda) + 0.5,
+         "bias": torch.randn(c, generator=g, device=cuda) * 0.3,
+         "mean": torch.randn(c, generator=g, device=cuda) * 0.1,
+         "var": torch.rand(c, generator=g, device=cuda) + 0.5}
+    return x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2), p
+
+
+def _bn_kernels(x, dy, p, keep=None):
+    """One forward and backward on the kernels: (y, dx, dscale, dbias,
+    running mean, running var, forward sums, backward sums)."""
+    from rtnr_tpu_torch.ops import bn_train as bt
+
+    keep = _Keep() if keep is None else keep
+    xr = x.detach().requires_grad_(True)
+    scale = p["scale"].clone().requires_grad_(True)
+    bias = p["bias"].clone().requires_grad_(True)
+    mean, var = p["mean"].clone(), p["var"].clone()
+    y = bt.bn_relu_train(xr, scale, bias, mean, var, keep)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    return (y.detach(), xr.grad, scale.grad, bias.grad, mean, var, *keep.seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(BN_SHAPES))
+def test_bn_train_kernels_match_twins(cuda, shape, dtype):
+    """The four kernels against their plain twins. Given the kernels' own
+    sums, the output, the running statistics, dscale, dbias and dx are the
+    twins' bits (the same ops in the same order); the sums themselves are
+    f32 sums in the kernels' order, held to f64 sums within 2e-5 of the sums
+    of magnitudes (a term passes through at most ~135 f32 additions, 8e-6 at
+    2^-24 each). Two identical calls give identical bits."""
+    from rtnr_tpu_torch.ops import bn_train as bt
+
+    x, dy, p = _bn_inputs(cuda, dtype, BN_SHAPES[shape], misalign=shape in ("c12", "n2"))
+    y, dx, dscale, dbias, mean, var, tot, sums = _bn_kernels(x, dy, p)
+    c = x.shape[1]
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+    xd = x.double()
+    ref = bt.batch_sums_plain(xd)
+    absx = torch.cat([xd.abs().sum(dim=(0, 2, 3)), ref[c:2 * c]])
+    assert float(tot[-1]) == x.numel() // c
+    assert bool(((tot[:2 * c].double() - ref[:2 * c]).abs() <= 2e-5 * absx).all())
+    mean_t, var_t = p["mean"].clone(), p["var"].clone()
+    assert torch.equal(y, bt.bn_relu_apply_plain(x, tot, p["scale"], p["bias"], mean_t, var_t))
+    assert torch.equal(mean, mean_t) and torch.equal(var, var_t)
+    # the backward's sums in f64 over the kernels' own mask and mean
+    mean_k, _, rstd, _ = bt.channel_terms(tot, p["scale"])
+    gd = torch.where(y > 0, dy, 0).double()
+    gx = gd * (xd - mean_k.double()[:, None, None])
+    want = torch.cat([gd.sum(dim=(0, 2, 3)), gx.sum(dim=(0, 2, 3))])
+    mag = torch.cat([gd.abs().sum(dim=(0, 2, 3)), gx.abs().sum(dim=(0, 2, 3))])
+    assert bool(((sums.double() - want).abs() <= 2e-5 * mag).all())
+    assert torch.equal(dscale, sums[c:] * rstd) and torch.equal(dbias, sums[:c])
+    assert torch.equal(dx, bt.bn_relu_grad_x_plain(dy, x, tot, p["scale"], p["bias"], sums))
+    again = _bn_kernels(x, dy, p)
+    for a, b in zip((y, dx, dscale, dbias, mean, var, tot, sums), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bn_train_step_runs_18_fused_layers_and_matches_the_plain_step(cuda, monkeypatch):
+    """One bf16 ``make_train_step`` step of the full-width net: 18 forward
+    and 18 backward calls on the kernels and ``bn.fused`` 18 in the step's
+    record; against the same step with the plain layer on the card, the loss
+    and the gradient norm within the benchmark's training limits (loss_gap,
+    grad_gap of rtnr_bench/configs/room5m-train-1080p.json)."""
+    import json
+    from pathlib import Path
+
+    from rtnr_tpu_torch.models import unet as um
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.ops import bn_train as bt
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.train import trainer as tt
+    from rtnr_tpu_torch.utils import trace
+
+    limits = json.loads((Path(__file__).resolve().parents[1] / "rtnr_bench" / "configs"
+                         / "room5m-train-1080p.json").read_text())["limits"]
+    W, H = 320, 192
+    scene = Scene.synthetic(200_000, seed=3, extent=6.0)
+    pts, cols, valid = (torch.from_numpy(a).to(cuda)
+                        for a in scene.sorted_by_block().device_arrays(64))
+    E = np.eye(4)
+    E[2, 3] = 8.0
+    M = torch.from_numpy(Camera.from_params(200.0, 200.0, W / 2, H / 2, W, H)
+                         .cam_proj(E).astype(np.float32)).to(cuda)[None]
+    targets = torch.rand((1, H, W, 3), generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    variables = init_unet_numpy(2, (64, 128, 256, 512))
+    step = tt.make_train_step(width=W, height=H)
+    out = {}
+    for mode in ("fused", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(um, "bn_relu_train", bt.bn_relu_train_plain)
+        state = tt.create_train_state(variables, dtype=torch.bfloat16, device="cuda")
+        n0, b0 = bt.bn_relu_train.launches, bt.bn_relu_train.backward_launches
+        _, m = step(state, pts, cols, valid, M, targets)
+        out[mode] = {k: float(v) for k, v in m.items()}
+        out[mode]["launches"] = (bt.bn_relu_train.launches - n0,
+                                 bt.bn_relu_train.backward_launches - b0)
+        out[mode]["counter"] = trace.records(1)[0]["counters"].get("bn.fused")
+    assert out["fused"]["launches"] == (18, 18) and out["fused"]["counter"] == 18
+    assert out["plain"]["launches"] == (0, 0) and out["plain"]["counter"] is None
+    for key, limit in (("loss", limits["loss_gap"]), ("grad_norm", limits["grad_gap"])):
+        gap = abs(out["fused"][key] - out["plain"][key]) / abs(out["plain"][key])
+        assert gap <= limit, (key, out)
+
+
+class _Rank(_Keep):
+    """The ``reduce`` of rank ``r`` of two, faked in one process: what the
+    rank is given, added in rank order to the other rank's vector of the same
+    call (forward, then backward) kept by an earlier pass, as ``psum`` adds
+    the ranks' parts; an identity where that pass has nothing yet."""
+
+    def __init__(self, r, other):
+        super().__init__()
+        self.r, self.other = r, other
+
+    def __call__(self, v):
+        k = len(self.seen)
+        super().__call__(v)
+        if k >= len(self.other):
+            return v
+        return v + self.other[k] if self.r == 0 else self.other[k] + v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_train_two_ranks_of_one_frame_equal_one_rank_of_two(cuda, dtype):
+    """No block crosses a frame and the frames' sums add in order, so two
+    ranks of one frame each (their vectors summed in rank order) give one
+    rank's bits for the batch of both: sums, output, running statistics and
+    dx; dscale and dbias are each rank's part, summed after."""
+    x, dy, p = _bn_inputs(cuda, dtype, (2, 64, 96, 128))
+    whole = _bn_kernels(x, dy, p)
+    parts = lambda r: (x[r:r + 1], dy[r:r + 1], p)
+    tots = [_bn_kernels(*parts(r))[6] for r in (0, 1)]  # each rank's own forward sums
+    sums = [_bn_kernels(*parts(r), keep=_Rank(r, [tots[1 - r]]))[7] for r in (0, 1)]
+    ranks = [_bn_kernels(*parts(r), keep=_Rank(r, [tots[1 - r], sums[1 - r]])) for r in (0, 1)]
+    y, dx = (torch.cat([rk[i] for rk in ranks]) for i in (0, 1))
+    assert torch.equal(y, whole[0]) and torch.equal(dx, whole[1])
+    for r, rk in enumerate(ranks):
+        assert torch.equal(rk[4], whole[4]) and torch.equal(rk[5], whole[5])
+        assert torch.equal(rk[6], tots[r])  # the rank's own sums went in
+    assert torch.equal(tots[0] + tots[1], whole[6]) and torch.equal(sums[0] + sums[1], whole[7])
+    # dbias is each rank's sum, summed after as the trainer sums gradients: the
+    # same bits; dscale = sum * rstd, taken on each rank's part before the
+    # sum: within a few f32 roundings of the parts' magnitudes
+    assert torch.equal(ranks[0][3] + ranks[1][3], whole[3])
+    ds = [rk[2] for rk in ranks]
+    assert bool(((ds[0] + ds[1] - whole[2]).abs() <= 1e-6 * (ds[0].abs() + ds[1].abs())).all())
