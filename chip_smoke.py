@@ -27,7 +27,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
    launch, timed in turns by its C entry), ``conv.cu``'s gemm<0,0> launched directly, and
    ``F.conv2d``; each K4 call on ``conv_sm90.cu``'s ``convt2x2_wgmma``
    (one launch of its counter, two runs equal), timed in turns against
-   ``conv.cu``'s gemm<1,0> and ``F.conv_transpose2d``;
+   ``conv.cu``'s gemm<1,0> and ``F.conv_transpose2d``; the depth prefilter
+   on ``csrc/prefilter.cu`` (``check_prefilter``) bit for bit against the
+   plain path on the frame, an all-empty and a FLT_MAX-saturated frame and
+   small frames at levels 1-4, one launch a call, timed against the plain
+   path and its byte bound; every serving frame, the training CLI's steps
+   and ``make_train_step`` run it once a frame or step, the scene step never;
 4. the differentiable raster at the same shape: K5 (``winners_f32``) and
    the K2 ``float_sums`` expansion bit-exact against their twins; the
    differentiable forward's resolve as one kernel (``rtnr_resolve_diff``, K5
@@ -230,6 +235,7 @@ RESOLVER_FRAMES = 5  # timed frames under each RTNR_RESOLVE value
 ONE_PIXEL_POINTS = 20_000  # long-segment checks of K6 and the v4 resolve (TPU K6 looks back ~16k)
 TRAIN_STEPS = 3  # timed steps of each train step after one warm-up
 SEED = 0
+FLT_MAX = 3.4028234663852886e38  # the raster's empty depth
 
 
 def fail(msg: str) -> None:
@@ -1347,7 +1353,7 @@ def train_phase(renderer, cam, E, variables, counted):
     step = tt.make_train_step(width=WIDTH, height=HEIGHT)
     run("train_step", state, step,
         (renderer.points, renderer.colors, renderer.valid, cams, targets),
-        ("resolve4", "bn_train"), absent=("winners", "expand"))
+        ("resolve4", "bn_train", "prefilter"), absent=("winners", "expand"))
     del state
     torch.cuda.empty_cache()
 
@@ -1357,7 +1363,7 @@ def train_phase(renderer, cam, E, variables, counted):
     sstep = tt.make_scene_train_step(width=WIDTH, height=HEIGHT)
     sargs = (renderer.points, renderer.valid, targets)
     sstate, m = run("scene_step", sstate, sstep, sargs, ("resolve_diff", "bn_train"),
-                    absent=("winners_f32", "expand"))
+                    absent=("winners_f32", "expand", "prefilter"))
     if not (float(m["pose_grad_norm"]) > 0 and float(m["color_grad_norm"]) > 0):
         fail(f"scene_step: zero pose or colour gradient {m}")
     if torch.equal(cols0, sstate.colors.detach()) or torch.equal(cams0, sstate.cam_projs.detach()):
@@ -1453,6 +1459,77 @@ def check_bn_train(rows):
         f"{tot['fwd_ms']:.4f}; wall {tot['wall_ms']:.4f}), bound {tot['bound_ms']:.4f} "
         f"({100 * tot['bound_ms'] / tot['ms']:.1f}%), plain {tot['plain_ms']:.4f}, "
         f"F.batch_norm + relu {tot['library_ms']:.4f}")
+
+
+def check_prefilter(raw_depth, raw_rgb, rows):
+    """The depth prefilter on ``csrc/prefilter.cu`` (``ops.prefilter.filter_frame``)
+    against ``pad_to_pyramid`` + ``depth_prefilter`` on the card, bit for bit:
+    on the serving raster's frame, an all-empty and a FLT_MAX-saturated frame
+    of its shape and 48x80 frames at levels 1-4; two calls equal; one launch
+    a call. Then timed at the frame's shape: ``ms`` its device time (profiler),
+    ``wall_ms`` by CUDA events around 20 calls (host included: what a frame
+    pays), both against the plain path and the byte bound (inputs read once,
+    outputs written once, the pyramid written and read once)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rtnr_tpu_torch.ops import prefilter as tp
+
+    def plain(d, c, levels=4):
+        return tp.depth_prefilter(*tp.pad_to_pyramid(d, c, levels), levels=levels)
+
+    def same(got, want):
+        for k in want:
+            a, b = got[k], want[k]
+            if a.dtype == torch.float32:
+                a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+            if a.shape != b.shape or not torch.equal(a, b):
+                return False
+        return True
+
+    h, w = raw_depth.shape
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    empty = torch.full_like(raw_depth, FLT_MAX)
+    sat = torch.where(torch.rand((h, w), generator=g, device="cuda") < 0.85, empty,
+                      torch.rand((h, w), generator=g, device="cuda") * 19 + 1)
+    small = torch.where(torch.rand((48, 80), generator=g, device="cuda") < 0.3,
+                        torch.full((48, 80), FLT_MAX, device="cuda"),
+                        torch.rand((48, 80), generator=g, device="cuda") * 19 + 1)
+    small_rgb = torch.randint(0, 256, (48, 80, 3), generator=g, device="cuda",
+                              dtype=torch.uint8)
+    cases = [("frame", raw_depth, raw_rgb, 4), ("all-empty", empty, raw_rgb, 4),
+             ("saturated", sat, raw_rgb, 4),
+             *[(f"48x80 at {lv} levels", small, small_rgb, lv) for lv in (1, 2, 3, 4)]]
+    n0 = tp.filter_frame.launches
+    for name, d, c, lv in cases:
+        got, again = tp.filter_frame(d, c, levels=lv), tp.filter_frame(d, c, levels=lv)
+        if not same(got, plain(d, c, lv)) or not same(again, got):
+            fail(f"prefilter kernels on the {name} frame differ from the plain path")
+    if tp.filter_frame.launches != n0 + 2 * len(cases):
+        fail(f"filter_frame counted {tp.filter_frame.launches - n0} kernel calls in "
+             f"{2 * len(cases)}")
+    kept = float(tp.filter_frame(raw_depth, raw_rgb)["mask"].float().mean())
+
+    call = lambda: tp.filter_frame(raw_depth, raw_rgb)  # noqa: E731
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    ops = [e.name.split("(")[0].strip().split(" ")[-1] for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    ms, plain_ms = device_ms(call, reps=20), device_ms(lambda: plain(raw_depth, raw_rgb))
+    wall, plain_wall = turns_ms({"kernels": call, "plain": lambda: plain(raw_depth, raw_rgb)})
+    hp, wp = tp.pyramid_pad_shape(h, w, 4)
+    n_pyr = sum((hp >> k) * (wp >> k) for k in range(1, 5))
+    nbytes = 7.0 * h * w + 28.0 * hp * wp + 8.0 * n_pyr
+    bnd, by = bound_ms(nbytes, 0.0)
+    rows["prefilter"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                             library_ms=None, max_abs_err=0.0, wall_ms=wall)
+    log(f"prefilter kernels {h}x{w} (padded {hp}x{wp}, 4 levels): bit-exact on "
+        f"{len(cases)} frames, kept {100 * kept:.1f}% of the frame; {len(ops)} device ops a call "
+        f"({', '.join(ops)}); device {ms:.4f} ms, bound {bnd:.4f} {by} "
+        f"({100 * bnd / ms:.1f}%), wall {wall:.4f} ms a call; plain path device {plain_ms:.4f} "
+        f"ms, wall {plain_wall:.4f} ms")
 
 
 CLI_POSES = ("0 0 0 -12 0 0 0 1", "1 0.3 0 -12 0 0 0 1",
@@ -2024,8 +2101,9 @@ def e57_phase(card, counted):
     # training CLI that and the 18 fused BatchNorm layers a step (its convs are plain
     # torch); the trained frame runs the bf16 U-Net
     need = {"pairs_cli": {"resolve4": E57_PHOTOS},
-            "train_cli": {"resolve4": E57_TRAIN_STEPS, "bn_train": 18 * E57_TRAIN_STEPS},
-            "render": {"resolve4": 1, "conv3x3": 18, "conv3x3_wgmma": 17, "convt2x2": 4,
+            "train_cli": {"resolve4": E57_TRAIN_STEPS, "bn_train": 18 * E57_TRAIN_STEPS,
+                          "prefilter": E57_TRAIN_STEPS},
+            "render": {"resolve4": 1, "prefilter": 1, "conv3x3": 18, "conv3x3_wgmma": 17, "convt2x2": 4,
                        "convt2x2_wgmma": 4, "conv3x3_in": 1, "conv3x3_in_i8out": 1}}
     for part, counts in need.items():
         for k in counted:
@@ -3499,7 +3577,7 @@ def main() -> int:
         from rtnr_tpu_torch.models.convert import init_unet_numpy
         from rtnr_tpu_torch.ops import bn_train
         from rtnr_tpu_torch.ops import conv as cv
-        from rtnr_tpu_torch.ops import conv_direct
+        from rtnr_tpu_torch.ops import conv_direct, prefilter
         from rtnr_tpu_torch.ops import raster_resolve4 as rr
         from rtnr_tpu_torch.ops import raster_resolve5 as r5
         from rtnr_tpu_torch.ops import raster_resolve_carriers as rc
@@ -3560,6 +3638,7 @@ def main() -> int:
     mid = render_filtered(renderer.points, renderer.colors, renderer.valid, M,
                           width=WIDTH, height=HEIGHT)
     x = mid["unet_input"][None]
+    check_prefilter(mid["raw_depth"], mid["raw_rgb"], rows)
     del mid
     check_convs(renderer.unet, x, rows)
     diff_ms = check_diff_raster(renderer.points, renderer.colors, renderer.valid, M,
@@ -3582,7 +3661,7 @@ def main() -> int:
                "convt2x2_wgmma": cv.convt2x2_wgmma,
                # one counter, two rows: the input conv's bf16 and int8-out forms
                "conv3x3_in": cv.conv3x3_in, "conv3x3_in_i8out": cv.conv3x3_in,
-               "bn_train": bn_train.bn_relu_train}
+               "bn_train": bn_train.bn_relu_train, "prefilter": prefilter.filter_frame}
     sorts = check_resolvers(renderer, M, cfg.depth_band, rows)
     conv_direct_path = check_conv_direct(rows, counted)
     conv_up = check_conv_up(renderer.unet, x, rows)
@@ -3614,7 +3693,7 @@ def main() -> int:
                          ("resolve4", "conv3x3", "convt2x2", "conv3x3_wgmma",
                           "convt2x2_wgmma", "conv3x3_in"), "bf16",
                          host_frames=HOST_FRAMES,
-                         per_frame={"resolve4": 1, "winners": 0, "expand": 0,
+                         per_frame={"resolve4": 1, "winners": 0, "expand": 0, "prefilter": 1,
                                     "conv3x3_wgmma": 17, "convt2x2_wgmma": 4, "conv3x3_up": 0,
                                     "conv3x3_dyn_wgmma": 0, "convt2x2_static_wgmma": 0,
                                     "conv3x3_static_wgmma": 0, "conv3x3_in": 1,
@@ -3667,7 +3746,7 @@ def main() -> int:
                                  "convt2x2_static", "convt2x2_static_wgmma",
                                  "conv3x3_static_wgmma", "conv3x3_in"), "static int8",
                                 per_frame={"resolve4": 1, "winners": 0, "expand": 0,
-                                           "conv3x3_static": 17, "conv3x3_static_wgmma": 17,
+                                           "prefilter": 1, "conv3x3_static": 17, "conv3x3_static_wgmma": 17,
                                            "convt2x2_static": 4, "convt2x2_static_wgmma": 4,
                                            "convt2x2_wgmma": 0, "conv3x3_in": 1,
                                            "conv3x3_i8out": 1, "conv3x3": 0})
@@ -3677,7 +3756,7 @@ def main() -> int:
                               "conv3x3_in"),
                              "dyn int8",
                              per_frame={"resolve4": 1, "winners": 0, "expand": 0,
-                                        "conv3x3_wgmma": 7, "conv3x3_dyn": 10,
+                                        "prefilter": 1, "conv3x3_wgmma": 7, "conv3x3_dyn": 10,
                                         "conv3x3_dyn_wgmma": 10, "convt2x2_wgmma": 4,
                                         "conv3x3_static_wgmma": 0, "conv3x3_in": 1,
                                         "conv3x3": 8})
@@ -3793,13 +3872,17 @@ def main() -> int:
         # no TPU kernel: flax's nn.BatchNorm + ReLU, which XLA fuses on its own
         "bn_train": ("cuda", "rtnr_tpu_torch/csrc/bn_train.cu",
                      "none (flax nn.BatchNorm + relu under XLA, rtnr_tpu/models/unet.py:366-374)"),
+        # no TPU kernel: the JAX package's jnp prefilter, which XLA fuses on its own
+        "prefilter": ("cuda", "rtnr_tpu_torch/csrc/prefilter.cu",
+                      "none (jnp depth_prefilter under XLA, rtnr_tpu/ops/prefilter.py)"),
     }
     labels = {"resolve4": "K1 + K2, the v4 resolve (packed form)",
               "resolve5": "K6 + K2, the v5 resolve (packed form)",
               "resolve_diff": "K5 + K2 float_sums, the differentiable forward's resolve",
               "conv3x3_in": "K3 input conv, bf16 out",
               "conv3x3_in_i8out": "K3 input conv, int8 out",
-              "bn_train": "UNetTrain BatchNorm + ReLU, forward and backward, a step's 18 layers"}
+              "bn_train": "UNetTrain BatchNorm + ReLU, forward and backward, a step's 18 layers",
+              "prefilter": "the depth prefilter of a 1080p frame (pad, pyramid, 4 level passes)"}
     # each kernel's launches on the path that runs it (all paths in launches_by_path)
     paths = {"serve": serve, "serve_static": serve_static, "serve_dyn": serve_dyn,
              "render_cli": host,

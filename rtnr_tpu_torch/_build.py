@@ -52,6 +52,8 @@ SOURCES: Dict[str, tuple] = {
     "conv_in_sm90": ("conv_in_sm90.cu", []),
     # UNetTrain's BatchNorm + ReLU, forward and backward
     "bn_train": ("bn_train.cu", []),
+    # the depth prefilter of a full frame; -fmad=false: bit-identical to the plain path
+    "prefilter": ("prefilter.cu", ["-fmad=false"]),
 }
 
 _BASE_FLAGS = [

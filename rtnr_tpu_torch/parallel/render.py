@@ -32,12 +32,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from rtnr_tpu_torch.ops.prefilter import depth_prefilter
+from rtnr_tpu_torch.ops.prefilter import filter_frame
 from rtnr_tpu_torch.ops.raster import project_and_sort, rasterize, resolve_uint8
 from rtnr_tpu_torch.ops.raster_resolve4 import raster_images_v4
 from rtnr_tpu_torch.parallel.collectives import pmin, psum
 from rtnr_tpu_torch.parallel.mesh import Mesh
-from rtnr_tpu_torch.pipeline import pad_to_pyramid
 
 
 def merged_sums(sp, mesh: Mesh, points_axis: Optional[str], hw: int,
@@ -100,9 +99,8 @@ def render_filtered_sharded(points, colors, valid, cam_projs, mesh: Mesh, *, wid
     for M in local_frames(cam_projs, mesh, batch_axis):
         rgb, depth = _raster_frame(points, colors, valid, M, mesh, width=width, height=height,
                                    depth_band=depth_band, points_axis=points_axis)
-        dp, cp = pad_to_pyramid(depth, rgb, levels)
-        pf = depth_prefilter(dp, cp, levels=levels, filter_strength=filter_strength,
-                             gradient_filter=gradient_filter)
+        pf = filter_frame(depth, rgb, levels=levels, filter_strength=filter_strength,
+                          gradient_filter=gradient_filter)
         outs.append({
             "raw_rgb": rgb, "raw_depth": depth,
             "rgb": pf["filtered_rgb"][:height, :width],

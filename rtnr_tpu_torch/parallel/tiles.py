@@ -31,7 +31,7 @@ import torch
 
 from rtnr_tpu_torch.config import DEPTH_EMPTY
 from rtnr_tpu_torch.ops.culling import compact_points, cull_points
-from rtnr_tpu_torch.ops.prefilter import depth_prefilter
+from rtnr_tpu_torch.ops.prefilter import filter_frame
 from rtnr_tpu_torch.ops.raster import depth_min_max, project_and_sort, resolve_uint8
 from rtnr_tpu_torch.parallel.collectives import (
     all_gather,
@@ -158,9 +158,9 @@ def render_full_tile_sharded(points, colors, valid, cam_proj, mesh: Mesh, unet, 
     dmin_l, dmax_l = depth_min_max(depth.reshape(-1))
     dmin = pmin(dmin_l, mesh, tiles_axis)
     dmax = pmax(dmax_l, mesh, tiles_axis)
-    pf = depth_prefilter(ext_depth, ext_rgb, levels=levels, filter_strength=filter_strength,
-                         gradient_filter=gradient_filter, row_offset=t * strip_h - halo,
-                         total_h=height, minmax=(dmin, dmax))
+    pf = filter_frame(ext_depth, ext_rgb, levels=levels, filter_strength=filter_strength,
+                      gradient_filter=gradient_filter, row_offset=t * strip_h - halo,
+                      total_h=height, minmax=(dmin, dmax))
     x_core = pf["unet_input"][halo:halo + strip_h]
     uh = unet_halo
     x_ext = pf["unet_input"][halo - uh:halo + strip_h + uh]

@@ -18,42 +18,22 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Any, Callable, ContextManager, Dict, List, Optional, Tuple
+from typing import Any, Callable, ContextManager, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from rtnr_tpu_torch.camera import Camera
-from rtnr_tpu_torch.config import DEPTH_EMPTY, RenderConfig
+from rtnr_tpu_torch.config import RenderConfig
 from rtnr_tpu_torch.models.convert import from_flax_variables
 from rtnr_tpu_torch.models.unet import UNet, calibrate_act_scales
 from rtnr_tpu_torch.ops.culling import build_block_index, compact_points, cull_points
-from rtnr_tpu_torch.ops.prefilter import depth_prefilter
+# pad_to_pyramid is also imported from here
+from rtnr_tpu_torch.ops.prefilter import (filter_frame, pad_to_pyramid,  # noqa: F401
+                                          pyramid_pad_shape)
 from rtnr_tpu_torch.ops.raster import rasterize, rasterize_packed, unpack_rgb8
 from rtnr_tpu_torch.scene import Scene
 from rtnr_tpu_torch.utils import trace
-
-
-def pyramid_pad_shape(height: int, width: int, levels: int) -> Tuple[int, int]:
-    """Smallest (H', W') >= (H, W) divisible by 2**levels. There is no
-    polyphase layout in the port, so no further row padding (1440x1440 keeps
-    full prefilter parity)."""
-    m = 1 << levels
-    return (-(-height // m) * m, -(-width // m) * m)
-
-
-def pad_to_pyramid(depth: torch.Tensor, rgb: torch.Tensor, levels: int):
-    """Pad depth with FLT_MAX (empty) and rgb with black to the pyramid
-    shape; padded pixels are always rejected and cropped by the caller."""
-    h, w = depth.shape
-    ph, pw = pyramid_pad_shape(h, w, levels)
-    if (ph, pw) == (h, w):
-        return depth, rgb
-    dp = torch.full((ph, pw), DEPTH_EMPTY, dtype=depth.dtype, device=depth.device)
-    dp[:h, :w] = depth
-    cp = torch.zeros((ph, pw, rgb.shape[2]), dtype=rgb.dtype, device=rgb.device)
-    cp[:h, :w] = rgb
-    return dp, cp
 
 
 def render_rgbd(points, colors, valid, cam_proj, *, width: int, height: int,
@@ -83,9 +63,8 @@ def _render(points, colors, valid, cam_proj, unet: Optional[Callable], *, width:
                                                  depth_band=depth_band)
             raw_rgb = unpack_rgb8(packed)
     with stage("frame.filter"):
-        dpad, cpad = pad_to_pyramid(raw_depth, raw_rgb, levels)
-        pf = depth_prefilter(dpad, cpad, levels=levels, filter_strength=filter_strength,
-                             gradient_filter=gradient_filter)
+        pf = filter_frame(raw_depth, raw_rgb, levels=levels, filter_strength=filter_strength,
+                          gradient_filter=gradient_filter)
     crop = lambda x: x[:height, :width]
     if unet is None:
         return {

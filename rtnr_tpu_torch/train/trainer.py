@@ -45,12 +45,11 @@ import torch
 
 from rtnr_tpu_torch.models.convert import train_state_from_flax
 from rtnr_tpu_torch.models.unet import UNetTrain
-from rtnr_tpu_torch.ops.prefilter import depth_prefilter
+from rtnr_tpu_torch.ops.prefilter import filter_frame
 from rtnr_tpu_torch.parallel.collectives import psum, shard_rows
 from rtnr_tpu_torch.parallel.diff import rasterize_diff_sharded_batch
 from rtnr_tpu_torch.parallel.mesh import Mesh, make_mesh
 from rtnr_tpu_torch.parallel.render import render_filtered_sharded
-from rtnr_tpu_torch.pipeline import pad_to_pyramid
 from rtnr_tpu_torch.utils import trace
 
 
@@ -210,9 +209,8 @@ def make_scene_train_step(*, width: int, height: int, depth_band: float = 0.02,
     mesh = _mesh(mesh, batch_axis, points_axis)
 
     def prefiltered(depth, rgb):
-        dpad, cpad = pad_to_pyramid(depth, rgb, levels)
-        return depth_prefilter(dpad, cpad, levels=levels, filter_strength=filter_strength,
-                               gradient_filter=gradient_filter)["unet_input"]
+        return filter_frame(depth, rgb, levels=levels, filter_strength=filter_strength,
+                            gradient_filter=gradient_filter)["unet_input"]
 
     def step(state: SceneTrainState, points, valid, targets):
         out = rasterize_diff_sharded_batch(

@@ -2,8 +2,8 @@
 band-reference forms, K1-K6,
 the carrier kernel for K7-K9, K10 on K3, K3's fused-ConvTranspose mode, the
 input conv on conv_in_sm90.cu, the int8 modes of K3/K4 on conv.cu and on
-the s8 wgmma kernels of conv_i8_sm90.cu, and UNetTrain's BatchNorm + ReLU on
-bn_train.cu) against their plain torch twins on
+the s8 wgmma kernels of conv_i8_sm90.cu, UNetTrain's BatchNorm + ReLU on
+bn_train.cu, and the depth prefilter on prefilter.cu) against their plain torch twins on
 the card, the differentiable raster and the int8 Renderer on the card
 against the CPU, and Renderer frames under every RTNR_RESOLVE value. Marked
 ``cuda``; each test skips without a CUDA device. This file imports neither
@@ -1358,3 +1358,120 @@ def test_bn_train_two_ranks_of_one_frame_equal_one_rank_of_two(cuda, dtype):
     assert torch.equal(ranks[0][3] + ranks[1][3], whole[3])
     ds = [rk[2] for rk in ranks]
     assert bool(((ds[0] + ds[1] - whole[2]).abs() <= 1e-6 * (ds[0].abs() + ds[1].abs())).all())
+
+
+# ---- the depth prefilter on csrc/prefilter.cu (ops/prefilter.filter_frame) ----
+
+_FLT_MAX = np.float32(3.4028234663852886e38)
+
+
+def _pf_frame(cuda, h, w, scene, seed=21):
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(1.0, 20.0, (h, w)).astype(np.float32)
+    if scene == "empty":
+        d[:] = _FLT_MAX
+    elif scene == "saturated":  # FLT_MAX neighbourhoods: inf and NaN Laplacians
+        d[rng.random((h, w)) < 0.85] = _FLT_MAX
+        d[: h // 2, : w // 3] = _FLT_MAX
+    else:
+        d[rng.random((h, w)) < 0.3] = _FLT_MAX
+        d[h // 3:, : w // 4] = np.float32(12.0)  # a flat wall: kept pixels, edges round it
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return torch.from_numpy(d).to(cuda), torch.from_numpy(rgb).to(cuda)
+
+
+def _pf_same(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        a, b = got[k], want[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype == torch.float32:
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,levels,scene", [
+    ((1080, 1920), 4, "random"), ((1080, 1920), 4, "saturated"), ((1088, 1920), 4, "empty"),
+    *[((48, 80), lv, s) for lv in (1, 2, 3, 4) for s in ("random", "saturated", "empty")],
+    ((30, 45), 4, "random"), ((16, 16), 4, "saturated"), ((128, 192), 6, "random")])
+def test_prefilter_kernels_match_plain_path(cuda, hw, levels, scene):
+    """rtnr_prefilter against pad_to_pyramid + depth_prefilter on the card
+    and against the twins, bit for bit; two calls equal; one launch and one
+    ``prefilter.fused`` a call."""
+    from rtnr_tpu_torch.ops import prefilter as tp
+    from rtnr_tpu_torch.utils import trace
+
+    d, rgb = _pf_frame(cuda, *hw, scene)
+    n = tp.filter_frame.launches
+    with trace.span("frame", root=True, device=cuda):
+        got = tp.filter_frame(d, rgb, levels=levels)
+    again = tp.filter_frame(d, rgb, levels=levels)
+    assert tp.filter_frame.launches == n + 2
+    assert trace.records()[-1]["counters"]["prefilter.fused"] == 1
+    want = tp.depth_prefilter(*tp.pad_to_pyramid(d, rgb, levels), levels=levels)
+    _pf_same(got, want)
+    _pf_same(again, want)
+    _pf_same(tp.prefilter_plain(d, rgb, levels=levels), want)
+    if scene == "empty":
+        assert not bool(got["mask"].any())
+        assert float(got["depth_min"]) == np.inf and float(got["depth_max"]) == -np.inf
+    else:
+        assert bool(got["mask"].any())
+
+
+@pytest.mark.cuda
+def test_prefilter_kernels_refuse_what_they_do_not_take(cuda):
+    from rtnr_tpu_torch.ops import prefilter as tp
+
+    d, rgb = _pf_frame(cuda, 32, 32, "random")
+    for args, kw in (((d, rgb.float()), {}), ((d.double(), rgb), {}), ((d, rgb), {"levels": 7}),
+                     ((d, rgb[:, :, :2]), {})):
+        with pytest.raises(ValueError, match="filter_frame"):
+            tp.filter_frame(*args, **kw)
+
+
+@pytest.mark.cuda
+def test_renderer_and_sharded_render_prefilter_on_the_kernels(cuda):
+    """Renderer.compute_filtered_rgbd and render_filtered_sharded (the
+    training step's render) run the kernels once a frame, and their outputs
+    equal the plain path's on their own raw frames."""
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.ops import prefilter as tp
+    from rtnr_tpu_torch.parallel.mesh import make_mesh
+    from rtnr_tpu_torch.parallel.render import render_filtered_sharded
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+
+    scene = Scene.synthetic(20_000, seed=5, extent=6.0)
+    w, h = 90, 60  # pads to 96 x 64
+    cam = Camera.from_params(60.0, 60.0, w / 2, h / 2, w, h)
+    E = np.eye(4)
+    E[2, 3] = 8.0
+    r = Renderer(scene, RenderConfig(), device="cuda")
+    n = tp.filter_frame.launches
+    out = r.compute_filtered_rgbd(cam, E)
+    assert tp.filter_frame.launches == n + 1
+    raw_d, raw_c = (torch.from_numpy(out[k]).to(cuda) for k in ("raw_depth", "raw_rgb"))
+    want = tp.depth_prefilter(*tp.pad_to_pyramid(raw_d, raw_c, 4), levels=4)
+    assert np.array_equal(out["unet_input"].view(np.int32),
+                          want["unet_input"].cpu().numpy().view(np.int32))
+    assert np.array_equal(out["depth"], want["filtered_depth"][:h, :w].cpu().numpy())
+    assert np.array_equal(out["rgb"], want["filtered_rgb"][:h, :w].cpu().numpy())
+    assert np.array_equal(out["mask"], want["mask"][:h, :w].cpu().numpy())
+    assert out["mask"].any()
+
+    E2 = E.copy()
+    E2[0, 3] = 0.3
+    Ms = torch.stack([r._cam_proj(cam, E), r._cam_proj(cam, E2)])
+    n = tp.filter_frame.launches
+    got = render_filtered_sharded(r.points, r.colors, r.valid, Ms, make_mesh((1, 1)), width=w,
+                                  height=h)
+    assert tp.filter_frame.launches == n + 2
+    for f in range(2):
+        want = tp.depth_prefilter(*tp.pad_to_pyramid(got["raw_depth"][f], got["raw_rgb"][f], 4),
+                                  levels=4)
+        assert torch.equal(got["unet_input"][f], want["unet_input"])
+        assert torch.equal(got["depth"][f], want["filtered_depth"][:h, :w])
+        assert torch.equal(got["rgb"][f], want["filtered_rgb"][:h, :w])
+        assert torch.equal(got["mask"][f], want["mask"][:h, :w])

@@ -104,3 +104,109 @@ def test_render_filtered_bitexact(wh):
     assert set(got) == set(want)
     for k in want:
         _eq(got[k], want[k])
+
+
+# ---- filter_frame, the kernels' plain twins and the dispatch ----
+
+def saturated_depth(h, w, seed):
+    """Mostly empty: FLT_MAX neighbourhoods overflow the Laplacian to inf and NaN."""
+    d = make_depth(h, w, seed, empty_frac=0.85)
+    d[: h // 2, : w // 3] = FLT_MAX
+    return d
+
+
+def threshold_depth(h, w, seed):
+    """A flat surface (no edges) at c with, in every 2x2 block, pixels at
+    exactly c * f32(1.025) (kept) and one f32 step above it (rejected)."""
+    rng = np.random.default_rng(seed)
+    c = np.float32(7.3)
+    t = c * np.float32(1.025)
+    d = np.where(rng.random((h, w)) < 0.5, t, np.nextafter(t, np.float32(np.inf)))
+    d = d.astype(np.float32)
+    d[0::2, 0::2] = c  # the min of every block, so every level reads c
+    return d
+
+
+SCENES = {"random": lambda h, w: make_depth(h, w, 3), "wall": lambda h, w: wall_depth(h, w, 4),
+          "empty": lambda h, w: np.full((h, w), FLT_MAX, np.float32),
+          "saturated": lambda h, w: saturated_depth(h, w, 6),
+          "threshold": lambda h, w: threshold_depth(h, w, 7)}
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().contiguous().numpy()
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("shape", [(32, 48), (30, 45)])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_prefilter_twins_compose_to_depth_prefilter(scene, levels, shape):
+    """pyramid_plain, level_pass_plain and pack_plain, composed as the C
+    entry launches the kernels, equal pad_to_pyramid + depth_prefilter bit
+    for bit (30x45 pads on the fly)."""
+    h, w = shape
+    d = torch.from_numpy(SCENES[scene](h, w))
+    rgb = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (h, w, 3), dtype=np.uint8))
+    want = tp.depth_prefilter(*pad_to_pyramid(d, rgb, levels), levels=levels)
+    got = tp.prefilter_plain(d, rgb, levels=levels)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]), err_msg=k)
+    mask = got["mask"].numpy()
+    if scene == "empty":
+        assert not mask.any()
+        assert float(got["depth_min"]) == np.inf and float(got["depth_max"]) == -np.inf
+    if scene == "saturated":  # the finest coarse level's Laplacian holds NaN and inf sums
+        lv1 = tp.pyramid_plain(d, levels)[0][0]
+        s = sum(torch.roll(lv1, (-dy, -dx), (0, 1)) * tap for dy, dx, tap in tp._LAPLACE_TAPS)
+        assert torch.isnan(s).any() and torch.isinf(s).any()
+    if scene == "threshold":  # at the threshold kept, one step above rejected
+        raw = d.numpy()
+        t = np.float32(7.3) * np.float32(1.025)
+        assert mask[:h, :w][raw == t].all() and not mask[:h, :w][raw > t].any()
+
+
+def test_pyramid_plain_min_max_through_order_keys():
+    """The kernels' key arithmetic: exact min and max over occupied pixels,
+    negative and zero depths included, the FLT_MAX seed skipped."""
+    d = np.array([[FLT_MAX, -2.5, 0.0, 3.0], [7.0, FLT_MAX, -0.125, 1e30]], np.float32)
+    _, dmin, dmax = tp.pyramid_plain(torch.from_numpy(d), 1)
+    assert float(dmin) == -2.5 and float(dmax) == np.float32(1e30)
+
+
+def test_filter_frame_plain_paths_count_nothing():
+    """CPU tensors, strip arguments and inputs that require a gradient take
+    the plain path: depth_prefilter's outputs, no launch, no record counter."""
+    from rtnr_tpu_torch.utils import trace
+
+    h, w = 30, 45
+    d = torch.from_numpy(make_depth(h, w, 8))
+    rgb = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (h, w, 3), dtype=np.uint8))
+    dp, cp = pad_to_pyramid(d, rgb, 4)
+    mm = (torch.tensor(1.5), torch.tensor(19.0))
+    before = tp.filter_frame.launches
+    with trace.span("frame", root=True):
+        full = tp.filter_frame(d, rgb, levels=4)
+        strip = tp.filter_frame(dp, cp, levels=4, row_offset=-16, total_h=64, minmax=mm)
+        rgb_g = rgb.to(torch.float32).requires_grad_(True)
+        diff = tp.filter_frame(d, rgb_g, levels=4)
+    assert "prefilter.fused" not in trace.records()[-1]["counters"]
+    assert tp.filter_frame.launches == before
+    want = tp.depth_prefilter(dp, cp, levels=4)
+    want_strip = tp.depth_prefilter(dp, cp, levels=4, row_offset=-16, total_h=64, minmax=mm)
+    for k in want:
+        _eq(full[k], want[k].numpy())
+        _eq(strip[k], want_strip[k].numpy())
+    _eq(diff["unet_input"].detach(), want["unet_input"].numpy())
+    diff["unet_input"].sum().backward()
+    assert rgb_g.grad is not None and float(rgb_g.grad.abs().sum()) > 0
+
+
+def test_filter_frame_raises_off_its_two_paths():
+    """A frame neither on the CPU, in strip mode, nor requiring a gradient
+    must be a CUDA frame the kernels take: anything else raises."""
+    with pytest.raises(ValueError, match="filter_frame"):
+        tp.filter_frame(torch.empty((32, 32), device="meta"),
+                        torch.empty((32, 32, 3), dtype=torch.uint8, device="meta"))
