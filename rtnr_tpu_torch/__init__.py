@@ -10,7 +10,7 @@ Layout:
   files, trajectories, the npz and ``.oct`` scene caches.
 - ``data``: PLY and ``.oct`` readers and writers; ``utils``: PNG I/O and
   U-Net checkpoints (flax ``.msgpack``, torch ``.pth.tar``).
-- ``apps.render_trajectory``: the render CLI; ``bench``: the benchmark line.
+- ``apps.render_trajectory``: the render CLI.
 - ``ops.raster``: projection + the (pixel, depth) sort.
 - ``ops.raster_resolve4``: the v4 resolve (K1 and K2 as one CUDA kernel),
   and the winners (K1) and expansion (K2) kernels on their own.

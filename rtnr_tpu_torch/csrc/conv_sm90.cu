@@ -137,7 +137,7 @@
 //   (deep chunks, then k16 steps, on m64n256k16), and the conv walks its K
 //   as conv3x3_wgmma walks [skip, up]: for each dx the skip chunks, then the
 //   up chunks, each tap row dy's k16 steps in turn, on m64nFk16. The output
-//   equals the card's unfused K4 + K3 pair bit for bit (chip_smoke.py gates
+//   equals the card's unfused K4 + K3 pair bit for bit (the card tests gate
 //   it); no split-K and no atomics, so a call gives the same bits every time.
 //
 // convt2x2_wgmma is K4's exact bf16 mode (rtnr_tpu/ops/conv_phase.py::

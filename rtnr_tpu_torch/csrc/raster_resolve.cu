@@ -96,8 +96,8 @@
 // without it run today's code. Bound: as without it, plus 4 B read
 // a pixel with points.
 //
-// K1 (rtnr_winners, standalone: its tests and the "previous" pair; K5 and K6
-// share its head-count scan): a segment head is an element with pix < hw whose
+// K1 (rtnr_winners, standalone: its tests and the per-kernel table; K5 and
+// K6 share its head-count scan): a segment head is an element with pix < hw whose
 // predecessor has another pixel. Each head walks its own segment while
 // !(z > z_head + band) (reference render.cu:106; depth ascends within a
 // segment, so the band is a prefix) and writes that pixel's OWN totals
@@ -113,19 +113,17 @@
 // is walked by ONE thread, which is slow but exact.
 //
 // K2 (rtnr_expand, standalone since the tile resolves: its tests and the
-// "previous" pairs): rtnr_resolve4's tile skeleton with the winner rows
+// per-kernel table): rtnr_resolve4's tile skeleton with the winner rows
 // as its source. Each tile of TILE_P pixels finds its window in the winner
 // pixel row wimg[5, :total] with the same searches (the TPU kernel's
 // searchsorted `starts`, found in the kernel), scatters the
 // window's rows into the tile (one column a pixel, no atomics) and stores
 // the tile as above, in the packed or the sums form. Bound: bytes, 24 B read
 // a winner and 8 B (packed) written a pixel (~17 MB + 29 MB at 1080p, ~14
-// us). rtnr_expand_search is the kernel it replaced (one thread per output
-// pixel binary-searching the winner row, ~21 dependent loads a pixel: bound
-// by latency), kept only to be timed against it.
+// us).
 //
 // K2 float_sums (raster_pallas4.py:503-511; inside rtnr_resolve_diff since
-// it, kept standalone with K5 as the "previous" pair) needs no device code of
+// it, kept standalone with K5) needs no device code of
 // its own: the winner rows of rtnr_winners_f32 hold
 // per-pixel totals as f32 bit patterns, nothing is subtracted, and
 // rtnr_expand copies 32-bit rows as they are. Empty pixels get 0 bits (0.0f)
@@ -133,7 +131,7 @@
 // produces; the wrapper views rows 0-3 as f32.
 //
 // K5 (rtnr_winners_f32; standalone since rtnr_resolve_diff: its tests and the
-// "previous" pair): replaces rtnr_tpu/ops/raster_pallas4.py::
+// per-kernel table): replaces rtnr_tpu/ops/raster_pallas4.py::
 // _compact_kernel (wrapper compact_rows_by_rank) together with the XLA work
 // before it in the differentiable forward (raster_diff.py:246-276: head-depth
 // broadcast, band mask, inclusive f32 prefix sums, winner ranks). One kernel
@@ -154,7 +152,7 @@
 // a very long segment, which is slow but exact.
 //
 // K6 (rtnr_winners5, standalone since rtnr_resolve5: its tests and the
-// "previous" pair): rtnr_tpu/ops/raster_pallas5.py::_winners_kernel5 as a
+// per-kernel table): rtnr_tpu/ops/raster_pallas5.py::_winners_kernel5 as a
 // winner image. Input: the carrier-free stream sorted by pixel id ONLY, so
 // depth order inside a segment is arbitrary. Each head walks its segment twice: first the min of
 // the depth bits (positive f32 or +inf, so the int order is the float
@@ -392,40 +390,6 @@ __global__ void resolve_carriers_kernel(const int* __restrict__ pix,
   sums[3 * p + 2] = sb;
   count[p] = cnt;
   depth_bits[p] = zb_head;
-}
-
-__global__ void expand_search_kernel(const int* __restrict__ wimg, int cap,
-                              const int* __restrict__ total_p, int hw, int packed_out,
-                              int* __restrict__ out0, int* __restrict__ out_cnt,
-                              float* __restrict__ out_depth) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= hw) return;
-  const int total = *total_p;
-  const int* __restrict__ wpix = wimg + 5 * cap;
-  int lo = 0, hi = total;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (wpix[mid] < q) lo = mid + 1; else hi = mid;
-  }
-  const bool hit = lo < total && wpix[lo] == q;
-  int r = 0, g = 0, b = 0, cnt = 0, zb = FLT_MAX_BITS;
-  if (hit) {
-    r = wimg[0 * cap + lo];
-    g = wimg[1 * cap + lo];
-    b = wimg[2 * cap + lo];
-    cnt = wimg[3 * cap + lo];
-    zb = wimg[4 * cap + lo];
-  }
-  if (packed_out) {
-    const int cpos = cnt > 0 ? cnt : 1;
-    out0[q] = cnt > 0 ? ((r / cpos) | ((g / cpos) << 8) | ((b / cpos) << 16)) : 0;
-  } else {
-    out0[3 * q + 0] = r;
-    out0[3 * q + 1] = g;
-    out0[3 * q + 2] = b;
-    out_cnt[q] = cnt;
-  }
-  out_depth[q] = __int_as_float(zb);
 }
 
 // ---- the tile skeleton: rtnr_resolve4 (the stream) and rtnr_expand (winner rows) ----
@@ -1104,20 +1068,6 @@ extern "C" int rtnr_expand(const void* wimg, int cap, const void* total, int hw,
     expand_tile<false><<<blocks, TILE_THREADS, 0, s>>>(
         (const int*)wimg, cap, (const int*)total, hw, (int*)out0, (int*)out_cnt,
         (int*)out_depth);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rtnr_expand_search(const void* wimg, int cap, const void* total, int hw,
-                                  int packed_out, void* out0, void* out_cnt, void* out_depth,
-                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int threads = 256;
-  const int blocks = (hw + threads - 1) / threads;
-  if (blocks > 0) {
-    expand_search_kernel<<<blocks, threads, 0, s>>>((const int*)wimg, cap, (const int*)total, hw,
-                                                    packed_out, (int*)out0, (int*)out_cnt,
-                                                    (float*)out_depth);
   }
   return (int)cudaGetLastError();
 }

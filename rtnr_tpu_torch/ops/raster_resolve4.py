@@ -17,23 +17,21 @@ each replaces, its bound and its design); ``_lib`` loads and binds that
 library for this module, ``raster_resolve5`` and ``raster_resolve_carriers``.
 
 Intermediate contract of the standalone kernels (``winners``, ``winners_f32``
-and ``raster_resolve5.winners5``, kept for their tests and as the "previous"
-pairs the tile kernels are timed against): a winner image ``wimg`` (6, cap)
+and ``raster_resolve5.winners5``, kept for their tests and the per-kernel
+table of ``chip_smoke.py``): a winner image ``wimg`` (6, cap)
 int32, rows (r sum, g sum, b sum, count, head depth bits, pixel id), one
 column per winner (= pixel with at least one point) in pixel order, and the
 winner total as a (1,) int32 tensor that stays on the device. ``winners``
 writes integer sums; ``winners_f32`` writes f32 bit patterns, which
 ``expand_winners(..., float_sums=True)`` returns as f32 images.
-``expand_winners`` runs the tile kernel; ``expand_search`` launches the
-per-pixel binary-search kernel it replaced, kept only to be timed against
-it.
+``expand_winners`` runs the tile kernel.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 twin only for CPU tensors. ``raster_images_v4.launches`` /
 ``raster_images_diff.launches`` (and both wrappers' ``band_ref_launches``,
 their band-reference form) / ``winners.launches`` /
-``winners_f32.launches`` / ``expand_winners.launches`` /
-``expand_search.launches`` count kernel launches.
+``winners_f32.launches`` / ``expand_winners.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -66,8 +64,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.rtnr_winners, lib.rtnr_winners_f32, lib.rtnr_winners5):
         fn.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P, _P]
         fn.restype = _I
-    for fn in (lib.rtnr_expand, lib.rtnr_expand_search):
-        fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
+    lib.rtnr_expand.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.rtnr_resolve_carriers.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
     lib.rtnr_resolve5.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P]
     # rtnr_resolve4 and rtnr_resolve_diff take a band reference image (or NULL)
@@ -76,8 +73,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                   _P]
     lib.rtnr_resolve_diff.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P,
                                       _P]
-    for fn in (lib.rtnr_expand, lib.rtnr_expand_search, lib.rtnr_resolve_carriers,
-               lib.rtnr_resolve4, lib.rtnr_resolve5, lib.rtnr_resolve_diff):
+    for fn in (lib.rtnr_expand, lib.rtnr_resolve_carriers, lib.rtnr_resolve4, lib.rtnr_resolve5,
+               lib.rtnr_resolve_diff):
         fn.restype = _I
 
 
@@ -329,22 +326,21 @@ def _check_wimg(wimg: torch.Tensor, packed_out: bool, float_sums: bool) -> None:
         raise ValueError("packed_out resolves integer sums; float_sums has none")
 
 
-def _launch_expand(fn: str, wimg: torch.Tensor, total: torch.Tensor, hw: int,
-                   packed_out: bool, float_sums: bool):
-    """Run the C entry ``fn`` (rtnr_expand or rtnr_expand_search) on CUDA
-    tensors."""
+def _launch_expand(wimg: torch.Tensor, total: torch.Tensor, hw: int, packed_out: bool,
+                   float_sums: bool):
+    """Run the C entry rtnr_expand on CUDA tensors."""
     _check_wimg(wimg, packed_out, float_sums)
     if wimg.device.type != "cuda" or total.device != wimg.device:
-        raise ValueError(f"{fn} takes CUDA tensors on one device, not {wimg.device}")
+        raise ValueError(f"rtnr_expand takes CUDA tensors on one device, not {wimg.device}")
     wimg = wimg.contiguous()
     dev = wimg.device
     out0, count, depth = _dense_outputs(dev, hw, packed_out)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(_lib(), fn)(
+    rc = _lib().rtnr_expand(
         wimg.data_ptr(), wimg.shape[1], total.data_ptr(), hw, int(packed_out),
         out0.data_ptr(), None if count is None else count.data_ptr(), depth.data_ptr(), stream,
     )
-    _build.check(rc, fn)
+    _build.check(rc, "rtnr_expand")
     return _expand_images(out0, count, depth, packed_out, float_sums)
 
 
@@ -359,26 +355,12 @@ def expand_winners(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
         return expand_plain(wimg, total, hw, packed_out, float_sums)
     if wimg.device.type != "cuda":
         raise ValueError(f"unsupported device {wimg.device}")
-    out = _launch_expand("rtnr_expand", wimg, total, hw, packed_out, float_sums)
+    out = _launch_expand(wimg, total, hw, packed_out, float_sums)
     expand_winners.launches += 1
     return out
 
 
 expand_winners.launches = 0
-
-
-def expand_search(wimg: torch.Tensor, total: torch.Tensor, hw: int, *,
-                  packed_out: bool = False, float_sums: bool = False):
-    """K2 as it was before the tile kernel (``rtnr_expand_search``: one
-    thread per output pixel binary-searching the winner pixel row), CUDA
-    tensors only; no path of the port calls it. It is kept so that the card
-    can time the tile kernel against it."""
-    out = _launch_expand("rtnr_expand_search", wimg, total, hw, packed_out, float_sums)
-    expand_search.launches += 1
-    return out
-
-
-expand_search.launches = 0
 
 
 def raster_images_v4_plain(sp: SortedPoints, hw: int, depth_band: float,

@@ -12,9 +12,10 @@ interpreters, not forks, so no thread or CUDA state of the caller crosses
 into them, and each sets ``torch.set_num_threads(threads)``. Several ranks
 on one card get gloo by the backend rule; one process a card gets NCCL.
 
-Used by the port's CPU tests (gloo ranks) and by ``chip_smoke.py`` (ranks
-sharing one card). A rank that fails, or a run past ``timeout`` seconds,
-stops every rank and raises with the failing rank's error output.
+Used by the port's CPU tests (gloo ranks), and by its card tests and
+``chip_smoke.py`` (ranks sharing one card). A rank that fails, or a run past
+``timeout`` seconds, stops every rank and raises with the failing rank's
+error output.
 """
 
 from __future__ import annotations

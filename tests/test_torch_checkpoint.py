@@ -22,7 +22,7 @@ from rtnr_tpu_torch.models.convert import (
 )
 from rtnr_tpu_torch.models.unet import UNet
 from rtnr_tpu_torch.utils import checkpoint as ck
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 def _same_tree(a, b):

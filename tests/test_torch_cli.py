@@ -22,7 +22,7 @@ from rtnr_tpu_torch.pipeline import Renderer
 from rtnr_tpu_torch.scene import Scene
 from rtnr_tpu_torch.utils.checkpoint import save_msgpack
 from rtnr_tpu_torch.utils.image import read_png, write_png
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 @pytest.fixture

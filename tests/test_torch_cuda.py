@@ -5,9 +5,13 @@ input conv on conv_in_sm90.cu, the int8 modes of K3/K4 on conv.cu and on
 the s8 wgmma kernels of conv_i8_sm90.cu, UNetTrain's BatchNorm + ReLU on
 bn_train.cu, and the depth prefilter on prefilter.cu) against their plain torch twins on
 the card, the differentiable raster and the int8 Renderer on the card
-against the CPU, and Renderer frames under every RTNR_RESOLVE value. Marked
-``cuda``; each test skips without a CUDA device. This file imports neither
-JAX nor the JAX package, so on a machine with the card and no JAX it runs as
+against the CPU, and Renderer frames under every RTNR_RESOLVE value; then
+the benchmark's shapes (a 1080p frame of the full-width net in every
+serving mode, its routes, conv calls and output budgets, both train steps,
+the training CLI) and the multi-rank paths on ranks sharing the card.
+Marked ``cuda``; each test skips without a CUDA device. This file imports
+neither JAX nor the JAX package, so on a machine with the card and no JAX it
+runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -16,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import bn_ok, conv_ok, convt_ok, same_bits, ulp2
 from rtnr_tpu_torch.camera import Camera
 from rtnr_tpu_torch.ops import conv as cv
 from rtnr_tpu_torch.ops import raster as tr
@@ -37,11 +42,6 @@ def cuda():
 
 def _mk(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
-
-
-def _ulp2(t: torch.Tensor) -> float:
-    """2 bf16 ulp of the tensor's magnitude."""
-    return 2.0 ** (np.floor(np.log2(float(t.abs().max()))) - 6)
 
 
 @pytest.mark.cuda
@@ -102,9 +102,9 @@ def _resolve4_stream(cuda, case):
 @pytest.mark.parametrize("case", ["n1", "n50000", "one_pixel_20000", "all_culled",
                                   "hw_not_multiple_of_p", "unaligned"])
 def test_resolve4_matches_twin_and_old_pair(cuda, case):
-    """rtnr_resolve4 in both forms against its twin and against K1 + the
-    search K2, bit for bit; one launch of its own counter a call, none of
-    K1's or K2's; two runs equal."""
+    """rtnr_resolve4 in both forms against its twin, bit for bit; one
+    launch of its own counter a call, none of K1's or K2's; two runs
+    equal."""
     sp, hw = _resolve4_stream(cuda, case)
     if case == "all_culled":
         assert int((sp.pix < hw).sum()) == 0
@@ -113,10 +113,8 @@ def test_resolve4_matches_twin_and_old_pair(cuda, case):
         got = rr.raster_images_v4(sp, hw, 0.02, packed_out=packed_out)
         assert (rr.raster_images_v4.launches, rr.winners.launches,
                 rr.expand_winners.launches) == (before[0] + 1, before[1], before[2])
-        assert _same_bits(got, rr.raster_images_v4_plain(sp, hw, 0.02, packed_out))
-        wimg, total = rr.winners(sp, hw, 0.02)
-        assert _same_bits(got, rr.expand_search(wimg, total, hw, packed_out=packed_out))
-        assert _same_bits(got, rr.raster_images_v4(sp, hw, 0.02, packed_out=packed_out))
+        assert same_bits(got, rr.raster_images_v4_plain(sp, hw, 0.02, packed_out))
+        assert same_bits(got, rr.raster_images_v4(sp, hw, 0.02, packed_out=packed_out))
         if case == "one_pixel_20000" and not packed_out:
             assert int(got[1].max()) >= 1000
 
@@ -125,9 +123,8 @@ def test_resolve4_matches_twin_and_old_pair(cuda, case):
 @pytest.mark.parametrize("n", [1, 50_000])
 @pytest.mark.parametrize("form", ["packed", "sums", "float_sums"])
 def test_expand_tile_matches_twin_and_search(cuda, n, form):
-    """The tile K2 (rtnr_expand) in its three forms against expand_plain and
-    the search kernel it replaced, bit for bit; its counter counts it, the
-    search kernel's its own."""
+    """The tile K2 (rtnr_expand) in its three forms against expand_plain,
+    bit for bit; one launch of its counter a call."""
     w, h = 97, 61
     hw = w * h
     sp = _dense_stream(cuda, n, w, h, seed=13)
@@ -139,13 +136,10 @@ def test_expand_tile_matches_twin_and_search(cuda, n, form):
         wimg, total = rr.winners_f32(tr.SortedDiff(sp.pix, sp.zbits, rgb.contiguous()), hw, 0.02)
     else:
         wimg, total = rr.winners(sp, hw, 0.02)
-    before = (rr.expand_winners.launches, rr.expand_search.launches)
+    before = rr.expand_winners.launches
     got = rr.expand_winners(wimg, total, hw, packed_out=packed_out, float_sums=float_sums)
-    assert (rr.expand_winners.launches, rr.expand_search.launches) == (before[0] + 1, before[1])
-    assert _same_bits(got, rr.expand_plain(wimg, total, hw, packed_out, float_sums))
-    old = rr.expand_search(wimg, total, hw, packed_out=packed_out, float_sums=float_sums)
-    assert rr.expand_search.launches == before[1] + 1
-    assert _same_bits(got, old)
+    assert rr.expand_winners.launches == before + 1
+    assert same_bits(got, rr.expand_plain(wimg, total, hw, packed_out, float_sums))
 
 
 @pytest.mark.cuda
@@ -160,13 +154,13 @@ def test_conv3x3_kernel_matches_f32_twin(cuda, cs):
     y, pooled = cv.conv3x3(xs, k, b, relu=True, pool=True)
     (ref,) = cv.conv3x3_plain(xs, cv._bf16_values(k), cv._bf16_values(b), relu=True,
                               dtype=torch.float32)
-    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    assert float((y.float() - ref).abs().max()) <= ulp2(ref)
     assert torch.equal(pooled, cv._pool2(y))
     hk = torch.from_numpy(_mk((64, 3), 5, 0.2)).to(cuda)
     hb = torch.from_numpy(_mk((3,), 6)).to(cuda)
     (hout,) = cv.conv3x3(xs, k, b, relu=True, head_kernel=hk, head_bias=hb)
     href = torch.matmul(y.float(), cv._bf16_values(hk)) + cv._bf16_values(hb)
-    assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+    assert float((hout.float() - href).abs().max()) <= ulp2(href)
 
 
 @pytest.mark.cuda
@@ -178,7 +172,7 @@ def test_convt2x2_kernel_matches_f32_twin(cuda, c, f):
     y = cv.convt2x2(x, k, b)
     ref = cv.convt2x2_plain(x, cv._bf16_values(k), cv._bf16_values(b), dtype=torch.float32)
     assert y.shape == (1, 32, 48, f)
-    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    assert float((y.float() - ref).abs().max()) <= ulp2(ref)
 
 
 @pytest.mark.cuda
@@ -235,7 +229,7 @@ def test_conv3x3_dyn_kernel_matches_twin(cuda, cs, w, head):
         hw = cv.prepare_head(torch.from_numpy(_mk((64, 3), 5, 0.2)).to(cuda))
         (hout,) = cv.conv3x3_prepared(xs, wq, relu=True, head=hw)
         href = torch.matmul(got.float(), hw.hk.float()) + hw.hb
-        assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+        assert float((hout.float() - href).abs().max()) <= ulp2(href)
 
 
 @pytest.mark.cuda
@@ -411,22 +405,16 @@ def test_resolve_diff_matches_twin_and_old_pair(cuda, case, integer):
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1,) + before[1:]
     assert all(g.dtype == torch.float32 for g in got)
-    assert _same_bits(got, rr.expand_winners(*rr.winners_f32(sd, hw, 0.02), hw, float_sums=True))
-    assert _same_bits([g.cpu() for g in got], rr.raster_images_diff_plain(sd_cpu, hw, 0.02))
+    assert same_bits(got, rr.expand_winners(*rr.winners_f32(sd, hw, 0.02), hw, float_sums=True))
+    assert same_bits([g.cpu() for g in got], rr.raster_images_diff_plain(sd_cpu, hw, 0.02))
     if integer:
-        assert _same_bits(got, rr.raster_images_diff_plain(sd, hw, 0.02))
-    assert _same_bits(rr.raster_images_diff(sd, hw, 0.02), got)
+        assert same_bits(got, rr.raster_images_diff_plain(sd, hw, 0.02))
+    assert same_bits(rr.raster_images_diff(sd, hw, 0.02), got)
     if m > 1:
         off = tr.SortedDiff(*(torch.cat([x[:1], x])[1:] for x in sd))
-        assert _same_bits(rr.raster_images_diff(off, hw, 0.02), got)
+        assert same_bits(rr.raster_images_diff(off, hw, 0.02), got)
     if case == "one_pixel_20000":
         assert float(got[1][1000]) > 1000
-
-
-def _same_bits(a, b):
-    return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
-                           y.view(torch.int32) if y.dtype == torch.float32 else y)
-               for x, y in zip(a, b))
 
 
 @pytest.mark.cuda
@@ -469,10 +457,10 @@ def test_band_ref_forms_match_twins(cuda, case, integer):
     got = rr.raster_images_diff(sd, hw, 0.02, band_ref=ref_c)
     assert (rr.raster_images_diff.launches, rr.raster_images_diff.band_ref_launches) == (
         before[0] + 1, before[1] + 1)
-    assert _same_bits([g.cpu() for g in got],
+    assert same_bits([g.cpu() for g in got],
                       rr.raster_images_diff_plain(mine, hw, 0.02, band_ref=ref))
     if integer:
-        assert _same_bits(got, rr.raster_images_diff_plain(sd, hw, 0.02, band_ref=ref_c))
+        assert same_bits(got, rr.raster_images_diff_plain(sd, hw, 0.02, band_ref=ref_c))
     assert torch.equal(got[2].cpu().view(torch.int32), heads[0].view(torch.int32))
     # the serving stream's sums form: 8-bit colours packed in one int32, in
     # _diff_stream's order
@@ -488,9 +476,9 @@ def test_band_ref_forms_match_twins(cuda, case, integer):
     got4 = rr.raster_images_v4(sp, hw, 0.02, band_ref=ref_c)
     assert (rr.raster_images_v4.launches, rr.raster_images_v4.band_ref_launches) == (
         before[0] + 1, before[1] + 1)
-    assert _same_bits([g.cpu() for g in got4],
+    assert same_bits([g.cpu() for g in got4],
                       rr.raster_images_v4_plain(sp_cpu, hw, 0.02, band_ref=ref))
-    assert _same_bits(got4, rr.raster_images_v4_plain(sp, hw, 0.02, band_ref=ref_c))
+    assert same_bits(got4, rr.raster_images_v4_plain(sp, hw, 0.02, band_ref=ref_c))
     with pytest.raises(ValueError, match="sums form"):
         rr.raster_images_v4(sp, hw, 0.02, packed_out=True, band_ref=ref_c)
 
@@ -529,11 +517,11 @@ def test_winners5_and_carrier_kernels_match_twins(cuda, n, one_pixel):
     wimg_p, total_p = r5.winners5_plain(sp5, hw, 0.02)
     k = int(total_p[0])
     assert int(total[0]) == k and torch.equal(wimg[:, :k], wimg_p[:, :k])
-    assert _same_bits(rr.expand_winners(wimg, total, hw), ref)
+    assert same_bits(rr.expand_winners(wimg, total, hw), ref)
     counts = lambda: (r5.raster_images_v5.launches, r5.winners5.launches,
                       rr.expand_winners.launches, rr.raster_images_v4.launches)
     before = counts()
-    assert _same_bits(r5.raster_images_v5(sp5, hw, 0.02), ref)
+    assert same_bits(r5.raster_images_v5(sp5, hw, 0.02), ref)
     assert counts() == (before[0] + 1,) + before[1:]
     if one_pixel:
         assert int(ref[1].max()) >= 1000
@@ -541,11 +529,11 @@ def test_winners5_and_carrier_kernels_match_twins(cuda, n, one_pixel):
     before = rc.resolve_carriers.launches
     got = rc.resolve_carriers(spc, hw, 0.02)
     assert rc.resolve_carriers.launches == before + 1
-    assert _same_bits(got, rc.resolve_carriers_plain(spc, hw, 0.02))
-    assert _same_bits(got, ref)
+    assert same_bits(got, rc.resolve_carriers_plain(spc, hw, 0.02))
+    assert same_bits(got, ref)
     rgb_s, d_s = tr.rasterize_scatter(pts, cols, M, **kw)
     rgb, d = tr.rasterize(pts, cols, M, **kw)
-    assert torch.equal(rgb_s, rgb) and _same_bits((d_s,), (d,))
+    assert torch.equal(rgb_s, rgb) and same_bits((d_s,), (d,))
 
 
 def _stream5(cuda, pix, z, cols, hw):
@@ -592,11 +580,11 @@ def test_resolve5_matches_twin_and_v4_on_edge_streams(cuda, case):
         before = r5.raster_images_v5.launches
         got = r5.raster_images_v5(sp, hw, 0.02, packed_out=packed_out)
         assert r5.raster_images_v5.launches == before + 1
-        assert _same_bits(got, r5.raster_images_v5_plain(sp, hw, 0.02, packed_out))
-        assert _same_bits(got, rr.raster_images_v4(sp4, hw, 0.02, packed_out=packed_out))
+        assert same_bits(got, r5.raster_images_v5_plain(sp, hw, 0.02, packed_out))
+        assert same_bits(got, rr.raster_images_v4(sp4, hw, 0.02, packed_out=packed_out))
         if len(pix) > 1:
             off = tr.SortedPoints(*(torch.cat([t[:1], t])[1:] for t in sp))
-            assert _same_bits(r5.raster_images_v5(off, hw, 0.02, packed_out=packed_out), got)
+            assert same_bits(r5.raster_images_v5(off, hw, 0.02, packed_out=packed_out), got)
 
 
 @pytest.mark.cuda
@@ -615,7 +603,7 @@ def test_conv3x3_direct_matches_twin(cuda, n, cs, bias):
     for i in range(n):
         (ref,) = cv.conv3x3_plain([x[i:i + 1] for x in xs], cv._bf16_values(k), bb, relu=True,
                                   dtype=torch.float32)
-        assert float((y[i:i + 1].float() - ref).abs().max()) <= _ulp2(ref)
+        assert float((y[i:i + 1].float() - ref).abs().max()) <= ulp2(ref)
 
 
 @pytest.mark.cuda
@@ -673,7 +661,7 @@ def test_conv3x3_wgmma_matches_f32_twin(cuda, hw, cs, f):
     assert (cv.conv3x3_wgmma.launches, cv.conv3x3.launches) == (before[0] + 1, before[1] + 1)
     (ref,) = cv.conv3x3_plain(xs, cv._bf16_values(k), cv._bf16_values(b), relu=True,
                               dtype=torch.float32)
-    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    assert float((y.float() - ref).abs().max()) <= ulp2(ref)
     y2, pooled = cv.conv3x3_prepared(xs, wts, relu=True, pool=True)
     assert torch.equal(y2, y) and torch.equal(pooled, cv._pool2(y))
     (y3,) = cv.conv3x3_prepared(xs, wts, relu=True)
@@ -683,7 +671,7 @@ def test_conv3x3_wgmma_matches_f32_twin(cuda, hw, cs, f):
         (hout,) = cv.conv3x3_prepared(xs, wts, relu=True, head=head)
         href = torch.matmul(y.float(), head.hk.float()) + head.hb
         assert hout.shape == (1, h, w, 3)
-        assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+        assert float((hout.float() - href).abs().max()) <= ulp2(href)
 
 
 @pytest.mark.cuda
@@ -726,7 +714,7 @@ def test_conv3x3_in_matches_its_twin(cuda, hw, c, out_i8):
         d = (got.int() - want.int()).abs()
         assert int(d.max()) <= 1 and int((d > 0).sum()) <= max(1, d.numel() // 1000)
     else:
-        assert float((got.float() - want.float()).abs().max()) <= _ulp2(want.float())
+        assert float((got.float() - want.float()).abs().max()) <= ulp2(want.float())
     assert torch.equal(cv.conv3x3_prepared([x], wq, relu=True)[0], got)
 
 
@@ -769,7 +757,7 @@ def test_conv3x3_up_matches_f32_twin(cuda, hw, cs, cd, f):
     kern = wts.wmat[:9 * (cs + f)].float().reshape(3, 3, cs + f, f)
     (ref,) = cv.conv3x3_plain([skip, up_ref], kern, wts.bias, relu=True, dtype=torch.float32)
     assert y.shape == (1, h, w, f)
-    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    assert float((y.float() - ref).abs().max()) <= ulp2(ref)
     (y2,) = cv.conv3x3_prepared([skip, deep], wts, relu=True, up=up)
     assert torch.equal(y2, y)
     (pair,) = cv.conv3x3_prepared([skip, cv.convt2x2_prepared(deep, up)], wts, relu=True)
@@ -955,7 +943,7 @@ def test_conv3x3_static_wgmma_head(cuda, hw, cs):
     assert torch.equal(y, cv.conv3x3_prepared_plain(xs, wq, relu=True)[0])
     href = torch.matmul(y.float(), hd.hk.float()) + hd.hb
     assert hout.shape == (1,) + hw + (3,)
-    assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+    assert float((hout.float() - href).abs().max()) <= ulp2(href)
     assert torch.equal(cv.conv3x3_prepared(xs, wq, relu=True, head=hd)[0], hout)
 
 
@@ -980,10 +968,10 @@ def test_convt2x2_wgmma_matches_f32_twin(cuda, c, f, hw):
     assert (cv.convt2x2_wgmma.launches, cv.convt2x2.launches) == (before[0] + 1, before[1] + 1)
     ref = cv.convt2x2_plain(x, cv._bf16_values(k), cv._bf16_values(b), dtype=torch.float32)
     assert y.shape == (1, 2 * h, 2 * w, f) and y.dtype == torch.bfloat16
-    assert float((y.float() - ref).abs().max()) <= _ulp2(ref)
+    assert float((y.float() - ref).abs().max()) <= ulp2(ref)
     old = cv._convt2x2_gemm(x, wts)
     assert (cv.convt2x2_wgmma.launches, cv.convt2x2.launches) == (before[0] + 1, before[1] + 2)
-    assert float((old.float() - ref).abs().max()) <= _ulp2(ref)
+    assert float((old.float() - ref).abs().max()) <= ulp2(ref)
     assert torch.equal(cv.convt2x2_prepared(x, wts), y)
 
 
@@ -1000,7 +988,7 @@ def test_new_wgmma_counters_only_move_on_routed_calls(cuda):
     assert (cv.conv3x3_static_wgmma.launches, cv.conv3x3_static.launches) == (n[0], n[1] + 2)
     (y,) = cv.conv3x3_prepared_plain(xh, wh, relu=True)
     href = torch.matmul(y.float(), hd.hk.float()) + hd.hb
-    assert float((hout.float() - href).abs().max()) <= _ulp2(href)
+    assert float((hout.float() - href).abs().max()) <= ulp2(href)
     x = torch.from_numpy(_mk((1, 4, 6, 32), 131)).to(cuda, torch.bfloat16)
     wt = cv.prepare_convt2x2(torch.from_numpy(_mk((2, 2, 32, 16), 132, 0.2)).to(cuda), None)
     m = (cv.convt2x2_wgmma.launches, cv.convt2x2.launches)
@@ -1232,37 +1220,19 @@ def _bn_kernels(x, dy, p, keep=None):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", list(BN_SHAPES))
 def test_bn_train_kernels_match_twins(cuda, shape, dtype):
-    """The four kernels against their plain twins. Given the kernels' own
-    sums, the output, the running statistics, dscale, dbias and dx are the
-    twins' bits (the same ops in the same order); the sums themselves are
-    f32 sums in the kernels' order, held to f64 sums within 2e-5 of the sums
-    of magnitudes (a term passes through at most ~135 f32 additions, 8e-6 at
-    2^-24 each). Two identical calls give identical bits."""
-    from rtnr_tpu_torch.ops import bn_train as bt
-
+    """The four kernels against their plain twins (``chip_smoke.bn_ok``):
+    given the kernels' own sums, the output, the running statistics,
+    dscale, dbias and dx are the twins' bits (the same ops in the same
+    order); the sums themselves are f32 sums in the kernels' order, held to
+    f64 sums within 2e-5 of the sums of magnitudes. The outputs keep x's
+    dtype and shape; two identical calls give identical bits."""
     x, dy, p = _bn_inputs(cuda, dtype, BN_SHAPES[shape], misalign=shape in ("c12", "n2"))
-    y, dx, dscale, dbias, mean, var, tot, sums = _bn_kernels(x, dy, p)
-    c = x.shape[1]
+    assert bn_ok(x, dy, p["scale"], p["bias"], p["mean"], p["var"])
+    got = _bn_kernels(x, dy, p)
+    y, dx = got[:2]
     assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
-    xd = x.double()
-    ref = bt.batch_sums_plain(xd)
-    absx = torch.cat([xd.abs().sum(dim=(0, 2, 3)), ref[c:2 * c]])
-    assert float(tot[-1]) == x.numel() // c
-    assert bool(((tot[:2 * c].double() - ref[:2 * c]).abs() <= 2e-5 * absx).all())
-    mean_t, var_t = p["mean"].clone(), p["var"].clone()
-    assert torch.equal(y, bt.bn_relu_apply_plain(x, tot, p["scale"], p["bias"], mean_t, var_t))
-    assert torch.equal(mean, mean_t) and torch.equal(var, var_t)
-    # the backward's sums in f64 over the kernels' own mask and mean
-    mean_k, _, rstd, _ = bt.channel_terms(tot, p["scale"])
-    gd = torch.where(y > 0, dy, 0).double()
-    gx = gd * (xd - mean_k.double()[:, None, None])
-    want = torch.cat([gd.sum(dim=(0, 2, 3)), gx.sum(dim=(0, 2, 3))])
-    mag = torch.cat([gd.abs().sum(dim=(0, 2, 3)), gx.abs().sum(dim=(0, 2, 3))])
-    assert bool(((sums.double() - want).abs() <= 2e-5 * mag).all())
-    assert torch.equal(dscale, sums[c:] * rstd) and torch.equal(dbias, sums[:c])
-    assert torch.equal(dx, bt.bn_relu_grad_x_plain(dy, x, tot, p["scale"], p["bias"], sums))
     again = _bn_kernels(x, dy, p)
-    for a, b in zip((y, dx, dscale, dbias, mean, var, tot, sums), again):
+    for a, b in zip(got, again):
         assert torch.equal(a, b)
 
 
@@ -1383,11 +1353,8 @@ def _pf_frame(cuda, h, w, scene, seed=21):
 def _pf_same(got, want):
     assert set(got) == set(want)
     for k in want:
-        a, b = got[k], want[k]
-        assert a.dtype == b.dtype and a.shape == b.shape, k
-        if a.dtype == torch.float32:
-            a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
-        assert torch.equal(a, b), k
+        assert got[k].dtype == want[k].dtype, k
+        assert same_bits((got[k],), (want[k],)), k
 
 
 @pytest.mark.cuda
@@ -1475,3 +1442,771 @@ def test_renderer_and_sharded_render_prefilter_on_the_kernels(cuda):
         assert torch.equal(got["depth"][f], want["filtered_depth"][:h, :w])
         assert torch.equal(got["rgb"][f], want["filtered_rgb"][:h, :w])
         assert torch.equal(got["mask"][f], want["mask"][:h, :w])
+
+
+# ---------------------------------------------------------------------------
+# the full-width net and the paths at the benchmark's shapes: 1920x1080,
+# padded to 1088x1920, U-Net [64,128,256,512] with seeded weights
+# ---------------------------------------------------------------------------
+
+FULL = (64, 128, 256, 512)
+_FRAME = dict(width=1920, height=1080)
+
+
+@pytest.fixture(scope="module")
+def full():
+    """A seeded 5M-point scene at 1080p (the steps cell's size: the U-Net's
+    input, and so its budgets and the diff images, depend on how dense the
+    frame is), the bf16 ("off"), static and dyn Renderers of the full-width
+    net (static calibrated at the pose), and the U-Net inputs of the pose
+    and of a second pose away from it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import types
+
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.pipeline import Renderer, render_filtered
+    from rtnr_tpu_torch.scene import Scene
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene = Scene.synthetic(PAR_POINTS, seed=0, extent=10.0)
+    cam = Camera.from_params(1100.0, 1100.0, 960.0, 540.0, 1920, 1080)
+    E, E2 = np.eye(4), np.eye(4)
+    E[2, 3] = 12.0
+    E2[0, 3], E2[1, 3], E2[2, 3] = 1.5, -0.5, 9.0
+    v = init_unet_numpy(0, FULL)
+    r = {m: Renderer(scene, RenderConfig(unet_int8=m), v, device="cuda")
+         for m in ("off", "static", "dyn")}
+    r["static"].calibrate(cam, E)
+    xs = [render_filtered(r["off"].points, r["off"].colors, r["off"].valid,
+                          r["off"]._cam_proj(cam, e), **_FRAME)["unet_input"][None]
+          for e in (E, E2)]
+    return types.SimpleNamespace(scene=scene, cam=cam, E=E, variables=v, r=r, x=xs[0], x2=xs[1])
+
+
+_CONV_COUNTERS = ("conv3x3", "convt2x2", "conv3x3_wgmma", "convt2x2_wgmma", "conv3x3_up",
+                  "conv3x3_in", "conv3x3_i8out", "conv3x3_static", "conv3x3_dyn",
+                  "convt2x2_static", "conv3x3_dyn_wgmma", "convt2x2_static_wgmma",
+                  "conv3x3_static_wgmma")
+# a full-width frame's launches of each counter (absent: 0). conv3x3 / convt2x2 /
+# conv3x3_static / conv3x3_dyn / convt2x2_static / conv3x3_i8out count every
+# call of their mode, on conv.cu or not; each equal to its routed kernels'
+# counts (conv_sm90.cu, conv_i8_sm90.cu, conv_in_sm90.cu) leaves conv.cu none
+_ROUTES = {
+    "bf16": dict(conv3x3=18, conv3x3_wgmma=17, conv3x3_in=1, convt2x2=4, convt2x2_wgmma=4),
+    "static": dict(conv3x3_static=17, conv3x3_static_wgmma=17, conv3x3_in=1, conv3x3_i8out=1,
+                   convt2x2_static=4, convt2x2_static_wgmma=4),
+    "dyn": dict(conv3x3=8, conv3x3_wgmma=7, conv3x3_in=1, conv3x3_dyn=10, conv3x3_dyn_wgmma=10,
+                convt2x2=4, convt2x2_wgmma=4),
+    "bf16_fuse_up": dict(conv3x3=16, conv3x3_wgmma=15, conv3x3_in=1, conv3x3_up=2, convt2x2=2,
+                         convt2x2_wgmma=2),
+    "dyn_fuse_up": dict(conv3x3=6, conv3x3_wgmma=5, conv3x3_in=1, conv3x3_dyn=10,
+                        conv3x3_dyn_wgmma=10, conv3x3_up=2, convt2x2=2, convt2x2_wgmma=2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(_ROUTES))
+def test_full_width_frame_routes(cuda, full, mode, monkeypatch, tmp_path):
+    """One 1080p frame of the full-width net in each serving mode (bf16,
+    static, dyn; RTNR_FUSE_UP=1 in bf16 and dyn): every conv counter as
+    ``_ROUTES`` has it, so no kernel of conv.cu; one rtnr_resolve4 and no
+    K1 or K2; one prefilter call. Its ``trace.capture`` holds one
+    ``resolve4_tile`` and no kernel of conv.cu (gemm, max-pool, head, dyn
+    scales), K1 or K2."""
+    import json
+    import re
+
+    from rtnr_tpu_torch.ops import prefilter as tp
+    from rtnr_tpu_torch.utils import trace
+
+    base = mode.split("_")[0]
+    if mode.endswith("fuse_up"):
+        monkeypatch.setenv("RTNR_FUSE_UP", "1")
+    r = full.r["off" if base == "bf16" else base]
+    r.compute_full(full.cam, full.E)
+    counters = {k: getattr(cv, k) for k in _CONV_COUNTERS}
+    counters.update(resolve4=rr.raster_images_v4, winners=rr.winners, expand=rr.expand_winners,
+                    prefilter=tp.filter_frame)
+    before = {k: c.launches for k, c in counters.items()}
+    with trace.capture(str(tmp_path)):
+        out = r.compute_full(full.cam, full.E)
+        torch.cuda.synchronize()
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    assert got == {**{k: 0 for k in counters}, **_ROUTES[mode], "resolve4": 1, "prefilter": 1}
+    assert np.isfinite(out["rgb_f"]).all()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("resolve4_tile" in n for n in names) == 1
+    old = re.compile(r"\bgemm<\d, \d>|maxpool2<|head1x1_bf16|dyn_scales|winners_(count|scan|write)"
+                     r"|expand_tile")
+    assert not [n for n in names if old.search(n)]
+
+
+def _budget(y, ref, big, small):
+    """Max and mean of |y - ref| within ``big`` / ``small`` of the scale."""
+    d = (y.float() - ref.float()).abs()
+    return float(d.max()) <= big and float(d.mean()) <= small
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "bf16_fuse_up", "static", "dyn"])
+def test_full_width_unet_within_its_budgets(cuda, full, mode, monkeypatch):
+    """The full-width net at 1088x1920 on a rendered U-Net input: bf16 (also
+    with RTNR_FUSE_UP=1) within max 5e-2 / mean 5e-3 x max(1, max|twin|) of
+    its f32 twin net; static (21 calibrated scales) and dyn int8 within max
+    0.10 / mean 0.02 x max|bf16| of the bf16 net (PARITY.md's budgets),
+    static also at a second pose away from its calibration view."""
+    bf16 = full.r["off"].unet
+    with torch.no_grad():
+        if mode.startswith("bf16"):
+            if mode.endswith("fuse_up"):
+                monkeypatch.setenv("RTNR_FUSE_UP", "1")
+            ref = bf16.forward_plain(full.x, torch.float32)
+            s = max(1.0, float(ref.abs().max()))
+            assert _budget(bf16(full.x), ref, 5e-2 * s, 5e-3 * s)
+            return
+        r = full.r[mode]
+        if mode == "static":
+            assert len(r.act_scales) == 21
+        for x in ((full.x, full.x2) if mode == "static" else (full.x,)):
+            yb = bf16(x)
+            s = float(yb.float().abs().max())
+            assert _budget(r.unet(x, act_scales=r.act_scales), yb, 0.10 * s, 0.02 * s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "static", "dyn"])
+def test_full_width_unet_calls_match_their_twins(cuda, full, mode):
+    """Each conv call of the full-width net at the frame's shapes, on the
+    net's own activations, against its prepared twin (``chip_smoke.conv_ok``
+    and ``convt_ok``): the int8 calls bit for bit (the fused int8 pool
+    included), the bf16 calls within 2 bf16 ulp of the twin's magnitude (the
+    fused pool exactly the max of the conv), the int8-out input conv within
+    one code on at most 0.1% of its elements; the head within 2 bf16 ulp of
+    its own reference."""
+    net = full.r["off" if mode == "bf16" else mode].unet
+    p = net.prepare() if mode == "bf16" else net.prepare_int8(full.r[mode].act_scales)
+    hd = p["final_conv"]
+    calls = []
+
+    def conv(xs, name, pool=False, head=False):
+        calls.append((name, list(xs), pool, head))
+        return cv.conv3x3_prepared(xs, p[name], relu=True, pool=pool, head=hd if head else None)
+
+    def convt(h, name):
+        calls.append((name, h, None, False))
+        return cv.convt2x2_prepared(h, p[name])
+
+    with torch.no_grad():
+        net._run(full.x.to(torch.bfloat16).contiguous(), conv, convt)
+        assert len(calls) == 22
+        for name, xin, pool, head in calls:
+            if pool is None:
+                assert convt_ok(xin, p[name]), name
+            else:
+                assert conv_ok(xin, p[name], pool, hd if head else None), name
+
+
+@pytest.mark.cuda
+def test_int8_gate_on_card_at_full_width(cuda, full):
+    """Off JAX's phase shapes the full-width int8 nets run exact bf16 on the
+    kernels: at 960x720 (720 % 64 != 0) the static and dyn Renderers give the
+    bf16 frame bit for bit, launch no int8 kernel, and the static one does
+    not calibrate; at the strip shape of a 4-strip 1080p frame (272 + 2 x
+    32 rows) the static net equals the bf16 net, which stays within the
+    bf16 budget of its f32 twin."""
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.pipeline import Renderer
+
+    cam = Camera.from_params(600.0, 600.0, 480.0, 360.0, 960, 720)
+    rs = {m: Renderer(full.scene, RenderConfig(unet_int8=m), full.variables, device="cuda")
+          for m in ("off", "static", "dyn")}
+    ref = rs["off"].compute_full(cam, full.E)
+    int8 = [getattr(cv, k) for k in ("conv3x3_i8out", "conv3x3_static", "conv3x3_dyn",
+                                     "convt2x2_static", "conv3x3_dyn_wgmma",
+                                     "convt2x2_static_wgmma", "conv3x3_static_wgmma")]
+    for m in ("static", "dyn"):
+        before = [c.launches for c in int8]
+        out = rs[m].compute_full(cam, full.E)
+        assert [c.launches for c in int8] == before, m
+        for k in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
+            assert np.array_equal(out[k], ref[k]), (m, k)
+    assert rs["static"].act_scales is None
+    x = full.x[:, :1088 // 4 + 2 * 32].contiguous()
+    bf16, st = full.r["off"].unet, full.r["static"]
+    n = cv.conv3x3_static_wgmma.launches
+    with torch.no_grad():
+        ys = bf16(x)
+        assert torch.equal(st.unet(x, act_scales=st.act_scales), ys)
+        ref = bf16.forward_plain(x, torch.float32)
+    assert cv.conv3x3_static_wgmma.launches == n
+    s = max(1.0, float(ref.abs().max()))
+    assert _budget(ys, ref, 5e-2 * s, 5e-3 * s)
+
+
+@pytest.mark.cuda
+def test_renderer_on_card_matches_cpu(cuda):
+    """A small bf16 render on the card against the same render on the CPU
+    (whose plain twins the CPU tests hold against the JAX package): raw,
+    mask and depth bit for bit, rgb_f within max 5e-2 / mean 5e-3 of the
+    range."""
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+
+    scene = Scene.synthetic(20_000, seed=3, extent=6.0)
+    cam = Camera.from_params(60.0, 60.0, 32.0, 24.0, 64, 48)
+    E = np.eye(4)
+    E[2, 3] = 8.0
+    cfg, v = RenderConfig(unet_features=(16, 32)), init_unet_numpy(1, (16, 32))
+    gpu, cpu = (Renderer(scene, cfg, v, device=d).compute_full(cam, E) for d in ("cuda", "cpu"))
+    for k in ("raw_rgb", "raw_depth", "mask", "depth"):
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    s = max(1.0, float(np.abs(cpu["rgb_f"]).max()))
+    assert _budget(torch.from_numpy(gpu["rgb_f"]), torch.from_numpy(cpu["rgb_f"]), 5e-2 * s,
+                   5e-3 * s)
+
+
+@pytest.mark.cuda
+def test_culled_frame_equals_unculled_on_card(cuda, full):
+    """With the camera inside the cloud, ``cull_budget="auto"`` keeps part
+    of the scene and gives the unculled frame bit for bit."""
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.pipeline import Renderer
+
+    Ec = np.eye(4)
+    Ec[2, 3] = 2.0
+    culled = Renderer(full.scene, RenderConfig(), full.variables, cull_budget="auto",
+                      device="cuda")
+    a, b = full.r["off"].compute_full(full.cam, Ec), culled.compute_full(full.cam, Ec)
+    for k in ("raw_rgb", "raw_depth", "depth", "mask", "rgb_f", "rgb"):
+        assert np.array_equal(a[k], b[k]), k
+    cache = culled._cull_cache
+    assert not cache["overflowed"] and 0 < cache["n_kept"] < full.scene.n_points
+
+
+@pytest.mark.cuda
+def test_diff_raster_images_equal_the_serving_images_on_card(cuda, full):
+    """At 1080p the differentiable resolve's count, depth and sums equal the
+    serving resolve's integer images exactly (integer colours: every f32 sum
+    is exact)."""
+    from rtnr_tpu_torch.config import RenderConfig
+
+    r, hw, band = full.r["off"], 1920 * 1080, RenderConfig().depth_band
+    M = r._cam_proj(full.cam, full.E)
+    sd, _ = tr.project_and_sort_diff(r.points, r.colors, M, valid=r.valid, **_FRAME)
+    sums_f, cnt_f, depth_f = rr.raster_images_diff(sd, hw, band)
+    sums_i, cnt_i, depth_i = rr.raster_images_v4(
+        tr.project_and_sort(r.points, r.colors, M, valid=r.valid, **_FRAME), hw, band)
+    assert int(cnt_i.max()) > 1
+    assert torch.equal(cnt_f, cnt_i.float()) and torch.equal(sums_f, sums_i.float())
+    assert torch.equal(depth_f.view(torch.int32), depth_i.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train_step", "scene_step"])
+def test_train_steps_at_full_width_on_card(cuda, full, kind):
+    """One bf16 step of each train step at 1080p, the full-width net, the
+    scene's own render as its target: the train step launches rtnr_resolve4
+    and the prefilter once and no K1 or K2, the scene step rtnr_resolve_diff
+    once and no K5, K2 or prefilter kernel; each runs its 18 BatchNorm
+    layers on the fused kernels, ends with a finite loss and moves the batch
+    statistics; the scene step's pose and colour gradients are not zero and
+    it moves the colours and the camera matrices."""
+    from rtnr_tpu_torch.ops import bn_train as bt
+    from rtnr_tpu_torch.ops import prefilter as tp
+    from rtnr_tpu_torch.pipeline import render_rgbd
+    from rtnr_tpu_torch.train import trainer as tt
+
+    r = full.r["off"]
+    M = r._cam_proj(full.cam, full.E)
+    targets = render_rgbd(r.points, r.colors, r.valid, M, **_FRAME)["rgb"][None].float() / 255.0
+    counters = dict(resolve4=rr.raster_images_v4, resolve_diff=rr.raster_images_diff,
+                    winners=rr.winners, winners_f32=rr.winners_f32, expand=rr.expand_winners,
+                    prefilter=tp.filter_frame, bn=bt.bn_relu_train)
+    before = {k: c.launches for k, c in counters.items()}
+    if kind == "train_step":
+        state = tt.create_train_state(full.variables, dtype=torch.bfloat16, device="cuda")
+        step = tt.make_train_step(**_FRAME)
+        args = (r.points, r.colors, r.valid, M[None], targets)
+        want = dict(resolve4=1, prefilter=1)
+    else:
+        state = tt.create_scene_train_state(full.variables, r.colors, M[None],
+                                            dtype=torch.bfloat16, device="cuda")
+        cols0, cams0 = state.colors.detach().clone(), state.cam_projs.detach().clone()
+        step = tt.make_scene_train_step(**_FRAME)
+        args = (r.points, r.valid, targets)
+        want = dict(resolve_diff=1)
+    stats0 = state.model.param("down0/bn0/mean").clone()
+    state, m = step(state, *args)
+    torch.cuda.synchronize()
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    assert got == {**{k: 0 for k in counters}, **want, "bn": 18}
+    assert np.isfinite(float(m["loss"]))
+    assert not torch.equal(stats0, state.model.param("down0/bn0/mean"))
+    if kind == "scene_step":
+        assert float(m["pose_grad_norm"]) > 0 and float(m["color_grad_norm"]) > 0
+        assert not torch.equal(cols0, state.colors.detach())
+        assert not torch.equal(cams0, state.cam_projs.detach())
+
+
+@pytest.mark.cuda
+def test_small_scene_step_on_card_matches_cpu(cuda):
+    """One scene step at 32x32, features (8, 16), f32 (TF32 off), on the card
+    against the same step on the CPU (whose plain twins the CPU tests hold
+    against the JAX package): the loss and the gradient norms within rtol
+    1e-3."""
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.train import trainer as tt
+
+    pts, cols, valid = Scene.synthetic(8192, seed=0, extent=6.0).sorted_by_block() \
+        .device_arrays(64)
+    cam = Camera.from_params(30, 30, 16, 16, 32, 32)
+    Es = [np.eye(4), np.eye(4)]
+    Es[0][2, 3], Es[1][2, 3] = 8.0, 8.2
+    cams = np.stack([cam.cam_proj(e) for e in Es]).astype(np.float32)
+    targets = np.random.default_rng(4).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    variables = init_unet_numpy(0, (8, 16))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = tt.create_scene_train_state(variables, cols, cams, learning_rate=1e-3, device=dev)
+        step = tt.make_scene_train_step(width=32, height=32, levels=3)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        _, m = step(st, t(pts), t(valid), t(targets))
+        out[dev] = {k: float(v) for k, v in m.items()}
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-3 * abs(v), (k, out)
+
+
+def _train_demo_scene():
+    """The JAX package's scripts/train_demo_r5.py scene: 400,000 points on a
+    back wall, a floor and two side walls, coloured per wall with seeded
+    noise (seed 7): (points f32, colours u8)."""
+    rng = np.random.default_rng(7)
+    walls, cols = [], []
+    m = 100_000
+    for k in range(4):
+        p = rng.uniform(-4, 4, (m, 3))
+        if k == 0:
+            p[:, 2] = 6.0 + 0.05 * rng.standard_normal(m)  # back wall
+            c = np.stack([200 + 0 * p[:, 0], 60 + 20 * p[:, 0], 60 + 10 * p[:, 1]], 1)
+        elif k == 1:
+            p[:, 1] = 3.0 + 0.05 * rng.standard_normal(m)  # floor
+            c = np.stack([60 + 10 * p[:, 0], 180 + 0 * p[:, 0], 60 + 10 * p[:, 2]], 1)
+        elif k == 2:
+            p[:, 0] = -4.0 + 0.05 * rng.standard_normal(m)
+            p[:, 2] = rng.uniform(0, 6, m)
+            c = np.stack([60 + 0 * p[:, 1], 60 + 10 * p[:, 1], 200 + 5 * p[:, 2]], 1)
+        else:
+            p[:, 0] = 4.0 + 0.05 * rng.standard_normal(m)
+            p[:, 2] = rng.uniform(0, 6, m)
+            c = np.stack([200 + 0 * p[:, 1], 180 + 5 * p[:, 1], 60 + 0 * p[:, 2]], 1)
+        walls.append(p)
+        cols.append(np.clip(c + 10 * rng.standard_normal(c.shape), 0, 255))
+    return np.concatenate(walls).astype(np.float32), np.concatenate(cols).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_train_cli_loss_falls_on_card(cuda, tmp_path, capsys):
+    """The training CLI on the card as the JAX package's
+    scripts/train_demo_r5.py runs it: the demo scene as PLY, a 16-pose TUM
+    trajectory, a 640x352 calibration, 150 self-supervised steps at lr 2e-4
+    with the full-width bf16 net from ``init_unet_numpy(0)``: the last
+    logged loss is below the first, every step runs 18 fused BatchNorm
+    layers, and the checkpoint renders pose 8 nearer its target (L1) than
+    the untrained net."""
+    import json
+
+    from rtnr_tpu_torch.apps.train_unet import main
+    from rtnr_tpu_torch.camera import Trajectory
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.data.ply import write_ply
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.ops import bn_train as bt
+    from rtnr_tpu_torch.pipeline import Renderer
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.utils.checkpoint import load_unet_variables
+
+    steps, w, h, fx = 150, 640, 352, 420.0
+    ply, traj, calib, ckpt = (str(tmp_path / f) for f in ("s.ply", "t.txt", "c.txt", "u.msgpack"))
+    write_ply(ply, *_train_demo_scene())
+    (tmp_path / "t.txt").write_text("".join(
+        f"{i:.1f} {-1.0 + 2.0 * i / 15:.4f} {0.2:.4f} {-2.0 - i / 15:.4f} 0 0 0 1\n"
+        for i in range(16)))
+    (tmp_path / "c.txt").write_text(f"{w} {h}\n{fx} 0 {w / 2}\n0 {fx} {h / 2}\n0 0 1\n"
+                                    "0 0 0 0 0\n0\n")
+    n = bt.bn_relu_train.launches
+    assert main([ply, traj, calib, "--self-supervised", "--steps", str(steps), "--lr", "2e-4",
+                 "-o", ckpt, "--log-every", "10"], device="cuda") == 0
+    assert bt.bn_relu_train.launches - n == 18 * steps
+    logs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert logs[-1]["step"] == steps - 1 and logs[-1]["loss"] < logs[0]["loss"], logs
+    cam, E = Camera.load_calibration(calib), Trajectory.load(traj).world_to_cam(8)
+    scene, target, l1 = Scene.from_file(ply), None, {}
+    for tag, v in (("untrained", init_unet_numpy(0, FULL)), ("trained", load_unet_variables(ckpt))):
+        r = Renderer(scene, RenderConfig(unet_int8="off"), v, device="cuda")
+        if target is None:
+            target = r.compute_rgbd(cam, E)["rgb"].astype(np.float32) / 255.0
+        l1[tag] = float(np.abs(r.compute_full(cam, E)["rgb_f"] - target).mean())
+    assert l1["trained"] < l1["untrained"], l1
+
+
+# ---------------------------------------------------------------------------
+# the multi-rank paths on ranks sharing the card (gloo; one NCCL rank), each
+# case bit for bit against the one-device frames of the same poses
+# ---------------------------------------------------------------------------
+
+# the ranks import this module from its directory: ``tests`` may name another package there
+_HERE = str(__import__("pathlib").Path(__file__).resolve().parent)
+PAR_POINTS = 5_000_000
+PAR_POSES = 8  # frames of render_full_batch (two a rank on four ranks)
+PAR_TRAIN_STEPS = 2  # scene-train steps on (2, 1) against one rank
+# step 0's gradient norms on (2, 1) against one rank, relative, each four to
+# eight times its reading on an NVIDIA H100 80GB HBM3 at 700 W (at most the
+# CPU test's 1e-4, tests/test_torch_parallel_diff.py). One rank convolves
+# both frames at once, each of the two ranks one; the pose norm is a sum
+# over 5M points that cancels to 1e-3 of its terms. f32 (TF32 off) read
+# 3.9e-6, 1.4e-6, 2.1e-4; bf16 2.3e-3, 6.0e-5, 9.3e-3. A merge that drops
+# or doubles a rank's part moves a norm by tens of percent.
+PAR_GRAD_RTOL = {"float32": {"grad_norm": 1e-4, "color_grad_norm": 1e-4,
+                             "pose_grad_norm": 1e-3},
+                 "bfloat16": {"grad_norm": 1e-2, "color_grad_norm": 5e-4,
+                              "pose_grad_norm": 5e-2}}
+TILE_HALO, TILE_UNET_HALO = 96, 32  # the render CLI's arithmetic at 1088 rows, 4 strips
+STRIP_EDGE = 64  # the image's outer rows left out of the strip U-Net's seam bounds
+
+
+def _par_counters():
+    from rtnr_tpu_torch.ops import bn_train
+
+    return {"resolve4": (rr.raster_images_v4, "launches"),
+            "bn_train": (bn_train.bn_relu_train, "launches"),
+            "resolve4_ref": (rr.raster_images_v4, "band_ref_launches"),
+            "resolve_diff": (rr.raster_images_diff, "launches"),
+            "resolve_diff_ref": (rr.raster_images_diff, "band_ref_launches"),
+            "winners": (rr.winners, "launches"), "expand": (rr.expand_winners, "launches"),
+            "conv3x3_wgmma": (cv.conv3x3_wgmma, "launches"),
+            "convt2x2_wgmma": (cv.convt2x2_wgmma, "launches"),
+            "conv3x3_in": (cv.conv3x3_in, "launches"),
+            "conv3x3_static_wgmma": (cv.conv3x3_static_wgmma, "launches"),
+            "convt2x2_static_wgmma": (cv.convt2x2_static_wgmma, "launches")}
+
+
+def _par_read():
+    return {k: getattr(fn, attr) for k, (fn, attr) in _par_counters().items()}
+
+
+def _par_poses():
+    """PAR_POSES camera poses 12 m out, moved sideways."""
+    out = []
+    for k in range(PAR_POSES):
+        E = np.eye(4)
+        E[0, 3], E[1, 3], E[2, 3] = 0.25 * k - 1.0, 0.1 * (k % 3), 12.0 - 0.2 * k
+        out.append(E)
+    return out
+
+
+def _par_rank_cases(nccl: bool = False):
+    """One rank of the multi-rank cases (every rank runs it; ``nccl``: one
+    rank on NCCL, every mesh of size 1, then NCCL's collectives). Each case
+    computes its one-device reference, runs once uncounted, then counts the
+    launches of one sharded call and holds its outputs to the reference bit
+    for bit (the strip U-Net's ``rgb_f`` within JAX's seam bounds). Raises
+    on a mismatch."""
+    import torch.distributed as dist
+
+    from rtnr_tpu_torch.config import RenderConfig
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.ops.culling import build_block_index
+    from rtnr_tpu_torch.ops.raster import rasterize
+    from rtnr_tpu_torch.ops.raster_diff import rasterize_diff_sorted
+    from rtnr_tpu_torch.parallel import collectives as C
+    from rtnr_tpu_torch.parallel.diff import rasterize_diff_point_sharded
+    from rtnr_tpu_torch.parallel.mesh import make_mesh
+    from rtnr_tpu_torch.parallel.render import (
+        rasterize_point_sharded,
+        render_filtered_sharded,
+        render_full_batch,
+    )
+    from rtnr_tpu_torch.parallel.tiles import rasterize_tile_sharded, render_full_tile_sharded
+    from rtnr_tpu_torch.pipeline import Renderer, render_filtered, render_full
+    from rtnr_tpu_torch.scene import Scene
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    W, H = _FRAME["width"], _FRAME["height"]
+    n, backend = dist.get_world_size(), dist.get_backend()  # every mesh spans the world
+    scene = Scene.synthetic(PAR_POINTS, seed=0, extent=10.0)
+    cam = Camera.from_params(1100.0, 1100.0, W / 2, H / 2, W, H)
+    variables = init_unet_numpy(0, FULL)
+    bf16 = Renderer(scene, RenderConfig(), variables, device="cuda")
+    static = Renderer(scene, RenderConfig(unet_int8="static"), variables, device="cuda")
+    poses = _par_poses()
+    Ms = torch.stack([bf16._cam_proj(cam, E) for E in poses])
+    static.calibrate(cam, poses[0])
+    pts, cols, valid = bf16.points, bf16.colors, bf16.valid
+
+    def case(run, check):
+        run()
+        torch.cuda.synchronize()
+        dist.barrier()
+        before = _par_read()
+        out = run()
+        torch.cuda.synchronize()
+        check(out, {k: v - before[k] for k, v in _par_read().items()})
+
+    def need(launches, **want):
+        for k, v in want.items():
+            if launches[k] != v:
+                raise AssertionError(f"{k} launched {launches[k]} times, not {v}")
+
+    def same(got, want):
+        g = got.view(torch.int32) if got.dtype == torch.float32 else got
+        w = want.view(torch.int32) if want.dtype == torch.float32 else want
+        return g.shape == w.shape and bool(torch.equal(g, w))
+
+    # 1. one frame, the scene over the points axis: (1, n)
+    mesh = make_mesh((1, n))
+    blk = lambda a: C.shard_rows(a, mesh, "points")  # noqa: E731
+    ref_rgb, ref_depth = rasterize(pts, cols, Ms[0], width=W, height=H, valid=valid)
+
+    def check_point(out, launches):
+        if not (same(out[0], ref_rgb) and same(out[1], ref_depth)):
+            raise AssertionError("rasterize_point_sharded differs from rasterize")
+        two = n > 1  # pass 1, then the band-reference pass
+        need(launches, resolve4=1 + two, resolve4_ref=int(two), winners=0, expand=0)
+
+    case(lambda: rasterize_point_sharded(blk(pts), blk(cols), blk(valid), Ms[0], mesh, width=W,
+                                         height=H), check_point)
+
+    # 2. render_filtered_sharded on (2, 2) (n == 1: (1, 1)), two frames
+    mesh = make_mesh((2, 2) if n == 4 else (1, n))
+    blk = lambda a: C.shard_rows(a, mesh, "points")  # noqa: E731
+    nb = mesh.shape["batch"]
+    mine = list(range(2))[mesh.axis_index("batch") * (2 // nb):][:2 // nb]
+    refs = [render_filtered(pts, cols, valid, Ms[f], width=W, height=H) for f in mine]
+
+    def check_filtered(out, launches):
+        for j, r in enumerate(refs):
+            for k in ("raw_rgb", "raw_depth", "rgb", "depth", "mask", "unet_input"):
+                if not same(out[k][j], r[k]):
+                    raise AssertionError(f"render_filtered_sharded {k} differs (frame {mine[j]})")
+        two = mesh.shape["points"] > 1
+        need(launches, resolve4=len(mine) * (1 + two), resolve4_ref=len(mine) * two)
+
+    case(lambda: render_filtered_sharded(blk(pts), blk(cols), blk(valid), Ms[:2], mesh, width=W,
+                                         height=H), check_filtered)
+    del refs
+
+    # 3. render_full_batch on (n, 1): PAR_POSES frames, bf16 and static int8
+    mesh = make_mesh((n, 1))
+    fl = PAR_POSES // n
+    mine = list(range(mesh.axis_index("batch") * fl, (mesh.axis_index("batch") + 1) * fl))
+    for label, r in (("bf16", bf16), ("static", static)):
+        refs = [render_full(pts, cols, valid, Ms[f], r.unet, width=W, height=H,
+                            act_scales=r.act_scales)["rgb_f"] for f in mine]
+
+        def check_full(out, launches, refs=refs, label=label):
+            for j, y in enumerate(refs):
+                if not same(out["rgb_f"][j], y):
+                    raise AssertionError(f"render_full_batch ({label}) rgb_f differs "
+                                         f"(frame {mine[j]})")
+            if label == "bf16":
+                need(launches, resolve4=fl, resolve4_ref=0, conv3x3_wgmma=17 * fl,
+                     convt2x2_wgmma=4 * fl, conv3x3_in=fl, conv3x3_static_wgmma=0)
+            else:
+                need(launches, resolve4=fl, conv3x3_static_wgmma=17 * fl,
+                     convt2x2_static_wgmma=4 * fl, conv3x3_in=fl, conv3x3_wgmma=0)
+            g = C.gather_frames(out["rgb_unet"], mesh)
+            if tuple(g.shape) != (PAR_POSES, H, W, 3):
+                raise AssertionError(f"gather_frames gave {tuple(g.shape)}")
+
+        case(lambda r=r: render_full_batch(pts, cols, valid, Ms, mesh, r.unet, width=W, height=H,
+                                           act_scales=r.act_scales), check_full)
+        del refs
+    torch.cuda.empty_cache()
+
+    # 4. row strips with the per-strip block culling: (n,) tiles
+    mesh = make_mesh((n,), ("tiles",))
+    index = build_block_index(scene, pad_to_multiple=1024, device=pts.device)
+
+    def check_tiles(out, launches):
+        if not (same(out[0], ref_rgb) and same(out[1], ref_depth)):
+            raise AssertionError("rasterize_tile_sharded differs from rasterize")
+        need(launches, resolve4=1, resolve4_ref=0)
+
+    case(lambda: rasterize_tile_sharded(pts, cols, valid, Ms[0], mesh, width=W, height=H,
+                                        block_index=index), check_tiles)
+    del index
+
+    # 5. the whole pipeline on strips at the pyramid height (1088 rows)
+    hp = 1088
+    one = render_full(pts, cols, valid, Ms[0], bf16.unet, width=W, height=hp)
+    mid = render_filtered(pts, cols, valid, Ms[0], width=W, height=hp)["unet_input"]
+
+    def check_strips(out, launches):
+        for k in ("raw_rgb", "raw_depth"):
+            if not same(out[k], one[k]):
+                raise AssertionError(f"render_full_tile_sharded {k} differs")
+        if not same(out["unet_input"], mid):
+            raise AssertionError("render_full_tile_sharded core unet_input differs")
+        need(launches, resolve4=1, conv3x3_in=1, conv3x3_wgmma=17, convt2x2_wgmma=4)
+        # away from the image's outer rows, JAX's seam bounds (tests/test_tiles.py:
+        # mean 2e-3, max 0.15). At those rows the zeroed overlap rows of the first
+        # and last strips are not the one-card net's padding: JAX's strips leave
+        # the bounds there too, and the port's equal JAX's on the border strips
+        # (tests/test_torch_tiles.py, random-BatchNorm weights)
+        d = (out["rgb_f"] - one["rgb_f"]).abs()[STRIP_EDGE:hp - STRIP_EDGE]
+        rgb8 = (out["rgb_unet"].float() - one["rgb"].float()).abs()
+        if not (float(d.mean()) < 2e-3 and float(d.max()) < 0.15 and float(rgb8.mean()) <= 1.0):
+            raise AssertionError(f"the strip U-Net's frame: rgb_f inner mean {float(d.mean())}, "
+                                 f"max {float(d.max())}; uint8 mean {float(rgb8.mean())}")
+
+    case(lambda: render_full_tile_sharded(pts, cols, valid, Ms[0], mesh, bf16.unet, width=W,
+                                          height=hp, halo=TILE_HALO, unet_halo=TILE_UNET_HALO),
+         check_strips)
+    del one, mid
+    torch.cuda.empty_cache()
+
+    # 6. the differentiable forward on (1, n), integer colours: bit for bit
+    mesh = make_mesh((1, n))
+    blk = lambda a: C.shard_rows(a, mesh, "points")  # noqa: E731
+    colsf = cols.float()
+    ref = rasterize_diff_sorted(pts, colsf, Ms[0], width=W, height=H, valid=valid)
+    c_blk = blk(colsf).clone().requires_grad_(True)
+
+    def check_diff(out, launches):
+        for k in ("rgb", "depth", "count", "mask"):
+            if not same(getattr(out, k).detach(), getattr(ref, k).detach()):
+                raise AssertionError(f"rasterize_diff_point_sharded {k} differs")
+        two = n > 1
+        need(launches, resolve_diff=1 + two, resolve_diff_ref=int(two))
+        loss = torch.sum(out.rgb * 1e-3) + 1e-6 * torch.sum(torch.where(out.mask, out.depth, 0.0))
+        loss.backward()
+        if not bool(torch.isfinite(c_blk.grad).all()) or float(c_blk.grad.abs().sum()) == 0:
+            raise AssertionError("rasterize_diff_point_sharded colour gradients")
+
+    case(lambda: rasterize_diff_point_sharded(blk(pts), c_blk, Ms[0], mesh, width=W, height=H,
+                                              valid=blk(valid)), check_diff)
+
+    if nccl:  # NCCL's collectives on CUDA tensors at world size 1
+        x = torch.arange(8, device=pts.device, dtype=torch.float32)
+        y = x.clone()
+        for op in (dist.ReduceOp.MIN, dist.ReduceOp.MAX, dist.ReduceOp.SUM):
+            dist.all_reduce(y, op=op)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        dist.broadcast(y, 0)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, x) and torch.equal(parts[0], x)):
+            raise AssertionError("NCCL collectives at world size 1")
+    return backend
+
+
+def _par_train_ranks(steps: int):
+    """Scene-train steps on a (2, 1) mesh, one 1080p frame a rank: ``steps``
+    with the bf16 U-Net, then one with the f32 U-Net (TF32 off); rank 0
+    first runs the same steps on one rank with both frames. Returns the
+    metrics, a digest of the parameters after each step and the fused
+    BatchNorm layers of the two-rank steps."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from rtnr_tpu_torch.models.convert import init_unet_numpy
+    from rtnr_tpu_torch.ops import bn_train
+    from rtnr_tpu_torch.ops.raster import rasterize
+    from rtnr_tpu_torch.parallel.mesh import make_mesh
+    from rtnr_tpu_torch.scene import Scene
+    from rtnr_tpu_torch.train import trainer as tt
+
+    W, H = _FRAME["width"], _FRAME["height"]
+    rank = dist.get_rank()
+    cam = Camera.from_params(1100.0, 1100.0, W / 2, H / 2, W, H)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pts, cols, valid = (torch.from_numpy(a).to(dev) for a in Scene.synthetic(
+        PAR_POINTS, seed=0, extent=10.0).sorted_by_block().device_arrays(1024))
+    Ms = torch.stack([torch.from_numpy(cam.cam_proj(E).astype(np.float32)).to(dev)
+                      for E in _par_poses()[:2]])
+    targets = torch.stack([rasterize(pts, cols, M, width=W, height=H, valid=valid)[0].float()
+                           / 255.0 for M in Ms])
+    variables = init_unet_numpy(0, FULL)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(mesh, dtype=torch.bfloat16, n_steps=steps):
+        state = tt.create_scene_train_state(variables, cols.float().cpu().numpy(),
+                                            Ms.cpu().numpy(), dtype=dtype, learning_rate=1e-4)
+        step = tt.make_scene_train_step(width=W, height=H, mesh=mesh)
+        out = []
+        for _ in range(n_steps):
+            state, m = step(state, pts, valid, targets)
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for p in state.model.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+            out.append({"params": h.hexdigest(), **{k: float(v) for k, v in m.items()}})
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    res = {"rank": rank}
+    if rank == 0:
+        res["one_rank"] = run(None)
+    dist.barrier()
+    n = bn_train.bn_relu_train.launches
+    res["two_ranks"] = run(make_mesh((2, 1)))
+    res["bn_layers"] = bn_train.bn_relu_train.launches - n
+    if rank == 0:
+        res["one_rank_f32"] = run(None, torch.float32, 1)
+    dist.barrier()
+    res["two_ranks_f32"] = run(make_mesh((2, 1)), torch.float32, 1)
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world, backend", [(4, "gloo"), (1, "nccl")])
+def test_parallel_cases_on_ranks_sharing_the_card(cuda, world, backend):
+    """``_par_rank_cases`` at the benchmark's frame (5M points, the
+    full-width net) on four gloo ranks sharing the card (the backend rule's
+    choice there) and on one NCCL rank: the point-sharded raster on (1, n),
+    ``render_filtered_sharded`` on (2, 2), ``render_full_batch`` on (n, 1)
+    over 8 poses in bf16 and static int8, ``rasterize_tile_sharded`` with
+    per-strip culling, ``render_full_tile_sharded`` at 1088 rows and the
+    point-sharded differentiable forward, each against one device."""
+    from rtnr_tpu_torch.parallel.launch import run_ranks
+
+    res = run_ranks("test_torch_cuda:_par_rank_cases", world, {"nccl": backend == "nccl"},
+                    device="cuda", threads=2, extra_path=[_HERE], timeout=900)
+    assert res == [backend] * world
+
+
+@pytest.mark.cuda
+def test_scene_train_steps_on_two_ranks_match_one_rank(cuda):
+    """Two gloo ranks sharing the card, one 1080p frame each, against one
+    rank stepping both frames: step 0's gradient norms within
+    ``PAR_GRAD_RTOL`` in bf16 and in f32, the parameters equal on both ranks
+    after every step, the losses within 1e-2, 18 fused BatchNorm layers a
+    step on each rank."""
+    from rtnr_tpu_torch.parallel.launch import run_ranks
+
+    res = run_ranks("test_torch_cuda:_par_train_ranks", 2, {"steps": PAR_TRAIN_STEPS},
+                    device="cuda", threads=2, extra_path=[_HERE], timeout=900)
+    one, two = res[0]["one_rank"], [r["two_ranks"] for r in res]
+    # step 0 is where the merge of the U-Net's, the colours' and the poses'
+    # gradients shows before any update moves the two runs apart
+    for dt, a, b in (("bfloat16", two[0][0], one[0]),
+                     ("float32", res[0]["two_ranks_f32"][0], res[0]["one_rank_f32"][0])):
+        for k, rtol in PAR_GRAD_RTOL[dt].items():
+            assert abs(a[k] - b[k]) <= rtol * abs(b[k]), (dt, k, a[k], b[k])
+    assert [r["bn_layers"] for r in res] == [18 * PAR_TRAIN_STEPS] * 2
+    assert res[0]["two_ranks_f32"][0]["params"] == res[1]["two_ranks_f32"][0]["params"]
+    for s in range(PAR_TRAIN_STEPS):
+        assert two[0][s]["params"] == two[1][s]["params"], s
+        assert abs(two[0][s]["loss"] - one[s]["loss"]) <= 1e-2 * abs(one[s]["loss"]), s

@@ -23,7 +23,7 @@ from rtnr_tpu_torch.camera import Camera
 from rtnr_tpu_torch.ops import raster_diff as td
 from rtnr_tpu_torch.ops import raster_resolve4 as rr
 from rtnr_tpu_torch.ops.raster import SortedDiff
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 from tests.test_torch_resolve4 import (CHUNK, ELEMS, INT_MAX, P, _outputs, _tile_store,
                                        warp_lower_bound)
 

@@ -29,7 +29,7 @@ from rtnr_tpu.pipeline import Renderer as JRenderer
 from rtnr_tpu.scene import Scene as JScene
 from rtnr_tpu_torch.apps import generate_pairs as cli
 from rtnr_tpu_torch.data import pairs
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 W, H = 128, 96
 

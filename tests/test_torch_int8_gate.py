@@ -20,12 +20,13 @@ import jax.numpy as jnp
 from rtnr_tpu.models.fold_bn import fold_batchnorm as j_fold
 from rtnr_tpu.models.unet import UNet as JUNet
 from rtnr_tpu.models.unet import phase_input_ok
+from rtnr_tpu.pipeline import pyramid_pad_shape as j_pad_shape
 from rtnr_tpu.pipeline import render_full as j_render_full
 from rtnr_tpu_torch.camera import Camera
 from rtnr_tpu_torch.config import RenderConfig
 from rtnr_tpu_torch.models.convert import from_flax_variables, init_unet_numpy
 from rtnr_tpu_torch.models.unet import UNet, calibrate_act_scales
-from rtnr_tpu_torch.pipeline import Renderer, render_full
+from rtnr_tpu_torch.pipeline import Renderer, pyramid_pad_shape, render_full
 from rtnr_tpu_torch.scene import Scene
 
 FEAT = (8, 16)
@@ -47,16 +48,35 @@ def _x(h, seed=1):
                             .astype(np.float32))
 
 
-@pytest.mark.parametrize("features", [(8, 16), (16, 32), (64, 128, 256, 512), (12, 24)])
-def test_shape_gate_is_jax_phase_input_ok(features):
+# the JAX package's bench.py frames (width, height) at the full-width net:
+# 1920x1080 quantises; the reference's export shapes 960x720 and 1440x1440 do not
+BENCH_FRAMES = {(1920, 1080): True, (960, 720): False, (1440, 1440): False, (1024, 768): None,
+                (2048, 1088): None}
+_GATE_CASES = [pytest.param(f, None, id=f"features{i}")
+               for i, f in enumerate([(8, 16), (16, 32), (64, 128, 256, 512), (12, 24)])] + [
+    pytest.param((64, 128, 256, 512), wh, id=f"{wh[0]}x{wh[1]}") for wh in BENCH_FRAMES]
+
+
+@pytest.mark.parametrize("features, frame", _GATE_CASES)
+def test_shape_gate_is_jax_phase_input_ok(features, frame):
     """``int8_applies`` equals ``phase_input_ok``'s shape terms (its
-    backend term forced) over a grid of padded shapes."""
+    backend term forced) over a grid of padded shapes, or at one of
+    ``bench.py``'s frames padded by each package's ``pyramid_pad_shape``."""
     jnet = JUNet(features=features, dtype=jnp.bfloat16, fold_bn=True, conv_impl="pallas")
     net = types.SimpleNamespace(features=tuple(features))  # the gate reads only the widths
-    m = 1 << len(features)
-    for h in range(m, 1536 + m, m):
-        for w in (m, 3 * m, 120 * m, 128 * m, 129 * m, 136 * m):
-            assert UNet.int8_applies(net, h, w) == phase_input_ok(jnet, h, w, force=True), (h, w)
+    n = len(features)
+    if frame is None:
+        m = 1 << n
+        for h in range(m, 1536 + m, m):
+            for w in (m, 3 * m, 120 * m, 128 * m, 129 * m, 136 * m):
+                assert UNet.int8_applies(net, h, w) == phase_input_ok(jnet, h, w, force=True), \
+                    (h, w)
+        return
+    w, h = frame
+    applies = UNet.int8_applies(net, *pyramid_pad_shape(h, w, n))
+    assert applies == phase_input_ok(jnet, *j_pad_shape(h, w, n), force=True)
+    if BENCH_FRAMES[frame] is not None:
+        assert applies == BENCH_FRAMES[frame]
 
 
 def test_unet_int8_is_exact_bf16_off_the_shape_terms(raw):

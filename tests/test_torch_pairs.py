@@ -13,7 +13,7 @@ from rtnr_tpu.scene import Scene as JScene
 from rtnr_tpu_torch.camera import Camera
 from rtnr_tpu_torch.data import pairs
 from rtnr_tpu_torch.scene import Scene
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 W, H = 32, 24
 INTR = (30.0, 30.0, W / 2, H / 2, W, H)

@@ -20,7 +20,7 @@ from rtnr_tpu_torch.models.convert import from_flax_variables, init_unet_numpy
 from rtnr_tpu_torch.models.unet import UNet
 from rtnr_tpu_torch.pipeline import FrameTimings, Renderer, render_full
 from rtnr_tpu_torch.scene import Scene
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 FEAT = (16, 32)
 

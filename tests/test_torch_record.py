@@ -21,23 +21,13 @@ from rtnr_tpu_torch.pipeline import Renderer
 from rtnr_tpu_torch.scene import Scene
 from rtnr_tpu_torch.train import trainer as tt
 from rtnr_tpu_torch.utils import trace
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 FEAT = (8, 16)
 FRAME_CHILDREN = ["frame.cull", "frame.projection", "frame.filter", "frame.unet", "frame.wait",
                   "frame.copy_out"]
 PROJECTION_CHILDREN = ["projection.sort"]
 STEP_CHILDREN = ["step.render", "step.forward", "step.backward", "step.optimizer"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Torch on one thread, as ``tests/test_torch_bench.py``'s fixture (not
-    imported: that file imports JAX, and this one runs on the card's machine
-    too)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _last_id():

@@ -334,10 +334,3 @@ def test_v4_wrapper_takes_the_twin_only_on_cpu():
               rr.raster_images_v4_plain(sp, hw, BAND, packed_out))
     assert (rr.raster_images_v4.launches, rr.winners.launches,
             rr.expand_winners.launches) == before
-
-
-def test_expand_search_refuses_cpu_tensors():
-    sp, hw = _STREAMS["empty_tile"]
-    wimg, total = rr.winners_plain(sp, hw, BAND)
-    with pytest.raises(ValueError):
-        rr.expand_search(wimg, total, hw)

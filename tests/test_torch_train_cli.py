@@ -29,7 +29,7 @@ from rtnr_tpu_torch.pipeline import Renderer
 from rtnr_tpu_torch.scene import Scene
 from rtnr_tpu_torch.utils.checkpoint import load_unet_variables
 from rtnr_tpu_torch.utils.image import write_png
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 LR = 1e-3
 STEPS = ["--steps", "2", "--log-every", "1", "--lr", str(LR), "--features", "8", "16"]

@@ -15,7 +15,7 @@ from rtnr_tpu.models.unet import UNet as JUNet
 from rtnr_tpu_torch.models.convert import from_flax_variables, init_unet_numpy
 from rtnr_tpu_torch.models.fold_bn import fold_batchnorm
 from rtnr_tpu_torch.models.unet import UNet, calibrate_act_scales
-from tests.test_torch_bench import one_thread  # noqa: F401 (autouse: torch on one thread)
+from torch_threads import one_thread  # noqa: F401 (autouse: torch on one thread)
 
 FEAT = (16, 32)
 H, W = 16, 32
